@@ -104,8 +104,9 @@ def test_structure_checks(tmp_path):
 
 
 def test_unported_parts_raise(tmp_path):
-    """Mersenne forms, digit-engine overflow (RNS sizes) and Edwards name
-    their ROADMAP item instead of running something else."""
+    """Mersenne forms and Edwards name their ROADMAP item instead of
+    running something else; beyond the digit engine's bound the driver
+    takes the RNS engine, and an explicit digit request raises."""
     m101 = (1 << 101) - 1
     with pytest.raises(NotImplementedError, match="Mersenne"):
         driver.ECMDriver(_cfg(tmp_path, n=m101, curves=2, b1=100))
@@ -113,9 +114,11 @@ def test_unported_parts_raise(tmp_path):
                                 sigma=900, force_no_mersenne=True)).run()
     assert res.curves_run == 2
     big = (1 << 2200) + 297                 # beyond the int32 digit bound
-    with pytest.raises(NotImplementedError, match="RNS"):
+    assert driver.ECMDriver(_cfg(tmp_path, n=big * 3 * 5 * 7, curves=1,
+                                 b1=100)).engine == "rns"
+    with pytest.raises(ValueError, match="digit"):
         driver.ECMDriver(_cfg(tmp_path, n=big * 3 * 5 * 7, curves=1,
-                              b1=100))
+                              b1=100, engine="digit"))
     with pytest.raises(NotImplementedError, match="Edwards"):
         driver.ECMDriver(_cfg(tmp_path, n=N71, curves=1, b1=100,
                               curve_mode="edwards"))
@@ -128,4 +131,7 @@ def test_cli_runs_on_cpu(tmp_path, capsys, monkeypatch):
     assert str(P35) in capsys.readouterr().out
     assert os.path.exists(tmp_path / "save_b1.txt")
     assert cli.main(["-edwards", str(N71), "2", "300"]) == 1
+    rc = cli.main(["-device", "cpu", "-rns", str(N71), "2", "300", "0",
+                   "300", "174"])
+    assert rc == 0 and "engine: RNS" in capsys.readouterr().out
     assert cli.main(["-device", "tpu", str(N71), "2", "300"]) == 1

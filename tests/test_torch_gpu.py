@@ -1,6 +1,7 @@
 """Tests that need an NVIDIA GPU (marker `cuda`; they skip without one):
-the five CUDA kernels against their plain PyTorch versions, the golden
-sweep and the reference's t35 acceptance sweep through the port.
+the ten CUDA kernels against their plain PyTorch versions, the golden
+sweep and the reference's t35 acceptance sweep through the port, and the
+RNS engine's finds through the driver on the card.
 
 The card has no JAX, so run them from the repository root without the
 JAX conftest:
@@ -72,6 +73,51 @@ def test_kernels_match_plain(cuda, modulus, b):
         else:
             assert torch.equal(got, want), name
         assert kernels.launches[name] >= 1, name
+
+
+@pytest.mark.parametrize("modulus,b", [("N256", 128), ("row21", 1024)])
+def test_rns_kernels_match_plain(cuda, modulus, b):
+    """K10-K13 and K15 residue for residue against the plain versions run
+    on the same card tensors (chip_smoke.py's cases, short stacks), at
+    N256 (K=24) and the row-21 geometry (K=200)."""
+    import numpy as np
+
+    import chip_smoke
+    from tpu_ecm import params
+    from tpu_ecm_torch.limbs import kernels, rns
+
+    n = chip_smoke.N256 if modulus == "N256" else chip_smoke.row21_n()
+    ctx = params.make_monty(n)
+    host = rns.make_rns(ctx, cw=rns.choose_cw(ctx.p.nbits))
+    rc = rns.device_ctx(host, "cuda")
+    rng = np.random.default_rng(7)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    cases = chip_smoke._rns_kernel_cases(rng, gen, host, rc, b)
+    kernels.reset_launches()
+    for name, (kern, plain) in cases.items():
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), name
+        assert kernels.launches[name] >= 1, name
+
+
+@pytest.mark.parametrize("which", ["N71", "N2355"])
+def test_rns_finds_on_card(cuda, tmp_path, which):
+    """The RNS engine through the driver on the card: N71 (engine="rns")
+    and the 2355-bit P35*prp(2320) ("auto" routes it to RNS) find P35 in
+    stage 2 at sigma 112."""
+    import chip_smoke
+    from tpu_ecm_torch import driver
+    from tpu_ecm_torch.limbs import kernels
+    n = chip_smoke.N71 if which == "N71" else chip_smoke.n2355()
+    kernels.reset_launches()
+    res = driver.ECMDriver(_run_cfg(
+        tmp_path, n=n, curves=4, b1=300, b2=10000, sigma=110,
+        stop_on_factor=False, engine="rns" if which == "N71" else "auto")
+    ).run()
+    assert any(h.factor % chip_smoke.P35 == 0 and h.stage == 2
+               and h.sigma == 112 for h in res.factors), res.factors
+    assert kernels.launches["rns_replay"] and not kernels.launches["tape"]
 
 
 def test_wrappers_reject_mixed_devices(cuda):

@@ -1,9 +1,10 @@
 """Carry arithmetic context and state across from the JAX package.
 
-The port keeps tpu_ecm's layout (int32 digit planes, curve axis last, the
-same radix and R), so a conversion is a checked copy of the numpy arrays
-that the JAX package's objects hold (np.asarray of jax arrays) onto a torch
-device.  Nothing here imports JAX: callers pass numpy arrays and ints.
+The port keeps tpu_ecm's layouts (int32 digit planes, and RNS residue
+planes [.., 2K+1, B], curve axis last; the same radix, R, bases and
+tables), so a conversion is a checked copy of the numpy arrays that the
+JAX package's objects hold (np.asarray of jax arrays) onto a torch device.
+Nothing here imports JAX: callers pass numpy arrays and ints.
 """
 
 from __future__ import annotations
@@ -11,9 +12,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from typing import Dict
+
 from tpu_ecm.params import ArithParams
 
 from .curve.ops import NUM_SLOTS
+from .limbs import rns
 from .limbs.torch_ops import DeviceCtx
 from .stage1 import Stage1State
 
@@ -61,3 +65,45 @@ def planes(a, p: ArithParams, device) -> torch.Tensor:
     accumulator acc [NW,B] -> tensor on `device`."""
     a = np.asarray(a)
     return _plane(a, a.shape[:-2], p, device, "planes")
+
+
+def rns_ctx(leaves: Dict[str, np.ndarray], K: int, mr_shift: int,
+            device) -> rns.RnsCtx:
+    """The leaves of a JAX rns.RnsCtx ({name: np.asarray(field)} for every
+    name of rns.TABLES) -> the port's RnsCtx on `device`.  JAX's p carries
+    one padding row (a second copy of m_r), which is dropped; the bf16
+    split tables are not taken."""
+    rows = 2 * K + 1
+    shapes = dict(p=(rows, 1), c1=(K, 1), w1=(K, K + 1), n_br=(K + 1, 1),
+                  pinv_br=(K + 1, 1), npinv_br=(K + 1, 1), qdivinv=(K, 1),
+                  w2=(K, K + 1), qinv_r=(1, 1), qmod_ar=(K + 1, 1),
+                  comp_a=(K, 1), f_sub=(rows, 1))
+    tables = {}
+    for name in rns.TABLES:
+        a = np.asarray(leaves[name])
+        if a.dtype != np.int32:
+            raise ValueError(f"{name}: expected int32, got {a.dtype}")
+        if name == "p" and a.shape == (rows + 1, 1):
+            if a[rows, 0] != a[rows - 1, 0]:
+                raise ValueError("p: padding row is not a copy of m_r")
+            a = a[:rows]
+        if a.shape != shapes[name]:
+            raise ValueError(f"{name}: shape {a.shape} is not "
+                             f"{shapes[name]} for K={K}")
+        tables[name] = a
+    if int(tables["p"][-1, 0]) != 1 << mr_shift:
+        raise ValueError(f"p: r channel {int(tables['p'][-1, 0])} is not "
+                         f"2^{mr_shift}")
+    return rns.make_ctx(tables, K, mr_shift, device)
+
+
+def rns_planes(a, K: int, device) -> torch.Tensor:
+    """A stack of residue planes [.., 2K+1, B] (register file, curve
+    constant, Pb table, accumulator) -> tensor on `device`."""
+    a = np.asarray(a)
+    if a.dtype != np.int32:
+        raise ValueError(f"rns_planes: expected int32, got {a.dtype}")
+    if a.ndim < 2 or a.shape[-2] != 2 * K + 1:
+        raise ValueError(f"rns_planes: shape {a.shape} is not "
+                         f"(.., {2 * K + 1}, B) for K={K}")
+    return torch.from_numpy(np.array(a)).to(device)

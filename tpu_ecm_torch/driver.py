@@ -1,21 +1,26 @@
-"""The ECM driver for the digit engine and Suyama curves — the twin of
-tpu_ecm/driver.py on one device.
+"""The ECM driver for Suyama curves on one device — the twin of
+tpu_ecm/driver.py, with its two arithmetic engines:
+
+  digit  int32 digit planes [.., NW, B], kernels K1-K5 (limbs/kernels.py);
+         the default wherever a digit radix exists (params.device_ok)
+  rns    residue planes [.., 2K+1, B], kernels K10-K13 and K15
+         (limbs/rns_kernels.py); the only engine above the digit engine's
+         int32 column bound (~2000 bits), and selectable below it
 
 Phase structure per batch of B curves (B = the curve axis of every plane):
 
   phase 0  build curves        host Suyama from sigma
-  phase 1  stage 1             tape replay per prime chunk (kernel K1), with
+  phase 1  stage 1             tape replay per prime chunk (K1 / K10), with
                                GMP-ECM-format checkpoint.txt between chunks
                                and save_b1.txt at the end
-  phase 2  stage 2 init        Pb table: chain (K2) + batch inversion (K3,
-                               host modinv, K4)
+  phase 2  stage 2 init        Pb table: chain (K2 / K11) + batch inversion
+                               (K3 / K12, host modinv, K4 / K13)
   phase 3  stage 2 pairing     host pair() plan per chunk, giant-step groups
-                               (K2-K4) and the replay (K5)
+                               (chain, prefix, apply) and the replay (K5 / K15)
   harvest  gcd checks          host, against the original input
 
 Not ported yet, each raising with the ROADMAP.md item that covers it:
-Mersenne-form arithmetic, inputs beyond the digit engine (RNS), Edwards
-stage 1.
+Mersenne-form arithmetic and Edwards stage 1.
 """
 
 from __future__ import annotations
@@ -35,7 +40,7 @@ from tpu_ecm.utils import rng as _rng
 
 from . import stage1 as _stage1
 from .curve import suyama
-from .limbs import torch_ops
+from .limbs import rns, rns_exec, torch_ops
 from .stage2 import exec as s2exec
 from .stage2 import plan as s2plan
 
@@ -61,6 +66,12 @@ class RunConfig:
     prime_chunk: Optional[int] = None
     curve_mode: str = "suyama"
     device: str = "cuda"
+    # arithmetic engine: "digit", "rns", or "auto" (digit wherever a digit
+    # radix exists, RNS above the digit engine's bound)
+    engine: str = "auto"
+
+
+ENGINES = ("auto", "digit", "rns")
 
 
 @dataclasses.dataclass
@@ -130,6 +141,9 @@ class ECMDriver:
             raise NotImplementedError(
                 f"curve_mode={cfg.curve_mode!r} is not ported yet: "
                 "ROADMAP.md, 'Edwards stage 1'")
+        if cfg.engine not in ENGINES:
+            raise ValueError(f"unknown engine {cfg.engine!r}; "
+                             f"expected one of {ENGINES}")
         self.device = torch.device(cfg.device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device 'cuda' requested but "
@@ -182,12 +196,26 @@ class ECMDriver:
                 "Mersenne-form input: the fold reduction is not ported yet "
                 "(ROADMAP.md, 'Mersenne / pseudo-Mersenne path'); rerun "
                 "with force_no_mersenne=True for generic REDC")
+        self.engine = "digit" if cfg.engine == "auto" else cfg.engine
         if not self.ctx.p.device_ok:
-            raise NotImplementedError(
-                f"{self.ctx.p.nbits}-bit modulus exceeds the digit engine's "
-                "int32 column bound; the RNS engine is not ported yet "
-                "(ROADMAP.md, 'RNS engine')")
-        self.dctx = torch_ops.device_ctx(self.ctx, self.device)
+            # no int32 digit radix exists (params._radix_or_host_only): the
+            # RNS engine is the only device path
+            if cfg.engine == "digit":
+                raise ValueError(
+                    f"{self.ctx.p.nbits}-bit modulus exceeds the digit "
+                    "engine's int32 column bound (about 2000 bits, "
+                    "params._radix_or_host_only); use engine='rns'")
+            self.engine = "rns"
+        if self.engine == "rns":
+            self.rhost = rns.make_rns(self.ctx,
+                                      cw=rns.choose_cw(self.ctx.p.nbits))
+            self.ops = s2exec.RnsOps(
+                self.rhost, rns.device_ctx(self.rhost, self.device))
+            if cfg.verbose:
+                print(f"engine: RNS, K={self.rhost.K} channels x 2 bases")
+        else:
+            self.ops = s2exec.DigitOps(
+                self.ctx, torch_ops.device_ctx(self.ctx, self.device))
         self.stream = PrimeStream(cfg.prime_chunk or PrimeStream().chunk)
         # stage-2 pairmap cache: the (v, u) stream depends only on (chunk
         # bounds, B1, B2, D, U) — never on the curves — so it is planned
@@ -235,10 +263,8 @@ class ECMDriver:
 
     # ------------------------------------------------------------------
 
-    def run_batch(self, sigmas: List[int], base_idx: int
-                  ) -> List[Tuple[int, int, int]]:
-        cfg, ctx = self.cfg, self.ctx
-        t0 = time.time()
+    def _build_curves(self, sigmas: List[int], base_idx: int
+                      ) -> List[suyama.CurveInit]:
         curves = []
         for s in sigmas:
             # keep batch shape: on a gcd hit during construction, report the
@@ -246,36 +272,68 @@ class ECMDriver:
             # factors can trip consecutive substitutes too)
             for _attempt in range(64):
                 try:
-                    curves.append(suyama.build_one_curve(ctx, s))
+                    curves.append(suyama.build_one_curve(self.ctx, s))
                     break
                 except suyama.FactorFoundDuringBuild as e:
                     if e.factor:
                         self._report_factor(e.factor, 0, base_idx, e.sigma,
-                                            cfg.b1)
+                                            self.cfg.b1)
                     s = s + 1_000_003
             else:
                 raise RuntimeError(
                     "curve construction kept hitting gcd factors; "
                     "input has many small factors — divide them out first")
-        state = _stage1.init_state(
-            ctx, [c.x_mont for c in curves], [c.z_mont for c in curves],
-            [c.s_mont for c in curves], self.device)
+        return curves
+
+    def _init_state(self, curves: List[suyama.CurveInit]
+                    ) -> _stage1.Stage1State:
+        ctx = self.ctx
+        if self.engine == "digit":
+            return _stage1.init_state(
+                ctx, [c.x_mont for c in curves], [c.z_mont for c in curves],
+                [c.s_mont for c in curves], self.device)
+        conv = ctx.from_mont_int
+        pts, sc = rns_exec.init_state(
+            self.rhost, [conv(c.x_mont) for c in curves],
+            [conv(c.z_mont) for c in curves],
+            [conv(c.s_mont) for c in curves])
+        return _stage1.Stage1State(pts=torch.from_numpy(pts).to(self.device),
+                                   s_const=torch.from_numpy(sc).to(
+                                       self.device))
+
+    def _extract_point(self, state: _stage1.Stage1State
+                       ) -> Tuple[List[int], List[int]]:
+        """Canonical (X, Z) of slot 0: the phase-boundary handoff."""
+        if self.engine == "digit":
+            return _stage1.extract_point(state, self.ctx)
+        return rns_exec.extract_point(self.rhost, state.pts)
+
+    def run_batch(self, sigmas: List[int], base_idx: int
+                  ) -> List[Tuple[int, int, int]]:
+        cfg = self.cfg
+        t0 = time.time()
+        curves = self._build_curves(sigmas, base_idx)
+        if self.engine == "rns":
+            # as the JAX RNS driver: each curve keeps the sigma it was
+            # built from
+            sigmas = [c.sigma for c in curves]
+        state = self._init_state(curves)
         self._add_time("build", t0)
 
         # ---- stage 1 ----
         t0 = time.time()
-        for chunk, state in _stage1.run_stage1(state, self.dctx, cfg.b1,
+        for chunk, state in _stage1.run_stage1(state, self.ops.tape, cfg.b1,
                                                self.stream):
             for k in ("ptadds", "ptdups", "numprimes"):
                 self.counters[k] = (self.counters.get(k, 0)
                                     + getattr(chunk, k))
             if not chunk.is_final:
                 # mid-stage-1 checkpoint
-                xs, zs = _stage1.extract_point(state, ctx)
+                xs, zs = self._extract_point(state)
                 self._check_batch(zs, sigmas, 1, chunk.last_prime, base_idx)
                 self._write_save(cfg.checkpoint_path, sigmas, xs, zs,
                                  chunk.last_prime)
-        xs, zs = _stage1.extract_point(state, ctx)
+        xs, zs = self._extract_point(state)
         self._add_time("stage1", t0)
         if cfg.verbose >= 2:
             print(f"Stage 1 completed, {self.counters.get('ptadds', 0)} "
@@ -360,7 +418,8 @@ class ECMDriver:
         t0 = time.time()
         sp = s2plan.make_stage2_params(cfg.b1, self.b2, nw=self.ctx.p.nw,
                                        batch=int(pts0.shape[-1]))
-        runner = s2exec.Stage2Runner(self.ctx, self.dctx, sp, pts0, s_const)
+        runner = s2exec.Stage2Runner(self.ctx, None, sp, pts0, s_const,
+                                     ops=self.ops)
         runner.init()
         self._sync()
         self._add_time("stage2_init", t0)
@@ -397,6 +456,9 @@ class ECMDriver:
                              stage1_residues=[], timings={}, counters={})
         total = cfg.curves
         batch = cfg.batch or total
+        if (not cfg.batch and self.engine == "rns"
+                and self.device.type == "cuda"):
+            batch = min(total, rns_exec.default_batch(self.device))
         residues: List[Tuple[int, int, int]] = []
         done = 0
         while done < total:

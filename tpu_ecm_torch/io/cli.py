@@ -3,6 +3,7 @@
     python -m tpu_ecm_torch <input> <numcurves> <B1> [batch] [B2] [sigma]
     python -m tpu_ecm_torch -calc
     python -m tpu_ecm_torch -device cpu ...     (default: -device cuda)
+    python -m tpu_ecm_torch -rns ... | -digit ...  (engine; default: auto)
 
 <input> may be an integer expression (tpu_ecm.io.calc), e.g.
 "fib(791)/13/677/216416017" or "2^127-1".
@@ -17,12 +18,12 @@ from tpu_ecm.io.savefile import classify_factor
 
 from .. import driver
 
-USAGE = ("usage: python -m tpu_ecm_torch [-device cpu|cuda] "
+USAGE = ("usage: python -m tpu_ecm_torch [-device cpu|cuda] [-rns|-digit] "
          "$input $numcurves $B1 [$batch] [$B2] [$sigma]"
          "\n       python -m tpu_ecm_torch -calc   (interactive calculator)")
 
 # flags of tpu_ecm's CLI that select parts not ported yet
-NOT_PORTED = {"-edwards": "Edwards stage 1", "-rns": "RNS engine",
+NOT_PORTED = {"-edwards": "Edwards stage 1",
               "-resume": "the remaining surface (resume_stage2, -resume)"}
 
 
@@ -36,8 +37,11 @@ def main(argv=None) -> int:
             return 1
         device = argv[i + 1]
         del argv[i:i + 2]
-    if "-digit" in argv:            # the only engine of the port
-        argv.remove("-digit")
+    engine = "auto"
+    for flag in ("-rns", "-digit"):
+        if flag in argv:
+            argv.remove(flag)
+            engine = flag[1:]
     for flag, item in NOT_PORTED.items():
         if flag in argv:
             print(f"{flag} is not ported yet: ROADMAP.md, '{item}'")
@@ -56,7 +60,7 @@ def main(argv=None) -> int:
 
     print(f"commencing parallel ecm on {n}")
     cfg = driver.RunConfig(n=n, curves=curves, b1=b1, b2=b2, sigma=sigma,
-                           batch=batch, device=device)
+                           batch=batch, device=device, engine=engine)
     result = driver.ECMDriver(cfg).run()
     if result.factors:
         for h in result.factors:

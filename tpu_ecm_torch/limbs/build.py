@@ -1,8 +1,9 @@
 """Build and load the CUDA kernels of tpu_ecm_torch/csrc.
 
-nvcc compiles every csrc/*.cu for sm_90a into one shared library with a
-plain C interface, at first use, into build/tpu_ecm_torch/ beside the
-package (a directory .gitignore lists).  The file name carries a hash of the
+nvcc compiles every csrc/*.cu for sm_90a (one nvcc process per source, all
+started together) and links them into one shared library with a plain C
+interface, at first use, into build/tpu_ecm_torch/ beside the package (a
+directory .gitignore lists).  The file name carries a hash of the
 sources and flags, so an edited kernel is rebuilt and a stale library is
 never loaded.  The library is loaded with ctypes; every entry point takes
 device pointers and the CUDA stream as void*, returns cudaGetLastError()
@@ -24,15 +25,17 @@ import threading
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "tpu_ecm_torch")
-HEADERS = ("arith.cuh",)
-SOURCES = ("tape.cu", "chain.cu", "batch_inverse.cu", "replay.cu")
+HEADERS = ("arith.cuh", "rns_arith.cuh")
+SOURCES = ("tape.cu", "chain.cu", "batch_inverse.cu", "replay.cu",
+           "rns_tape.cu", "rns_chain.cu", "rns_batch_inverse.cu",
+           "rns_replay.cu")
 
 # Largest digit count the kernels take: the digit engine's int32 column
 # bound ends at nw = 210 (params._radix_or_host_only, ~2080 bits).
 NW_MAX = 224
-FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-         "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-         f"-DTPUECM_NW_MAX={NW_MAX}")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+FLAGS = ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+                f"-DTPUECM_NW_MAX={NW_MAX}")
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # argument lists of the extern "C" entry points (pointers and stream as
@@ -44,6 +47,12 @@ SIGNATURES = {
     "tpuecm_apply_inverse": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I,
                              _I, _P],
     "tpuecm_replay": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "tpuecm_rns_tape": [_P, _L, _P, _P, _P, _P, _I, _I, _P],
+    "tpuecm_rns_chain": [_P, _P, _P, _P, _I, _P, _P, _I, _I, _P],
+    "tpuecm_rns_prefix": [_P, _P, _P, _I, _P, _P, _I, _I, _P],
+    "tpuecm_rns_apply_inverse": [_P, _P, _P, _P, _P, _I, _P, _P, _I, _I,
+                                 _P],
+    "tpuecm_rns_replay": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
 }
 
 _lock = threading.Lock()
@@ -83,14 +92,32 @@ def build() -> str:
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = ([nvcc_path(), *FLAGS, "-I", CSRC, "-o", tmp]
-           + [os.path.join(CSRC, s) for s in SOURCES])
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    nvcc = nvcc_path()
+    objs = [f"{tmp}.{name}.o" for name in SOURCES]
+    cmds = [[nvcc, *FLAGS, "-c", "-I", CSRC, "-o", obj,
+             os.path.join(CSRC, name)] for name, obj in zip(SOURCES, objs)]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for cmd in cmds]
+    log, failed = [], []
+    for cmd, proc in zip(cmds, procs):
+        stdout, stderr = proc.communicate()
+        log.append(" ".join(cmd) + "\n" + stdout + stderr)
+        if proc.returncode != 0:
+            failed.append(f"{cmd[-1]} ({proc.returncode}):\n{stderr[-4000:]}")
+    if not failed:
+        link = [nvcc, *ARCH, "-shared", "-o", tmp, *objs]
+        res = subprocess.run(link, capture_output=True, text=True)
+        log.append(" ".join(link) + "\n" + res.stdout + res.stderr)
+        if res.returncode != 0:
+            failed.append(f"link ({res.returncode}):\n{res.stderr[-4000:]}")
+    for obj in objs:
+        if os.path.exists(obj):
+            os.remove(obj)
     with open(out[:-3] + ".log", "w") as f:
-        f.write(" ".join(cmd) + "\n" + res.stdout + res.stderr)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                           f"{res.stderr[-4000:]}")
+        f.write("\n".join(log))
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
     os.replace(tmp, out)
     return out
 

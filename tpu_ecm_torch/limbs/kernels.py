@@ -1,4 +1,6 @@
-"""Wrappers of the five CUDA kernels of the main path (csrc/*.cu).
+"""Wrappers of the five CUDA kernels of the digit engine (csrc/*.cu), and
+the registry of every kernel of the port (the RNS engine's five wrappers
+are in limbs/rns_kernels.py and count their launches here too).
 
 Each wrapper checks device, dtype, shape and contiguity, then routes on
 where its tensors lie: on the CPU it runs the kernel's plain PyTorch
@@ -39,6 +41,24 @@ KERNELS = {
         "tpu_ecm_torch/csrc/replay.cu",
         "tpu_ecm/limbs/pallas_ops.py:1127 "
         "(make_replay_stream_executor :933)"),
+    "rns_tape": (
+        "tpu_ecm_torch/csrc/rns_tape.cu",
+        "tpu_ecm/limbs/rns_exec.py:712 (_rns_tape_kernel :198, "
+        "make_rns_tape_executor :681)"),
+    "rns_chain": (
+        "tpu_ecm_torch/csrc/rns_chain.cu",
+        "tpu_ecm/limbs/rns_exec.py:303 (make_rns_chain_executor :276)"),
+    "rns_prefix": (
+        "tpu_ecm_torch/csrc/rns_batch_inverse.cu",
+        "tpu_ecm/limbs/rns_exec.py:350 (make_rns_prefix_executor :330)"),
+    "rns_apply_inverse": (
+        "tpu_ecm_torch/csrc/rns_batch_inverse.cu",
+        "tpu_ecm/limbs/rns_exec.py:399 "
+        "(make_rns_apply_inverse_executor :375)"),
+    "rns_replay": (
+        "tpu_ecm_torch/csrc/rns_replay.cu",
+        "tpu_ecm/limbs/rns_exec.py:653 "
+        "(make_rns_replay_stream_executor :509)"),
 }
 
 launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)

@@ -1,0 +1,209 @@
+"""Wrappers of the five CUDA kernels of the RNS engine (csrc/rns_*.cu) and
+the plain PyTorch versions beside them.
+
+The same contract as limbs/kernels.py: each wrapper checks device, dtype,
+shape and contiguity, runs the plain version for CPU tensors, launches the
+kernel on the current stream for CUDA tensors (never the plain version),
+raises for anything else, and counts its launches in kernels.launches.
+Planes are int32 [..., 2K+1, B] residue planes, curve axis last; the plain
+version of K10 is rns_exec.run_tape.  Every kernel gives the plain
+version's residues exactly (K15 too: both multiply acc by one difference
+per entry, in entry order).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..curve.ops import NUM_SLOTS
+from . import build, rns, rns_exec
+from .kernels import _check, _done, _stream
+from .rns import RnsCtx
+
+# tape entries per stage-1 kernel launch: keeps every launch short
+TAPE_SLICE = 1 << 12
+# replay entries whose differences the plain K15 forms at once
+PLAIN_REPLAY_BLOCK = 1024
+
+
+def _on_cpu(name: str, rc: RnsCtx) -> bool:
+    """True for the plain version (CPU tensors), False for the kernel."""
+    kind = rc.device.type
+    if kind == "cpu":
+        return True
+    if kind != "cuda":
+        raise ValueError(f"{name}: unsupported device {rc.device}")
+    if rc.K % 2 or not 2 <= rc.K <= rns.K_MAX:
+        raise ValueError(f"{name}: K={rc.K} outside the kernels' even "
+                         f"2 <= K <= {rns.K_MAX}")
+    return False
+
+
+def _ctx_args(rc: RnsCtx):
+    return (rc.tab.data_ptr(), rc.wpk.data_ptr(), rc.K)
+
+
+def tape(pts: torch.Tensor, tape_np: np.ndarray, s_const: torch.Tensor,
+         rc: RnsCtx) -> torch.Tensor:
+    """K10: replay a [T, 5] (op, dst, a, b, c) tape over the
+    [6, 2, rows, B] point file, in place; returns pts."""
+    rows, b = rc.rows, int(s_const.shape[-1])
+    _check("rns_tape", "pts", pts, (NUM_SLOTS, 2, rows, b), rc)
+    _check("rns_tape", "s_const", s_const, (rows, b), rc)
+    t = np.ascontiguousarray(tape_np, dtype=np.int32).reshape(-1, 5)
+    if t.shape[0] and (t[:, 0].min() < 0 or t[:, 0].max() > 2
+                       or t[:, 1:].min() < 0 or t[:, 1:].max() >= NUM_SLOTS):
+        raise ValueError("rns_tape: opcode outside DUP/ADD/NOP or slot "
+                         f"outside [0, {NUM_SLOTS})")
+    if _on_cpu("rns_tape", rc):
+        return rns_exec.run_tape(pts, t, s_const, rc)
+    if t.shape[0] == 0:
+        return pts
+    lib = build.library()
+    dev = torch.from_numpy(t).to(pts.device)
+    for lo in range(0, t.shape[0], TAPE_SLICE):
+        steps = min(TAPE_SLICE, t.shape[0] - lo)
+        _done("rns_tape", lib.tpuecm_rns_tape(
+            dev[lo].data_ptr(), steps, pts.data_ptr(), s_const.data_ptr(),
+            *_ctx_args(rc), b, _stream()))
+    return pts
+
+
+def chain(p1: torch.Tensor, p2: torch.Tensor, pd: torch.Tensor, count: int,
+          rc: RnsCtx) -> torch.Tensor:
+    """K11: out[i] = out[i-1] + pd (difference out[i-2]) for i < count, from
+    (out[-1], out[-2]) = (p1, p2); points [2, rows, B]."""
+    rows, b = rc.rows, int(p1.shape[-1])
+    for what, t in (("p1", p1), ("p2", p2), ("pd", pd)):
+        _check("rns_chain", what, t, (2, rows, b), rc)
+    if count < 1:
+        raise ValueError(f"rns_chain: count must be >= 1, got {count}")
+    if _on_cpu("rns_chain", rc):
+        return chain_plain(p1, p2, pd, count, rc)
+    out = torch.empty((count, 2, rows, b), dtype=torch.int32,
+                      device=p1.device)
+    _done("rns_chain", build.library().tpuecm_rns_chain(
+        p1.data_ptr(), p2.data_ptr(), pd.data_ptr(), out.data_ptr(), count,
+        *_ctx_args(rc), b, _stream()))
+    return out
+
+
+def prefix(zs: torch.Tensor, one: torch.Tensor, rc: RnsCtx) -> torch.Tensor:
+    """K12: out[i] = one * zs[0] * ... * zs[i]; [count, rows, B]."""
+    rows, b = rc.rows, int(one.shape[-1])
+    count = int(zs.shape[0])
+    _check("rns_prefix", "zs", zs, (count, rows, b), rc)
+    _check("rns_prefix", "one", one, (rows, b), rc)
+    if count < 1:
+        raise ValueError("rns_prefix: empty stack")
+    if _on_cpu("rns_prefix", rc):
+        return prefix_plain(zs, one, rc)
+    out = torch.empty_like(zs)
+    _done("rns_prefix", build.library().tpuecm_rns_prefix(
+        zs.data_ptr(), one.data_ptr(), out.data_ptr(), count, *_ctx_args(rc),
+        b, _stream()))
+    return out
+
+
+def apply_inverse(xs: torch.Tensor, zs: torch.Tensor, pres: torch.Tensor,
+                  total_inv: torch.Tensor, rc: RnsCtx) -> torch.Tensor:
+    """K13: out[i] = xs[i] * zs[i]^-1 from pres[i] = one * zs[0..i-1] and
+    total_inv = (zs[0] ... zs[count-1])^-1; [count, rows, B]."""
+    rows, b = rc.rows, int(total_inv.shape[-1])
+    count = int(xs.shape[0])
+    for what, t in (("xs", xs), ("zs", zs), ("pres", pres)):
+        _check("rns_apply_inverse", what, t, (count, rows, b), rc)
+    _check("rns_apply_inverse", "total_inv", total_inv, (rows, b), rc)
+    if count < 1:
+        raise ValueError("rns_apply_inverse: empty stack")
+    if _on_cpu("rns_apply_inverse", rc):
+        return apply_inverse_plain(xs, zs, pres, total_inv, rc)
+    out = torch.empty_like(xs)
+    _done("rns_apply_inverse", build.library().tpuecm_rns_apply_inverse(
+        xs.data_ptr(), zs.data_ptr(), pres.data_ptr(), total_inv.data_ptr(),
+        out.data_ptr(), count, *_ctx_args(rc), b, _stream()))
+    return out
+
+
+def replay(acc: torch.Tensor, pa_ext: torch.Tensor, pbx: torch.Tensor,
+           idx: np.ndarray, rc: RnsCtx) -> torch.Tensor:
+    """K15: acc times (pa_ext[pa] - pbx[pb]) for each of the idx[0] live
+    entries e = pa << 16 | pb, in entry order; idx is host int32 [1 + T].
+    Returns a new [rows, B] plane."""
+    rows, b = rc.rows, int(acc.shape[-1])
+    pa_rows, pb_rows = int(pa_ext.shape[0]), int(pbx.shape[0])
+    _check("rns_replay", "acc", acc, (rows, b), rc)
+    _check("rns_replay", "pa_ext", pa_ext, (pa_rows, rows, b), rc)
+    _check("rns_replay", "pbx", pbx, (pb_rows, rows, b), rc)
+    idx = np.ascontiguousarray(idx, dtype=np.int32).reshape(-1)
+    if idx.size < 1 or not 0 <= int(idx[0]) <= idx.size - 1:
+        raise ValueError("rns_replay: idx[0] must be a live count "
+                         "<= len(idx)-1")
+    live = idx[1:1 + int(idx[0])].view(np.uint32)
+    if live.size and (int((live >> 16).max()) >= pa_rows
+                      or int((live & 0xFFFF).max()) >= pb_rows):
+        raise ValueError("rns_replay: entry row outside pa_ext / pbx")
+    if _on_cpu("rns_replay", rc):
+        return replay_plain(acc, pa_ext, pbx, idx, rc)
+    out = torch.empty_like(acc)
+    dev = torch.from_numpy(idx).to(acc.device)
+    _done("rns_replay", build.library().tpuecm_rns_replay(
+        acc.data_ptr(), out.data_ptr(), pa_ext.data_ptr(), pbx.data_ptr(),
+        dev.data_ptr(), *_ctx_args(rc), b, _stream()))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# plain versions of K11-K13 and K15 (the twins of rns_exec.py:135-191 and
+# of the Pallas kernels' loops)
+# ---------------------------------------------------------------------------
+
+def chain_plain(p1: torch.Tensor, p2: torch.Tensor, pd: torch.Tensor,
+                count: int, rc: RnsCtx) -> torch.Tensor:
+    out = torch.empty((count,) + tuple(p1.shape), dtype=p1.dtype,
+                      device=p1.device)
+    for i in range(count):
+        out[i] = torch.stack(rns_exec.xadd(p1, pd, p2, rc))
+        p1, p2 = out[i], p1
+    return out
+
+
+def prefix_plain(zs: torch.Tensor, one: torch.Tensor, rc: RnsCtx
+                 ) -> torch.Tensor:
+    out = torch.empty_like(zs)
+    acc = one
+    for i in range(zs.shape[0]):
+        acc = rns.mont_mul(acc, zs[i], rc)
+        out[i] = acc
+    return out
+
+
+def apply_inverse_plain(xs: torch.Tensor, zs: torch.Tensor,
+                        pres: torch.Tensor, total_inv: torch.Tensor,
+                        rc: RnsCtx) -> torch.Tensor:
+    out = torch.empty_like(xs)
+    suffix = total_inv
+    for i in range(xs.shape[0] - 1, -1, -1):
+        inv_i = rns.mont_mul(suffix, pres[i], rc)
+        out[i] = rns.mont_mul(xs[i], inv_i, rc)
+        suffix = rns.mont_mul(suffix, zs[i], rc)
+    return out
+
+
+def replay_plain(acc: torch.Tensor, pa_ext: torch.Tensor, pbx: torch.Tensor,
+                 idx: np.ndarray, rc: RnsCtx) -> torch.Tensor:
+    """acc times sub(pa_ext[pa], pbx[pb]) entry by entry, in order (the
+    Pallas K15's association); differences are formed in blocks of
+    PLAIN_REPLAY_BLOCK entries, which bounds memory."""
+    count = int(idx[0])
+    e = idx[1:1 + count].view(np.uint32).astype(np.int64)
+    dev = acc.device
+    for lo in range(0, count, PLAIN_REPLAY_BLOCK):
+        blk = e[lo:lo + PLAIN_REPLAY_BLOCK]
+        pa = torch.from_numpy(blk >> 16).to(dev)
+        pb = torch.from_numpy(blk & 0xFFFF).to(dev)
+        d = rns.sub(pa_ext[pa], pbx[pb], rc)
+        for k in range(d.shape[0]):
+            acc = rns.mont_mul(acc, d[k], rc)
+    return acc

@@ -2,16 +2,18 @@
 tpu_ecm/stage1.py.
 
 The host plans one ADD/DUP tape per prime chunk (leading 2^k doublings +
-PRAC chains with the prime-power repeat rule) and the stage-1 kernel
-(limbs/kernels.tape) replays it over the [S, 2, NW, B] register file.  Prime
-chunking follows the reference's PRIME_RANGE protocol so checkpoints land at
-the same prime boundaries.
+PRAC chains with the prime-power repeat rule) and the engine's stage-1
+kernel replays it over the [S, 2, rows, B] register file: K1 over digit
+planes (limbs/kernels.tape, rows = NW) or K10 over residue planes
+(limbs/rns_kernels.tape, rows = 2K+1).  Prime chunking follows the
+reference's PRIME_RANGE protocol so checkpoints land at the same prime
+boundaries.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Iterator, List, Tuple
+from typing import Callable, Iterator, List, Tuple
 
 import numpy as np
 import torch
@@ -20,15 +22,14 @@ from tpu_ecm.params import MontyCtx
 from tpu_ecm.primes import PrimeStream
 
 from .curve import ops, prac
-from .limbs import kernels, layout
-from .limbs.torch_ops import DeviceCtx
+from .limbs import layout
 
 
 @dataclasses.dataclass
 class Stage1State:
     """Device state for a batch of curves: point register file + curve const."""
-    pts: torch.Tensor       # [S, 2, NW, B]
-    s_const: torch.Tensor   # [NW, B]  (A+2)/4 in Montgomery form
+    pts: torch.Tensor       # [S, 2, rows, B]
+    s_const: torch.Tensor   # [rows, B]  (A+2)/4 in Montgomery form
 
 
 def init_state(ctx: MontyCtx, xs: List[int], zs: List[int], ss: List[int],
@@ -54,18 +55,19 @@ class Stage1Chunk:
     numprimes: int = 0
 
 
-def run_stage1(state: Stage1State, dctx: DeviceCtx, b1: int,
+def run_stage1(state: Stage1State, run_tape: Callable, b1: int,
                stream: PrimeStream
                ) -> Iterator[Tuple[Stage1Chunk, Stage1State]]:
     """Yield (chunk, state) after each prime chunk; the caller checkpoints
-    between chunks.  The point file is updated in place."""
+    between chunks.  run_tape(pts, tape, s_const) is the engine's tape
+    kernel call; the point file is updated in place."""
     first = True
     for lo, hi, primes in stream.chunks(0, b1):
         sel = primes[primes < b1]
         tape = prac.stage1_tape(sel, b1, include_two=first)
         first = False
         if tape.shape[0]:
-            kernels.tape(state.pts, tape, state.s_const, dctx)
+            run_tape(state.pts, tape, state.s_const)
         last_prime = int(sel[-1]) if sel.size else 2
         ops_col = tape[:, 0] if tape.shape[0] else np.zeros(0, np.int32)
         yield Stage1Chunk(lo=lo, hi=hi, last_prime=last_prime,

@@ -4,18 +4,22 @@ tpu_ecm/stage2/exec.py in its inverted cross form.
 
 * The window-relative pairmap is flattened to GLOBAL giant-step indices
   (j = v - amin0 + U*s) so a prime chunk becomes one gather list; points are
-  built in fixed-size groups on one differential-add chain (kernel K2).
+  built in fixed-size groups on one differential-add chain (chain kernel).
 * Montgomery's inversion trick runs on the device across each point group
-  (prefix K3, apply K4) and on the host across the curve batch: ONE modular
-  inverse per group.  Only rows the replay or the table reads are inverted,
-  so the gcd-harvest set is the same for any grouping.
+  (prefix and apply kernels) and on the host across the curve batch: ONE
+  modular inverse per group.  Only rows the replay or the table reads are
+  inverted, so the gcd-harvest set is the same for any grouping.
 * A curve whose Z-product is not invertible has gcd(Z..., N) > 1: that gcd
   is a factor, harvested like the reference's inversion-failure path.
-* The replay acc *= Pa_inv[pa] - PbX[pb] runs in kernel K5; pbx[0] is the
-  zero row and pa_ext[G] the Montgomery one, so a pad entry is a no-op.
+* The replay acc *= Pa_inv[pa] - PbX[pb] runs in the replay kernel; pbx[0]
+  is the zero row and pa_ext[G] the Montgomery one, so a pad entry changes
+  acc by a unit (digits: by one; RNS: by one + F, equal mod n).
 
-The plain versions of K2-K5 (what the kernels' wrappers run for CPU
-tensors) are in limbs/kernels.py.
+The orchestration is engine-generic, as the JAX runner's is through `ops`:
+DigitOps (digit planes [.., NW, B], kernels K1-K5) and RnsOps (residue
+planes [.., 2K+1, B], kernels K10-K13 and K15) give it packing and the five
+kernel calls.  The plain versions of the kernels are beside their wrappers
+(limbs/kernels.py, limbs/rns_kernels.py).
 """
 
 from __future__ import annotations
@@ -31,7 +35,7 @@ from tpu_ecm.params import MontyCtx
 
 from ..curve import ops as curve_ops
 from ..curve import prac
-from ..limbs import kernels, layout
+from ..limbs import kernels, layout, rns, rns_kernels
 from ..limbs.torch_ops import DeviceCtx
 from .plan import Stage2Params
 
@@ -40,16 +44,18 @@ from .plan import Stage2Params
 # host batch inversion (one modular inverse for the whole curve batch)
 # ---------------------------------------------------------------------------
 
-def host_batch_inverse(ctx: MontyCtx, vals_mont: List[int]
+def host_batch_inverse(ctx: MontyCtx, vals_mont: List[int],
+                       premul: Optional[int] = None
                        ) -> Tuple[List[int], Dict[int, int]]:
     """Invert Montgomery-domain values sharing modulus N with one modinv.
 
     Input: canonical ints v_i = z_i * R mod N.  Output: device-pushable
     V_i = R^2 * v_i^-1 mod N (so mont_mul(X_m, V_i) = (x/z)*R mod N), plus
     {curve_index: factor} for curves with gcd(v_i, N) > 1 (factor == 0 when
-    the gcd is trivial N itself); those curves get V_i = 0."""
+    the gcd is trivial N itself); those curves get V_i = 0.  `premul`
+    overrides the R^2 factor (the RNS engine passes P^2)."""
     n = ctx.n_int
-    r2 = (ctx.p.R * ctx.p.R) % n
+    r2 = premul % n if premul is not None else (ctx.p.R * ctx.p.R) % n
     b = len(vals_mont)
     factors: Dict[int, int] = {}
     vals = [v % n for v in vals_mont]
@@ -77,31 +83,90 @@ def host_batch_inverse(ctx: MontyCtx, vals_mont: List[int]
 
 
 # ---------------------------------------------------------------------------
-# digit-plane representation behind one object
+# engine adapters: packing and the five kernel calls of each representation
 # ---------------------------------------------------------------------------
 
-class TorchDigitOps:
-    """Packing between canonical integers and digit planes on the runner's
-    device (the twin of tpu_ecm's DigitOps; an RNS engine would be a
-    second adapter)."""
+class DigitOps:
+    """Digit planes [.., NW, B] on the runner's device (the twin of
+    tpu_ecm's DigitOps); kernels K1-K5."""
+
+    inv_premul = None                 # host_batch_inverse's R^2 default
 
     def __init__(self, ctx: MontyCtx, dctx: DeviceCtx):
         self.ctx, self.dctx = ctx, dctx
+        self.rows = ctx.p.nw
+        self.device = dctx.device
 
     def one_plane(self, b: int) -> torch.Tensor:
         return torch.from_numpy(layout.broadcast_int(
             self.ctx.r_mod_n, self.ctx.p.w, self.ctx.p.nw, b)).to(
-                self.dctx.device)
+                self.device)
 
     def pack(self, ints: List[int]) -> torch.Tensor:
         return torch.from_numpy(layout.pack_batch(
-            ints, self.ctx.p.w, self.ctx.p.nw)).to(self.dctx.device)
+            ints, self.ctx.p.w, self.ctx.p.nw)).to(self.device)
 
     def unpack(self, plane: torch.Tensor) -> List[int]:
         return layout.unpack_batch(plane.cpu().numpy(), self.ctx.p.w)
 
     def from_mont_int(self, v: int) -> int:
         return self.ctx.from_mont_int(v % self.ctx.n_int)
+
+    def tape(self, pts, tape, s_const):
+        return kernels.tape(pts, tape, s_const, self.dctx)
+
+    def chain(self, p1, p2, pd, count):
+        return kernels.chain(p1, p2, pd, count, self.dctx)
+
+    def prefix(self, zs, one):
+        return kernels.prefix(zs, one, self.dctx)
+
+    def apply_inverse(self, xs, zs, pres, total_inv):
+        return kernels.apply_inverse(xs, zs, pres, total_inv, self.dctx)
+
+    def replay(self, acc, pa_ext, pbx, idx):
+        return kernels.replay(acc, pa_ext, pbx, idx, self.dctx)
+
+
+class RnsOps:
+    """Residue planes [.., 2K+1, B] (the twin of rns_exec.RnsOps); kernels
+    K10-K13 and K15."""
+
+    def __init__(self, host: rns.RnsHost, rc: rns.RnsCtx):
+        self.host, self.rc = host, rc
+        self.ctx = host.ctx
+        self.rows = host.rows
+        self.device = rc.device
+        # mont_mul(X, P^2 * v^-1) = (x/v) * P: the RNS analogue of the
+        # digit engine's R^2 premultiplier
+        self.inv_premul = host.P * host.P
+
+    def one_plane(self, b: int) -> torch.Tensor:
+        return self.pack([self.host.to_mont_int(1)] * b)
+
+    def pack(self, ints: List[int]) -> torch.Tensor:
+        return torch.from_numpy(self.host.pack(ints)).to(self.device)
+
+    def unpack(self, plane: torch.Tensor) -> List[int]:
+        return self.host.unpack(plane.cpu().numpy())
+
+    def from_mont_int(self, v: int) -> int:
+        return self.host.from_mont_int(v % self.ctx.n_int)
+
+    def tape(self, pts, tape, s_const):
+        return rns_kernels.tape(pts, tape, s_const, self.rc)
+
+    def chain(self, p1, p2, pd, count):
+        return rns_kernels.chain(p1, p2, pd, count, self.rc)
+
+    def prefix(self, zs, one):
+        return rns_kernels.prefix(zs, one, self.rc)
+
+    def apply_inverse(self, xs, zs, pres, total_inv):
+        return rns_kernels.apply_inverse(xs, zs, pres, total_inv, self.rc)
+
+    def replay(self, acc, pa_ext, pbx, idx):
+        return rns_kernels.replay(acc, pa_ext, pbx, idx, self.rc)
 
 
 # ---------------------------------------------------------------------------
@@ -120,23 +185,48 @@ class Stage2Result:
 
 # Pa group rows and replay entries per kernel call, by device kind.  The
 # CPU pair is the JAX package's CPU pair (so the tests compare like with
-# like); the CUDA pair is fixed here, not tuned (PERF.md).
+# like).  On CUDA the group is the largest power of two up to
+# PA_GROUP["cuda"] that fits the card's free memory (pa_group_for_memory);
+# the replay block is fixed here, not tuned (PERF.md).
 PA_GROUP = {"cpu": 512, "cuda": 4096}
 REPLAY_BLOCK = {"cpu": 4096, "cuda": 1 << 16}
-# [NW, B] planes live per Pa group row at the peak of a group: the chain
-# output (2), the contiguous x and z stacks (2), prefix, shifted prefix,
-# apply output and the extended inverse table
+# planes live per Pa group row at the peak of a group: the chain output
+# (2), the contiguous x and z stacks (2), prefix, shifted prefix, apply
+# output and the extended inverse table
 GROUP_PLANES = 8
+# the smallest group the memory rule takes, and the share of the free
+# bytes it plans to fill (the rest is allocator slack)
+PA_GROUP_MIN = 64
+MEM_HEADROOM = 0.9
+
+
+def pa_group_for_memory(plane_bytes: int, num_pb: int, free_bytes: int,
+                        g_max: int = PA_GROUP["cuda"]) -> int:
+    """The largest power of two G <= g_max for which the Pb table and
+    GROUP_PLANES * G planes fit MEM_HEADROOM of the free bytes; raises when
+    even PA_GROUP_MIN rows do not fit."""
+    budget = MEM_HEADROOM * free_bytes - num_pb * plane_bytes
+    g = g_max
+    while g > PA_GROUP_MIN and GROUP_PLANES * g * plane_bytes > budget:
+        g //= 2
+    if GROUP_PLANES * g * plane_bytes > budget:
+        need = (num_pb + GROUP_PLANES * g) * plane_bytes
+        raise RuntimeError(
+            f"stage 2 needs ~{need / 2**30:.2f} GiB (Pb table of {num_pb} "
+            f"rows + Pa group of {g} rows) but {free_bytes / 2**30:.2f} GiB "
+            "are free; run fewer curves per batch")
+    return g
 
 
 class Stage2Runner:
     """Per-batch stage-2 state machine (phases 2+3 of vececm)."""
 
-    def __init__(self, ctx: MontyCtx, dctx: DeviceCtx, sp: Stage2Params,
-                 pt: torch.Tensor, s_const: torch.Tensor):
-        self.ctx, self.dctx, self.sp = ctx, dctx, sp
-        self.ops = TorchDigitOps(ctx, dctx)
-        self.pt = pt                  # stage-1 point [2, NW, B]
+    def __init__(self, ctx: MontyCtx, dctx: Optional[DeviceCtx],
+                 sp: Stage2Params, pt: torch.Tensor, s_const: torch.Tensor,
+                 ops=None):
+        self.ctx, self.sp = ctx, sp
+        self.ops = ops if ops is not None else DigitOps(ctx, dctx)
+        self.pt = pt                  # stage-1 point [2, rows, B]
         self.s_const = s_const
         self.b = b = int(pt.shape[-1])
         kind = pt.device.type
@@ -144,11 +234,13 @@ class Stage2Runner:
             raise ValueError(f"stage 2 runs on cpu or cuda, not {pt.device}")
         self.pa_group = PA_GROUP[kind]
         self.replay_block = REPLAY_BLOCK[kind]
+        if kind == "cuda":
+            free, _total = torch.cuda.mem_get_info(pt.device)
+            self.pa_group = pa_group_for_memory(
+                self.ops.rows * b * 4, sp.num_pb, free)
         # replay entries pack pa << 16 | pb
         if self.pa_group + 1 > 1 << 16 or sp.num_pb > 1 << 16:
             raise ValueError("Pa group or Pb table exceeds 2^16 rows")
-        if kind == "cuda":
-            self._check_memory()
         self.one_plane = self.ops.one_plane(b)
         self.acc = self.one_plane     # mdata->one init
         self.factors: Dict[int, int] = {}
@@ -159,19 +251,6 @@ class Stage2Runner:
         self.pbx: Optional[torch.Tensor] = None
         self.pd: Optional[torch.Tensor] = None
 
-    def _check_memory(self):
-        """Raise unless the Pb table and one Pa group's transients fit the
-        card's free memory."""
-        row = self.ctx.p.nw * self.b * 4
-        need = (self.sp.num_pb + GROUP_PLANES * self.pa_group) * row
-        free, _total = torch.cuda.mem_get_info(self.pt.device)
-        if need > free:
-            raise RuntimeError(
-                f"stage 2 needs ~{need / 2**30:.2f} GiB (Pb table of "
-                f"{self.sp.num_pb} rows + Pa group of {self.pa_group} rows) "
-                f"but {free / 2**30:.2f} GiB are free on {self.pt.device}; "
-                "run fewer curves per batch")
-
     def _count_tape(self, tape: np.ndarray):
         """ADD/DUP op counters for a host-planned tape."""
         if tape.shape[0]:
@@ -180,12 +259,13 @@ class Stage2Runner:
             self.ptdups += int(np.count_nonzero(opc == curve_ops.OP_DUP))
 
     def _run_tape(self, pt: torch.Tensor, tape: np.ndarray) -> torch.Tensor:
-        """Point file with pt in slot 0 after replaying tape (kernel K1)."""
+        """Point file with pt in slot 0 after replaying tape (stage-1
+        kernel)."""
         pts = torch.zeros((curve_ops.NUM_SLOTS,) + tuple(pt.shape),
                           dtype=torch.int32, device=pt.device)
         pts[0] = pt
         if tape.shape[0]:
-            kernels.tape(pts, tape, self.s_const, self.dctx)
+            self.ops.tape(pts, tape, self.s_const)
         return pts
 
     def _ladder(self, pt: torch.Tensor, k: int) -> torch.Tensor:
@@ -202,7 +282,8 @@ class Stage2Runner:
         total-inverse plane."""
         self.numinv += 1
         inv_ints, fnd = host_batch_inverse(self.ctx,
-                                           self.ops.unpack(total_plane))
+                                           self.ops.unpack(total_plane),
+                                           premul=self.ops.inv_premul)
         for i, f in fnd.items():
             if f and i not in self.factors:
                 self.factors[i] = f
@@ -210,21 +291,21 @@ class Stage2Runner:
 
     def _invert_planes(self, xs: torch.Tensor, zs: torch.Tensor
                        ) -> torch.Tensor:
-        """x_i/z_i in Montgomery form for stacked planes [K, NW, B]; one host
-        modinv for the whole (K x B) block."""
+        """x_i/z_i in Montgomery form for stacked planes [K, rows, B]; one
+        host modinv for the whole (K x B) block."""
         xs, zs = xs.contiguous(), zs.contiguous()
-        prefix = kernels.prefix(zs, self.one_plane, self.dctx)
+        prefix = self.ops.prefix(zs, self.one_plane)
         total_inv = self._harvest_inverse(prefix[-1])
         pres = torch.cat([self.one_plane[None], prefix[:-1]], dim=0)
-        return kernels.apply_inverse(xs, zs, pres, total_inv, self.dctx)
+        return self.ops.apply_inverse(xs, zs, pres, total_inv)
 
     # -- phase 2: init ----------------------------------------------------
 
     def init(self):
-        """Build the affine-x baby-step table pbx [num_pb, NW, B]: the chain
-        S_d = S_{d-1} + Q (diff S_{d-2}) in groups of G points; each group's
-        stored rows (rprime_map) are batch-inverted and scattered into
-        pbx, so the full [U*D, 2, NW, B] chain never exists."""
+        """Build the affine-x baby-step table pbx [num_pb, rows, B]: the
+        chain S_d = S_{d-1} + Q (diff S_{d-2}) in groups of G points; each
+        group's stored rows (rprime_map) are batch-inverted and scattered
+        into pbx, so the full [U*D, 2, rows, B] chain never exists."""
         sp = self.sp
         q1 = self.pt
         dup = np.asarray([[curve_ops.OP_DUP, 1, 0, 0, 0]], dtype=np.int32)
@@ -232,15 +313,14 @@ class Stage2Runner:
         self.ptdups += 1
         inv12 = self._invert_planes(torch.stack([q1[0], q2[0]]),
                                     torch.stack([q1[1], q2[1]]))
-        nw = self.ctx.p.nw
-        pbx = torch.zeros((sp.num_pb, nw, self.b), dtype=torch.int32,
-                          device=q1.device)
+        pbx = torch.zeros((sp.num_pb, self.ops.rows, self.b),
+                          dtype=torch.int32, device=q1.device)
         pbx[1:3] = inv12
         G = self.pa_group
         p_last, p_prev = q2, q1
         for base in range(3, sp.umax + 1, G):
             cnt = min(G, sp.umax + 1 - base)
-            group = kernels.chain(p_last, p_prev, q1, G, self.dctx)
+            group = self.ops.chain(p_last, p_prev, q1, G)
             p_last, p_prev = group[-1], group[-2]
             slots = sp.rprime_map[base:base + cnt].astype(np.int64)
             sel = np.nonzero(slots)[0]
@@ -321,13 +401,12 @@ class Stage2Runner:
         while base <= max_j:
             hi = int(np.searchsorted(entries[:, 0], base + G))
             if pending is not None:
-                rest = kernels.chain(p_last, p_prev, self.pd, G - 1,
-                                     self.dctx)
+                rest = self.ops.chain(p_last, p_prev, self.pd, G - 1)
                 group = torch.cat([pending[None], rest], dim=0)
                 pending = None
                 self.ptadds += G - 1
             else:
-                group = kernels.chain(p_last, p_prev, self.pd, G, self.dctx)
+                group = self.ops.chain(p_last, p_prev, self.pd, G)
                 self.ptadds += G
             p_last, p_prev = group[-1], group[-2]
 
@@ -356,8 +435,7 @@ class Stage2Runner:
         for lo in range(0, packed.shape[0], tb):
             blk = packed[lo:lo + tb]
             arr = np.concatenate([np.asarray([blk.shape[0]], np.int32), blk])
-            self.acc = kernels.replay(self.acc, pa_inv_ext, self.pbx, arr,
-                                      self.dctx)
+            self.acc = self.ops.replay(self.acc, pa_inv_ext, self.pbx, arr)
 
     # -- harvest ----------------------------------------------------------
 

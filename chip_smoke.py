@@ -8,49 +8,79 @@ Run from the repository root, with no arguments:
 It imports nothing of JAX.  Each phase prints one line with its name, its
 result and its seconds; any failure raises and exits non-zero.
 
-  1 device    the card's name and power limit; nvcc builds the kernels
-              (registers, stack frame and spills of each are printed)
+  1 device    the card's name and power limit; whether the native host
+              library (g++) loaded; nvcc builds the kernels (registers,
+              stack frame and spills of each are printed)
   2 kernels   every kernel against its plain PyTorch version on the card,
               on seeded random reduced inputs, and timed against it at the
               main path's own depths:
-              digit K1-K5 at N64/B=128 on short stacks and at the 416-bit
-              flagship/B=2048 (a 256-op stage-1 tape split over three
-              launches, 4,096-row chain and inversion groups, a 65,536-entry
-              replay block over a 4,097-row Pa group and the full Pb table);
-              digits equal for K1-K4, values mod n for K5;
+              digit K1-K5 and K9 at N64/B=128 on short stacks and at the
+              416-bit flagship/B=2048 (a 256-op stage-1 tape split over
+              three launches, 4,096-row chain and inversion groups, a
+              65,536-entry replay block over a 4,097-row Pa group and the
+              full Pb table, a 256-op Edwards tape);
+              the same six in fold mode at M127 = 2^127-1/B=128 on short
+              stacks, and K1-K5 in fold mode at M1277 = 2^1277-1 (w=11,
+              nw=118)/B=2048 at the mersenne job's depths (the same
+              256-op tape over three launches, the Pa group the memory
+              rule picks, a 65,536-entry replay block, the job's Pb
+              table), timed, with the plain versions run on the first 128
+              curves; digits equal for K1-K4 and K9, values mod n for K5;
               RNS K10-K13 and K15 at N256/B=128 on short stacks and at the
               2397-bit row-21 geometry (K=200, 401 residue rows)/B=1024
               (a 256-op tape over three launches, the Pa group the memory
               rule picks, a 65,536-entry replay block, the rns job's
               963-row Pb table); residues equal, every one;
               then K1 against K10 per tape op on one 1536-bit modulus at
-              B=1024 (ns per curve per op: the digit/RNS crossover datum)
+              B=1024 (ns per curve per op: the digit/RNS crossover datum),
+              and K1 in fold mode at M1277 against K1 in REDC mode on a
+              random odd 1277-bit N at B=2048 (ms per tape op: the fold's
+              datum)
   3 oracle    known answers through the driver: N71 sigma 112 finds P35 in
               stage 2 on both engines; the 57-hit golden sweep of
               tests/test_e2e.py; N256 gives the same stage-1 residues on
               both engines; the 2355-bit P35*prp(2320) of
               tests/test_rns_engine.py routes to RNS and finds P35 at
-              sigma 112
+              sigma 112; on M101 = 2^101-1 (fold) sigma 511 finds its P13
+              in stage 1 and sigma 502 in stage 2 (tests/test_e2e.py:497);
+              Edwards curves on N71 find P35 at sigma 46 in stage 1 and at
+              sigma 29 in stage 2 (tests/test_edwards.py:154-165)
   4 flagship  bench.py's job at full width: the 416-bit semiprime, 2048
               Suyama curves from sigma 7000 in one batch, B1=1e5, B2=1e7
               (cut 10x from 1e6/1e8 to fit the time limit); save_b1.txt
-              must hold a record per curve, and every digit kernel must
-              have launched during the run
+              must hold a record per curve, and every digit kernel but K9
+              must have launched during the run
   5 rns       row 21 of tests/test_acceptance.py at full width: its
               2397-bit N, 1024 Suyama curves from its sigma 377260338 in
               one batch, B1=25,000, B2=2,500,000 (cut 10x from B1=250,000,
               with B2 = 100*B1); save_b1.txt must hold a record per curve,
               every RNS kernel must have launched and no digit kernel
+  6 mersenne  M1277 = 2^1277-1, the smallest Mersenne number with no known
+              factor, at full width: 2048 Suyama curves from sigma 7000 in
+              one batch, B1=10,000, B2=1,000,000; the fold must be on,
+              K1-K5 must have launched, save_b1.txt must hold a record per
+              curve with N = M1277, and the first 4 curves' stage-1 (X, Z)
+              must equal the exact integer replay of curve/oracle.py
+  7 edwards   the flagship job with Edwards curves (curve_mode="edwards"):
+              the 416-bit N, 2048 curves from sigma 7000, B1=1e5, B2=1e7;
+              K9 and K2-K5 must have launched and K1 not in stage 1 (stage
+              2 runs its point ladders through K1), save_b1.txt must
+              hold an AVX-ECM-ED record per curve, and the first 4 curves'
+              stage-1 points must equal edwards.oracle_scalar_mul,
+              projectively, through to_montgomery_xz
 
-The last three lines are the kernels' JSON record, the card as nvidia-smi
-reports it, and {"ok": true, "device": {...}}.
+The last three lines are the kernels' JSON record (with each kernel's
+bound: the larger of its multiply-adds over the card's int32 rate and its
+bytes over the memory rate), the card as nvidia-smi reports it, and
+{"ok": true, "device": {...}}.
 
-    python3 chip_smoke.py --profile [DIR] [--job flagship|rns|both]
+    python3 chip_smoke.py --profile [DIR] [--job JOB|all]
 
-runs phase 1 and then the chosen job(s) once under torch.profiler instead:
-it prints the device time per kernel and the card's busy and idle share of
-each job, and writes the whole per-kernel table to DIR/profile_<job>.txt
-(DIR defaults to chiprun_out/, --job to both).
+runs phase 1 and then the chosen job (flagship, rns, mersenne, edwards;
+default all) once under torch.profiler instead: it prints the device time
+per kernel and the card's busy and idle share of each job, and writes the
+whole per-kernel table to DIR/profile_<job>.txt (DIR defaults to
+chiprun_out/).
 """
 
 from __future__ import annotations
@@ -76,19 +106,34 @@ N256 = (170141183460469231731687303715884105773
         * 340282366920938463463374607431768211507)   # tests/moduli.py
 N416 = (205688069665150755269371147819668813122841983204197482918578443
         * 411376139330301510538742295639337626245683966408394965837157771)
+M101 = (1 << 101) - 1
+M101_P13 = 7432339208719
+M127 = (1 << 127) - 1
+M1277 = (1 << 1277) - 1
 FLAGSHIP = dict(curves=2048, sigma=7000, b1=100_000, b2=10_000_000)
 # row 21 of tests/test_acceptance.py runs B1=250,000, B2=183,032,866
 RNS_JOB = dict(curves=1024, sigma=377_260_338, b1=25_000, b2=2_500_000)
+MERSENNE_JOB = dict(curves=2048, sigma=7000, b1=10_000, b2=1_000_000)
 # short kernel-test stacks (main_path_depth gives the main path's own)
 SHORT = dict(tape_ops=256, tape_slice=None, rows=64, pb_rows=97,
-             entries=256)
+             entries=256, ed_ops=64)
 RNS_SHORT = dict(tape_ops=32, tape_slice=None, rows=16, pb_rows=29,
                  entries=64)
 # replay entries per call of the plain version: bounds its memory
 PLAIN_REPLAY_BLOCK = 1024
+# curves the plain versions run on at M1277's main-path depths (curves are
+# independent: the kernel's first PLAIN_CURVES columns are compared)
+PLAIN_CURVES = 128
 DIGIT_KERNELS = ("tape", "chain", "prefix", "apply_inverse", "replay")
 RNS_KERNELS = ("rns_tape", "rns_chain", "rns_prefix", "rns_apply_inverse",
                "rns_replay")
+# The card's peak rates for a kernel's bound: int32 multiply-adds at 64 per
+# SM per clock (CUDA C++ Programming Guide, throughput of native arithmetic
+# instructions, compute capability 9.0) x 132 SMs x 1.98 GHz (the boost
+# clock behind the data sheet's 67 TFLOP/s fp32 = 132 x 128 x 2 x 1.98e9),
+# and 3.35 TB/s of HBM3 (NVIDIA H100 SXM data sheet).
+IMAD_PER_S = 132 * 64 * 1.98e9
+HBM_BYTES_PER_S = 3.35e12
 
 
 def phase(name: str, fn):
@@ -107,30 +152,41 @@ def smi_line() -> str:
 def phase_device():
     import torch
     from tpu_ecm_torch.limbs import build
+    from tpu_ecm_torch.native import lib as native
     path = build.build()
     build.library()
     log = open(path[:-3] + ".log").read()
     for line in log.splitlines():
         if re.search(r"Compiling entry|Used \d+ registers|spill", line):
             print("  nvcc:", line.strip())
+    host = ("native host library loaded" if native.available()
+            else "native host library NOT loaded (pure-Python planners)")
     return (f"{torch.cuda.get_device_name(0)} | {smi_line()} | "
-            f"built {os.path.relpath(path, HERE)}")
+            f"built {os.path.relpath(path, HERE)} | {host}")
 
 
 # ---------------------------------------------------------------------------
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
+def _make_ctx(n, mersenne=None):
+    from tpu_ecm_torch import params
+    return params.make_monty(n, mersenne=mersenne)
+
+
 def _rand_planes(rng, ctx, shape):
-    """Random values below 2^(w*k) <= n/2, k whole digits: reduced."""
-    import numpy as np
+    """Random values below 2^(w*k) <= n/2, k whole digits: reduced.  Drawn
+    on the card, from a generator seeded by rng."""
     import torch
     p = ctx.p
     k = (p.nbits - 1) // p.w
-    a = np.zeros(shape, dtype=np.int32)
-    a[..., :k, :] = rng.integers(0, 1 << p.w, size=shape[:-2] + (k, shape[-1]),
-                                 dtype=np.int32)
-    return torch.from_numpy(a).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(
+        int(rng.integers(1 << 62)))
+    a = torch.zeros(shape, dtype=torch.int32, device="cuda")
+    a[..., :k, :] = torch.randint(0, 1 << p.w, shape[:-2] + (k, shape[-1]),
+                                  generator=gen, device="cuda",
+                                  dtype=torch.int32)
+    return a
 
 
 def _canon(plane, ctx):
@@ -177,14 +233,14 @@ def _replay_plain(acc, pa_ext, pbx, idx, d):
     return acc
 
 
-def _sliced_tape(mod, pts, tape, sc, d, tape_slice):
-    """mod.tape (kernels or rns_kernels) with its per-launch slice set to
-    tape_slice ops."""
+def _sliced_tape(mod, fn, state, tape, const, d, tape_slice):
+    """fn(state clone, tape, const, d) (a tape wrapper of mod: kernels or
+    rns_kernels) with its per-launch slice set to tape_slice ops."""
     if tape_slice is None:
-        return mod.tape(pts.clone(), tape, sc, d)
+        return fn(state.clone(), tape, const, d)
     old, mod.TAPE_SLICE = mod.TAPE_SLICE, tape_slice
     try:
-        return mod.tape(pts.clone(), tape, sc, d)
+        return fn(state.clone(), tape, const, d)
     finally:
         mod.TAPE_SLICE = old
 
@@ -200,58 +256,150 @@ def _replay_idx(rng, rows: int, pb_rows: int, entries: int):
     return np.concatenate([[entries - 3], ent]).astype(np.int32)
 
 
-def main_path_depth(nw: int, b: int) -> dict:
-    """The stack sizes the main path gives the kernels on the card at the
-    flagship bounds: Pa groups of PA_GROUP rows, replay blocks of
-    REPLAY_BLOCK entries, the whole Pb table; a tape slice of 100 ops
-    splits the 256-op tape over three launches."""
-    from tpu_ecm_torch.stage2 import exec as s2, plan
-    return dict(tape_ops=256, tape_slice=100, rows=s2.PA_GROUP["cuda"],
-                pb_rows=plan.make_stage2_params(
-                    FLAGSHIP["b1"], FLAGSHIP["b2"], nw=nw, batch=b).num_pb,
-                entries=s2.REPLAY_BLOCK["cuda"])
-
-
-def _kernel_cases(rng, ctx, b, depth=SHORT):
-    """name -> (kernel call, plain call, compare mod n?) on one geometry:
-    B curves and the stack sizes of `depth`."""
+def main_path_depth(nw: int, rows: int, b: int, job: dict,
+                    ed_ops=None) -> dict:
+    """The stack sizes the main path gives the kernels on the card for
+    `job` at B curves of `rows`-row planes (nw digits): the Pa group the
+    memory rule picks on this card, replay blocks of REPLAY_BLOCK entries,
+    the job's whole Pb table; a tape slice of 100 ops splits the 256-op
+    tapes (K1's, K9's when ed_ops is set, K10's) over three launches."""
     import torch
-    from tpu_ecm.primes import primes_range
-    from tpu_ecm_torch.curve import ops, prac
+    from tpu_ecm_torch.stage2 import exec as s2, plan
+    num_pb = plan.make_stage2_params(job["b1"], job["b2"], nw=nw,
+                                     batch=b).num_pb
+    free = (torch.cuda.mem_get_info()[0] + torch.cuda.memory_reserved()
+            - torch.cuda.memory_allocated())
+    return dict(tape_ops=256, tape_slice=100, pb_rows=num_pb,
+                rows=s2.pa_group_for_memory(rows * b * 4, num_pb, free),
+                entries=s2.REPLAY_BLOCK["cuda"], ed_ops=ed_ops)
+
+
+def _nbytes(*tensors) -> int:
+    return sum(int(t.numel()) * t.element_size() for t in tensors)
+
+
+def _bound(macs: float, nbytes: float):
+    """(bound_ms, bound_by): the least time the card could take for macs
+    int32 multiply-adds and nbytes of memory traffic."""
+    t_ops, t_mem = macs / IMAD_PER_S, nbytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_mem) * 1e3,
+            "operations" if t_ops >= t_mem else "bytes")
+
+
+def _product_macs(ctx, sqr: bool) -> int:
+    """int32 multiply-adds of one digit product of one curve, as
+    csrc/arith.cuh forms it: the schoolbook columns (a square's half),
+    then REDC (nw quotient digits times nw digits of n, and the quotient
+    products) or the fold's three passes of |c|'s digits times the high
+    part."""
+    nw = ctx.p.nw
+    cols = nw * (nw + 1) // 2 if sqr else nw * nw
+    if not ctx.is_mersenne:
+        return cols + nw * nw + nw
+    w = ctx.p.w
+    cl = max(1, (abs(ctx.mersenne_c).bit_length() + w - 1) // w)
+    hi = 2 * nw - ctx.mersenne_e // w
+    return cols + cl * (2 * hi + min(nw, hi))
+
+
+def _digit_macs(ctx, muls: int, sqrs: int) -> int:
+    return (muls * _product_macs(ctx, False)
+            + sqrs * _product_macs(ctx, True))
+
+
+def _tape_products(tape):
+    """(products, squares) of a K1 tape: DUP 3M+2S, ADD 4M+2S, NOP none."""
+    ops = tape[:, 0]
+    dup, add = int((ops == 0).sum()), int((ops == 1).sum())
+    return 3 * dup + 4 * add, 2 * (dup + add)
+
+
+def _ed_products(tape):
+    """(products, squares) of a K9 tape: DBL 3M+4S, DBLT 4M+4S, ADD and
+    SUB 7M, NOP none."""
+    ops = tape[:, 0]
+    dbl, dblt = int((ops == 0).sum()), int((ops == 1).sum())
+    adds = int(((ops == 2) | (ops == 3)).sum())
+    return 3 * dbl + 4 * dblt + 7 * adds, 4 * (dbl + dblt)
+
+
+def _kernel_cases(rng, ctx, b, depth=SHORT, plain_b=None):
+    """name -> (kernel call, plain call, compare mod n?, bound) on one
+    geometry: B curves and the stack sizes of `depth`; K9 is included when
+    depth["ed_ops"] is set.  The plain calls run on the first plain_b
+    curves (None: all B).  bound = (ms, "operations" | "bytes") of the
+    kernel call's multiply-adds and bytes."""
+    import numpy as np
+    import torch
+    from tpu_ecm_torch.curve import edops, edwards, ops, prac
     from tpu_ecm_torch.limbs import kernels, layout
     from tpu_ecm_torch.limbs.torch_ops import device_ctx
+    from tpu_ecm_torch.primes import primes_range
     d = device_ctx(ctx, "cuda")
     nw = ctx.p.nw
     rows, entries, pb_rows = depth["rows"], depth["entries"], depth["pb_rows"]
-    pts = _rand_planes(rng, ctx, (6, 2, nw, b))
-    sc = _rand_planes(rng, ctx, (nw, b))
-    tape = prac.stage1_tape(primes_range(0, FLAGSHIP["b1"]),
-                            FLAGSHIP["b1"])[:depth["tape_ops"]]
-    p1, p2, pd = (_rand_planes(rng, ctx, (2, nw, b)) for _ in range(3))
-    xs, zs, pres = (_rand_planes(rng, ctx, (rows, nw, b)) for _ in range(3))
+    R = lambda *shape: _rand_planes(rng, ctx, shape + (nw, b))
+    primes = primes_range(0, FLAGSHIP["b1"])
+    tape = prac.stage1_tape(primes, FLAGSHIP["b1"])[:depth["tape_ops"]]
     one = torch.from_numpy(layout.broadcast_int(ctx.r_mod_n, ctx.p.w, nw,
                                                 b)).cuda()
-    tinv = _rand_planes(rng, ctx, (nw, b))
-    pa_ext = torch.cat([_rand_planes(rng, ctx, (rows, nw, b)), one[None]])
-    pbx = _rand_planes(rng, ctx, (pb_rows, nw, b))
-    pbx[0] = 0
+    k = dict(pts=R(6, 2), sc=R(), p1=R(2), p2=R(2), pd=R(2), xs=R(rows),
+             zs=R(rows), pres=R(rows), one=one, tinv=R(),
+             pa_ext=torch.cat([R(rows), one[None]]), pbx=R(pb_rows), acc=R())
+    k["pbx"][0] = 0
     idx = _replay_idx(rng, rows, pb_rows, entries)
-    acc = _rand_planes(rng, ctx, (nw, b))
-    return {
-        "tape": (lambda: _sliced_tape(kernels, pts, tape, sc, d,
-                                      depth["tape_slice"]),
-                 lambda: ops.run_tape(pts.clone(), tape, sc, d), False),
-        "chain": (lambda: kernels.chain(p1, p2, pd, rows, d),
-                  lambda: kernels.chain_plain(p1, p2, pd, rows, d), False),
-        "prefix": (lambda: kernels.prefix(zs, one, d),
-                   lambda: kernels.prefix_plain(zs, one, d), False),
+    etape = None
+    if depth.get("ed_ops"):
+        etape = np.ascontiguousarray(
+            edwards.stage1_tape(primes, FLAGSHIP["b1"])[0][:depth["ed_ops"]])
+        k.update(eacc=R(4), table=R(1 << (edwards.DEFAULT_W - 2), 3))
+    p = k if plain_b is None else {
+        name: t[..., :plain_b].contiguous() for name, t in k.items()}
+    row = nw * b * 4
+    live = int(idx[0])
+    cases = {
+        "tape": (lambda: _sliced_tape(kernels, kernels.tape, k["pts"], tape,
+                                      k["sc"], d, depth["tape_slice"]),
+                 lambda: ops.run_tape(p["pts"].clone(), tape, p["sc"], d),
+                 False,
+                 _bound(b * _digit_macs(ctx, *_tape_products(tape)),
+                        2 * _nbytes(k["pts"]) + _nbytes(k["sc"])
+                        + tape.nbytes)),
+        "chain": (lambda: kernels.chain(k["p1"], k["p2"], k["pd"], rows, d),
+                  lambda: kernels.chain_plain(p["p1"], p["p2"], p["pd"],
+                                              rows, d), False,
+                  _bound(b * rows * _digit_macs(ctx, 4, 2),
+                         _nbytes(k["p1"], k["p2"], k["pd"]) + 2 * rows * row)),
+        "prefix": (lambda: kernels.prefix(k["zs"], k["one"], d),
+                   lambda: kernels.prefix_plain(p["zs"], p["one"], d), False,
+                   _bound(b * rows * _digit_macs(ctx, 1, 0),
+                          _nbytes(k["zs"], k["one"]) + rows * row)),
         "apply_inverse": (
-            lambda: kernels.apply_inverse(xs, zs, pres, tinv, d),
-            lambda: kernels.apply_inverse_plain(xs, zs, pres, tinv, d),
-            False),
-        "replay": (lambda: kernels.replay(acc, pa_ext, pbx, idx, d),
-                   lambda: _replay_plain(acc, pa_ext, pbx, idx, d), True),
+            lambda: kernels.apply_inverse(k["xs"], k["zs"], k["pres"],
+                                          k["tinv"], d),
+            lambda: kernels.apply_inverse_plain(p["xs"], p["zs"], p["pres"],
+                                                p["tinv"], d),
+            False, _bound(b * rows * _digit_macs(ctx, 3, 0),
+                          _nbytes(k["xs"], k["zs"], k["pres"], k["tinv"])
+                          + rows * row)),
+        "replay": (lambda: kernels.replay(k["acc"], k["pa_ext"], k["pbx"],
+                                          idx, d),
+                   lambda: _replay_plain(p["acc"], p["pa_ext"], p["pbx"], idx,
+                                         d), True,
+                   _bound(b * live * _digit_macs(ctx, 1, 0),
+                          _nbytes(k["acc"], k["pa_ext"], k["pbx"])
+                          + idx.nbytes + row)),
     }
+    if etape is not None:
+        cases["ed_tape"] = (
+            lambda: _sliced_tape(kernels, kernels.ed_tape, k["eacc"], etape,
+                                 k["table"], d, depth["tape_slice"]),
+            lambda: edops.run_tape(p["eacc"].clone(), etape, p["table"], d),
+            False,
+            _bound(b * _digit_macs(ctx, *_ed_products(etape)),
+                   2 * _nbytes(k["eacc"]) + _nbytes(k["table"])
+                   + etape.nbytes))
+    return cases
 
 
 def _rand_residues(gen, rc, shape):
@@ -263,29 +411,20 @@ def _rand_residues(gen, rc, shape):
     return r.remainder_(rc.p)
 
 
-def rns_main_path_depth(ctx, rows: int, b: int) -> dict:
-    """The stack sizes the main path gives the RNS kernels on the card for
-    the rns job: the Pa group the memory rule picks for this geometry on
-    this card, replay blocks of REPLAY_BLOCK entries, the job's Pb table; a
-    tape slice of 100 ops splits the 256-op tape over three launches."""
-    import torch
-    from tpu_ecm_torch.stage2 import exec as s2, plan
-    num_pb = plan.make_stage2_params(RNS_JOB["b1"], RNS_JOB["b2"],
-                                     nw=ctx.p.nw, batch=b).num_pb
-    free = (torch.cuda.mem_get_info()[0] + torch.cuda.memory_reserved()
-            - torch.cuda.memory_allocated())
-    return dict(tape_ops=256, tape_slice=100, pb_rows=num_pb,
-                rows=s2.pa_group_for_memory(rows * b * 4, num_pb, free),
-                entries=s2.REPLAY_BLOCK["cuda"])
+def _rns_macs(rc) -> int:
+    """int32 multiply-adds of one RNS product of one curve, as
+    csrc/rns_arith.cuh forms it: the two extension dots (K x (K+1) each)
+    and about six per channel elsewhere."""
+    return 2 * rc.K * (rc.K + 1) + 6 * rc.K + 3
 
 
 def _rns_kernel_cases(rng, gen, host, rc, b, depth=RNS_SHORT):
-    """name -> (kernel call, plain call) for K10-K13 and K15 on one
+    """name -> (kernel call, plain call, bound) for K10-K13 and K15 on one
     geometry: B curves and the stack sizes of `depth`."""
     import torch
-    from tpu_ecm.primes import primes_range
     from tpu_ecm_torch.curve import prac
     from tpu_ecm_torch.limbs import rns_exec, rns_kernels
+    from tpu_ecm_torch.primes import primes_range
     rows, entries, pb_rows = depth["rows"], depth["entries"], depth["pb_rows"]
     R = lambda *shape: _rand_residues(gen, rc, shape + (rc.rows, b))
     pts, sc = R(6, 2), R()
@@ -301,39 +440,59 @@ def _rns_kernel_cases(rng, gen, host, rc, b, depth=RNS_SHORT):
     idx = _replay_idx(rng, rows, pb_rows, entries)
     acc = R()
     k = rns_kernels
+    row = rc.rows * b * 4
+    macs = b * _rns_macs(rc)
+    muls, sqrs = _tape_products(tape)
     return {
         "rns_tape": (
-            lambda: _sliced_tape(k, pts, tape, sc, rc, depth["tape_slice"]),
-            lambda: rns_exec.run_tape(pts.clone(), tape, sc, rc)),
+            lambda: _sliced_tape(k, k.tape, pts, tape, sc, rc,
+                                 depth["tape_slice"]),
+            lambda: rns_exec.run_tape(pts.clone(), tape, sc, rc),
+            _bound(macs * (muls + sqrs),
+                   2 * _nbytes(pts) + _nbytes(sc) + tape.nbytes)),
         "rns_chain": (lambda: k.chain(p1, p2, pd, rows, rc),
-                      lambda: k.chain_plain(p1, p2, pd, rows, rc)),
+                      lambda: k.chain_plain(p1, p2, pd, rows, rc),
+                      _bound(macs * rows * 6,
+                             _nbytes(p1, p2, pd) + 2 * rows * row)),
         "rns_prefix": (lambda: k.prefix(zs, one, rc),
-                       lambda: k.prefix_plain(zs, one, rc)),
+                       lambda: k.prefix_plain(zs, one, rc),
+                       _bound(macs * rows, _nbytes(zs, one) + rows * row)),
         "rns_apply_inverse": (
             lambda: k.apply_inverse(xs, zs, pres, tinv, rc),
-            lambda: k.apply_inverse_plain(xs, zs, pres, tinv, rc)),
+            lambda: k.apply_inverse_plain(xs, zs, pres, tinv, rc),
+            _bound(macs * rows * 3,
+                   _nbytes(xs, zs, pres, tinv) + rows * row)),
         "rns_replay": (lambda: k.replay(acc, pa_ext, pbx, idx, rc),
-                       lambda: k.replay_plain(acc, pa_ext, pbx, idx, rc)),
+                       lambda: k.replay_plain(acc, pa_ext, pbx, idx, rc),
+                       _bound(macs * int(idx[0]),
+                              _nbytes(acc, pa_ext, pbx) + idx.nbytes + row)),
     }
+
+
+def _tape_ms_per_op(rng, ctx, tape, b):
+    """K1's ms per tape op over `tape` at B curves on random planes (one
+    compared launch, then the mean of two timed ones)."""
+    from tpu_ecm_torch.limbs import kernels
+    from tpu_ecm_torch.limbs.torch_ops import device_ctx
+    d = device_ctx(ctx, "cuda")
+    pts = _rand_planes(rng, ctx, (6, 2, ctx.p.nw, b))
+    sc = _rand_planes(rng, ctx, (ctx.p.nw, b))
+    kernels.tape(pts.clone(), tape, sc, d)
+    _, ms = _timed(lambda: kernels.tape(pts.clone(), tape, sc, d), 2)
+    return ms / tape.shape[0]
 
 
 def _crossover(rng, gen):
     """K1 and K10 on one 1536-bit modulus at B=1024, the same 256-op tape:
     ns per curve per tape op of each (the digit/RNS crossover datum)."""
-    from tpu_ecm import params
-    from tpu_ecm.primes import primes_range
     from tpu_ecm_torch.curve import prac
-    from tpu_ecm_torch.limbs import kernels, rns, rns_kernels
-    from tpu_ecm_torch.limbs.torch_ops import device_ctx
+    from tpu_ecm_torch.limbs import rns, rns_kernels
+    from tpu_ecm_torch.primes import primes_range
     b, ops = 1024, 256
-    ctx = params.make_monty(n1536())
+    ctx = _make_ctx(n1536())
     tape = prac.stage1_tape(primes_range(0, RNS_JOB["b1"]),
                             RNS_JOB["b1"])[:ops]
-    d = device_ctx(ctx, "cuda")
-    pts = _rand_planes(rng, ctx, (6, 2, ctx.p.nw, b))
-    sc = _rand_planes(rng, ctx, (ctx.p.nw, b))
-    kernels.tape(pts.clone(), tape, sc, d)
-    _, ms_d = _timed(lambda: kernels.tape(pts.clone(), tape, sc, d), 2)
+    ms_d = _tape_ms_per_op(rng, ctx, tape, b) * ops
     host = rns.make_rns(ctx, cw=rns.choose_cw(ctx.p.nbits))
     rc = rns.device_ctx(host, "cuda")
     rpts = _rand_residues(gen, rc, (6, 2, rc.rows, b))
@@ -346,69 +505,120 @@ def _crossover(rng, gen):
             f"K10 (K={rc.K}) {per(ms_r):.1f} ns per curve per tape op")
 
 
+def _fold_datum(rng):
+    """K1 in fold mode at M1277 against K1 in REDC mode on a random odd
+    1277-bit N, the same 64-op tape at B=2048: ms per tape op of each."""
+    from tpu_ecm_torch.curve import prac
+    from tpu_ecm_torch.primes import primes_range
+    b = 2048
+    tape = prac.stage1_tape(primes_range(0, MERSENNE_JOB["b1"]),
+                            MERSENNE_JOB["b1"])[:64]
+    fold = _make_ctx(M1277, (1277, 1))
+    n = random.Random(1277).getrandbits(1277) | 1 | (1 << 1276)
+    redc = _make_ctx(n)
+    ms_f = _tape_ms_per_op(rng, fold, tape, b)
+    ms_r = _tape_ms_per_op(rng, redc, tape, b)
+    return (f"1277 bits, B={b}: K1 fold (M1277, nw={fold.p.nw}) "
+            f"{ms_f:.4f} ms, K1 REDC (random odd N, nw={redc.p.nw}) "
+            f"{ms_r:.4f} ms per tape op")
+
+
+def _compare(name, label, got, want, ctx, mod_n):
+    if mod_n:
+        g, w = _canon(got, ctx), _canon(want, ctx)
+        err = max(abs(x - y) for x, y in zip(g, w))
+    else:
+        err = _max_abs_err(got, want)
+    if err != 0:
+        raise AssertionError(f"{name} at {label}: kernel and plain version "
+                             f"differ (max abs err {err})")
+    return err
+
+
+def _timing(kern, plain_ms, bound, err, reps=2):
+    """The record of one timed kernel: mean of `reps` launches after the
+    compared one, beside the plain version's time and the bound."""
+    _, ms = _timed(kern, reps)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
+                bound_by=bound[1], library_ms=None)
+
+
 def phase_kernels(record):
+    """Fills record[name] with the main-path timing of every kernel (and
+    record[name]["fold"] with K1-K5's at M1277, the mersenne job's
+    depths)."""
     import numpy as np
-    from tpu_ecm import params
+    import torch
     rng = np.random.default_rng(20261016)
     worst = {}
-    for label, n, b in (("N64", N64, 128), ("flagship", N416, 2048)):
-        ctx = params.make_monty(n)
-        depth = (main_path_depth(ctx.p.nw, b) if label == "flagship"
-                 else SHORT)
-        cases = _kernel_cases(rng, ctx, b, depth)
-        for name, (kern, plain, mod_n) in cases.items():
+    for label, n, mers, b in (("N64", N64, None, 128),
+                              ("flagship", N416, None, 2048),
+                              ("M127", M127, (127, 1), 128),
+                              ("M1277", M1277, (1277, 1), 2048)):
+        ctx = _make_ctx(n, mers)
+        nw = ctx.p.nw
+        depth, plain_b = {
+            "flagship": (main_path_depth(nw, nw, b, FLAGSHIP, ed_ops=256),
+                         None),
+            "M1277": (main_path_depth(nw, nw, b, MERSENNE_JOB), PLAIN_CURVES),
+        }.get(label, (SHORT, None))
+        cases = _kernel_cases(rng, ctx, b, depth, plain_b)
+        for name, (kern, plain, mod_n, bound) in cases.items():
             got = kern()
             want, plain_ms = _timed(plain, 1)
-            if mod_n:
-                g, w = _canon(got, ctx), _canon(want, ctx)
-                err = max(abs(x - y) for x, y in zip(g, w))
-            else:
-                err = _max_abs_err(got, want)
-            if err != 0:
-                raise AssertionError(f"{name} at {label}: kernel and plain "
-                                     f"version differ (max abs err {err})")
+            if plain_b is not None:
+                got = got[..., :plain_b]
+            err = _compare(name, label, got, want, ctx, mod_n)
             worst[name] = max(worst.get(name, 0), err)
             del got, want
             if label == "flagship":
-                _, ms = _timed(kern, 2)
-                record[name] = dict(max_abs_err=worst[name], ms=ms,
-                                    plain_ms=plain_ms)
+                record[name] = _timing(kern, plain_ms, bound, worst[name])
+            elif label == "M1277":
+                # one timed launch: each runs for seconds at these depths
+                record[name]["fold"] = dict(
+                    _timing(kern, plain_ms, bound, err, reps=1),
+                    plain_curves=plain_b, depth=depth)
         del cases
-    import torch
+        torch.cuda.empty_cache()
     from tpu_ecm_torch.limbs import rns
-    torch.cuda.empty_cache()
     gen = torch.Generator(device="cuda").manual_seed(20261016)
     for label, n, b in (("N256", N256, 128), ("row21", row21_n(), 1024)):
-        ctx = params.make_monty(n)
+        ctx = _make_ctx(n)
         host = rns.make_rns(ctx, cw=rns.choose_cw(ctx.p.nbits))
         rc = rns.device_ctx(host, "cuda")
-        depth = (rns_main_path_depth(ctx, rc.rows, b) if label == "row21"
-                 else RNS_SHORT)
+        depth = (main_path_depth(ctx.p.nw, rc.rows, b, RNS_JOB)
+                 if label == "row21" else RNS_SHORT)
         cases = _rns_kernel_cases(rng, gen, host, rc, b, depth)
-        for name, (kern, plain) in cases.items():
+        for name, (kern, plain, bound) in cases.items():
             got = kern()
             want, plain_ms = _timed(plain, 1)
-            err = _max_abs_err(got, want)
-            if err != 0:
-                raise AssertionError(f"{name} at {label}: kernel and plain "
-                                     f"version differ (max abs err {err})")
+            err = _compare(name, label, got, want, ctx, False)
             worst[name] = max(worst.get(name, 0), err)
             del got, want
             if label == "row21":
-                _, ms = _timed(kern, 2)
-                record[name] = dict(max_abs_err=worst[name], ms=ms,
-                                    plain_ms=plain_ms)
+                record[name] = _timing(kern, plain_ms, bound, worst[name])
         del cases
         torch.cuda.empty_cache()
     print(f"  rns depths at row 21 (K={rc.K}, B=1024): {depth}", flush=True)
+    print(f"  fold depths at M1277 (B=2048): {record['tape']['fold']['depth']}"
+          f"; plain versions on the first {PLAIN_CURVES} curves", flush=True)
+    for name, r in record.items():
+        fold = r.get("fold")
+        print(f"  {name}: {r['ms']:.3f} ms (plain {r['plain_ms']:.1f}, "
+              f"bound {r['bound_ms']:.4f} by {r['bound_by']})"
+              + (f"; fold at M1277: {fold['ms']:.3f} ms (plain on "
+                 f"{fold['plain_curves']} curves {fold['plain_ms']:.1f}, "
+                 f"bound {fold['bound_ms']:.4f} by {fold['bound_by']})"
+                 if fold else ""), flush=True)
     cross = _crossover(rng, gen)
+    fold = _fold_datum(rng)
     torch.cuda.empty_cache()
-    return ("K1-K5 equal their plain versions at N64/B=128 (short stacks) "
-            "and 416-bit/B=2048 (main-path depths); K10-K13, K15 at "
-            "N256/B=128 (short stacks) and row 21/B=1024 (main-path "
-            "depths); ms (kernel/plain): " + ", ".join(
-                f"{k} {v['ms']:.3f}/{v['plain_ms']:.1f}"
-                for k, v in record.items()) + "; " + cross)
+    return ("K1-K5 and K9 equal their plain versions at N64/B=128 (short "
+            "stacks), 416-bit/B=2048 (main-path depths) and, in fold mode, "
+            "M127/B=128; K1-K5 in fold mode at M1277/B=2048 (the mersenne "
+            f"job's depths, plain on {PLAIN_CURVES} curves); K10-K13, K15 "
+            "at N256/B=128 (short stacks) and row 21/B=1024 (main-path "
+            "depths); " + cross + "; " + fold)
 
 
 # ---------------------------------------------------------------------------
@@ -429,7 +639,7 @@ def _test_constant(filename: str, name: str):
 
 def row21_n() -> int:
     """N of row 21 of tests/test_acceptance.py (2397 bits)."""
-    from tpu_ecm.io import calc
+    from tpu_ecm_torch.io import calc
     rows = _test_constant("test_acceptance.py", "REFSWEEP_ROWS")
     return calc.calc(next(r for r in rows if r[0] == 21)[1])
 
@@ -460,15 +670,30 @@ def _prp(rng, bits: int) -> int:
             return c
 
 
-def _run(tmp, **kw):
+def _driver(tmp, **kw):
+    """A driver on the card writing its files under tmp (quiet unless
+    kw sets verbose)."""
     from tpu_ecm_torch import driver
     os.makedirs(tmp, exist_ok=True)
     kw.setdefault("verbose", 0)
-    return driver.run_ecm(
+    return driver.ECMDriver(driver.RunConfig(
         save_b1_path=os.path.join(tmp, "save_b1.txt"),
         checkpoint_path=os.path.join(tmp, "checkpoint.txt"),
         results_path=os.path.join(tmp, "ecm_results.txt"),
-        device="cuda", **kw)
+        device="cuda", **kw))
+
+
+def _run(tmp, **kw):
+    return _driver(tmp, **kw).run()
+
+
+def _job_line(j, bits, res, wall, counts) -> str:
+    t = res.timings
+    return (f"{j['curves']} curves x {bits} bits, B1={j['b1']}, "
+            f"B2={j['b2']}: stage1 {t['stage1']:.2f} s, stage2_init "
+            f"{t['stage2_init']:.2f} s, stage2 {t['stage2']:.2f} s, "
+            f"wall {wall:.2f} s, {j['curves'] / wall:.2f} curves/s; "
+            f"launches {counts}; factors {len(res.factors)}")
 
 
 def phase_oracle(tmp):
@@ -503,10 +728,33 @@ def phase_oracle(tmp):
                for h in res.factors):
         raise AssertionError(f"2355-bit sigma-112 find missing: "
                              f"{res.factors}")
+    kernels.reset_launches()
+    res = _run(os.path.join(tmp, "o6"), n=M101, curves=12, b1=10_000,
+               b2=1_000_000, sigma=500, stop_on_factor=False)
+    hits = {(h.sigma, h.stage) for h in res.factors if h.factor == M101_P13}
+    if not {(511, 1), (502, 2)} <= hits or res.work_modulus != M101:
+        raise AssertionError(f"M101 pinned finds missing: {sorted(hits)}")
+    if not all(kernels.launches[k] for k in DIGIT_KERNELS):
+        raise AssertionError(f"M101 skipped a digit kernel: "
+                             f"{kernels.launches}")
+    ed = {}
+    for tag, sigma, b2, stage, want_sigma in (("o7", 44, 300, 1, 46),
+                                              ("o8", 28, 10000, 2, 29)):
+        res = _run(os.path.join(tmp, tag), n=N71, curves=4, b1=300, b2=b2,
+                   sigma=sigma, curve_mode="edwards")
+        hit = [h for h in res.factors if h.factor == P35]
+        if not hit or (hit[0].stage, hit[0].sigma) != (stage, want_sigma):
+            raise AssertionError(f"Edwards N71 stage-{stage} find missing: "
+                                 f"{res.factors}")
+        ed[stage] = want_sigma
+    if not kernels.launches["ed_tape"]:
+        raise AssertionError("the Edwards runs did not launch K9")
     return (f"(P35, 2, 112) found; golden sweep {len(got)}/{len(want)} "
             "equal; RNS: N71 (P35, 2, 112) found, N256 stage-1 residues "
             "equal to the digit engine's, 2355 bits routed to RNS and P35 "
-            "found in stage 2 at sigma 112")
+            "found in stage 2 at sigma 112; M101 (fold): P13 at sigma 511 "
+            "in stage 1 and sigma 502 in stage 2; Edwards N71: P35 at sigma "
+            f"{ed[1]} in stage 1 and sigma {ed[2]} in stage 2")
 
 
 def phase_flagship(tmp, record):
@@ -517,37 +765,44 @@ def phase_flagship(tmp, record):
     res = _run(tmp, n=N416, curves=f["curves"], b1=f["b1"], b2=f["b2"],
                sigma=f["sigma"], stop_on_factor=False)
     wall = time.time() - t0
-    counts = {k: kernels.launches[k] for k in DIGIT_KERNELS}
-    for name, c in counts.items():
-        record[name]["launches"] = c
+    counts = _launches(record, "flagship", DIGIT_KERNELS)
     missing = [k for k, c in counts.items() if c == 0]
-    if missing:
+    if missing or kernels.launches["ed_tape"]:
         raise AssertionError(f"kernels never launched on the main path: "
-                             f"{missing}")
+                             f"{missing}, or K9 launched: "
+                             f"{kernels.launches['ed_tape']}")
     _check_save(os.path.join(tmp, "save_b1.txt"), N416, f)
     if res.curves_run != f["curves"]:
         raise AssertionError(f"ran {res.curves_run} curves")
-    t = res.timings
-    return (f"{f['curves']} curves x 416 bits, B1={f['b1']}, B2={f['b2']}: "
-            f"stage1 {t['stage1']:.2f} s, stage2_init "
-            f"{t['stage2_init']:.2f} s, stage2 {t['stage2']:.2f} s, "
-            f"wall {wall:.2f} s, {f['curves'] / wall:.2f} curves/s; "
-            f"launches {counts}; factors {len(res.factors)}")
+    return _job_line(f, 416, res, wall, counts)
 
 
-def _check_save(path, n, job):
-    """save_b1.txt holds one canonical record per curve of the job."""
-    from tpu_ecm.io import savefile
+def _launches(record, job: str, names) -> dict:
+    """The launch counts of `names` in the job just run, kept in
+    record[name]["launches_by_job"][job]; the flagship's (and for K9 the
+    edwards job's) are the JSON line's "launches"."""
+    from tpu_ecm_torch.limbs import kernels
+    counts = {k: kernels.launches[k] for k in names}
+    for name, c in counts.items():
+        record[name].setdefault("launches_by_job", {})[job] = c
+    return counts
+
+
+def _check_save(path, n, job, program="AVX-ECM"):
+    """save_b1.txt holds one canonical record per curve of the job, with N
+    the input and the program tag of its curve family."""
+    from tpu_ecm_torch.io import savefile
     with open(path) as fh:
         recs = list(savefile.parse_records(fh))
     sigmas = {r.sigma for r in recs}
     if (len(recs) != job["curves"]
             or any(r.n != n or r.b1 != job["b1"] or not 0 <= r.x < n
-                   or not 0 < r.z < n for r in recs)
+                   or not 0 < r.z < n or r.program != program for r in recs)
             or sigmas != set(range(job["sigma"],
                                    job["sigma"] + job["curves"]))):
-        raise AssertionError(f"{path} does not hold one canonical record "
-                             "per curve")
+        raise AssertionError(f"{path} does not hold one canonical "
+                             f"{program} record per curve")
+    return recs
 
 
 def phase_rns(tmp, record):
@@ -560,13 +815,11 @@ def phase_rns(tmp, record):
     res = _run(tmp, n=n, curves=j["curves"], b1=j["b1"], b2=j["b2"],
                sigma=j["sigma"], stop_on_factor=False)
     wall = time.time() - t0
-    counts = {k: kernels.launches[k] for k in RNS_KERNELS}
-    for name, c in counts.items():
-        record[name]["launches"] = c
+    counts = _launches(record, "rns", RNS_KERNELS)
     missing = [k for k, c in counts.items() if c == 0]
     if missing:
         raise AssertionError(f"RNS kernels never launched: {missing}")
-    digit = {k: kernels.launches[k] for k in DIGIT_KERNELS
+    digit = {k: kernels.launches[k] for k in DIGIT_KERNELS + ("ed_tape",)
              if kernels.launches[k]}
     if digit:
         raise AssertionError(f"digit kernels launched in the rns job: "
@@ -574,35 +827,138 @@ def phase_rns(tmp, record):
     _check_save(os.path.join(tmp, "save_b1.txt"), n, j)
     if res.curves_run != j["curves"]:
         raise AssertionError(f"ran {res.curves_run} curves")
-    t = res.timings
-    return (f"{j['curves']} curves x {n.bit_length()} bits, B1={j['b1']}, "
-            f"B2={j['b2']}: stage1 {t['stage1']:.2f} s, stage2_init "
-            f"{t['stage2_init']:.2f} s, stage2 {t['stage2']:.2f} s, "
-            f"wall {wall:.2f} s, {j['curves'] / wall:.2f} curves/s; "
-            f"launches {counts}; factors {len(res.factors)}")
+    return _job_line(j, n.bit_length(), res, wall, counts)
 
 
-PROFILE_JOBS = {"flagship": (N416, FLAGSHIP), "rns": (None, RNS_JOB)}
+def _suyama_oracle(ctx, residues, b1: int) -> None:
+    """Each (sigma, X, Z) of a driver's stage-1 residues equals the exact
+    integer replay of its curve (curve/oracle.py over per-prime PRAC tapes,
+    as tests/test_e2e.py:227-254 does)."""
+    from tpu_ecm_torch.curve import oracle, prac, suyama
+    from tpu_ecm_torch.primes import primes_range
+    dom = oracle.IntDomain(ctx)
+    for sigma, gx, gz in residues:
+        ci = suyama.build_one_curve(ctx, sigma)
+        X, Z, s = ci.x_mont, ci.z_mont, ci.s_mont
+        for _ in range(prac.stage1_powers_of_two(b1)):
+            X, Z = oracle.xdbl_int(dom, X, Z, s)
+        for q in primes_range(3, b1).tolist():
+            k = 1
+            while True:
+                tape = []
+                prac.prac_tape(int(q), tape)
+                X, Z = oracle.run_tape_int(ctx, tape, X, Z, s)[0]
+                k *= q
+                if k * q >= b1:
+                    break
+        if (gx, gz) != (ctx.from_mont_int(X), ctx.from_mont_int(Z)):
+            raise AssertionError(f"sigma {sigma}: stage-1 residue differs "
+                                 "from the integer oracle")
+
+
+def _edwards_oracle(ctx, recs, b1: int) -> None:
+    """Each AVX-ECM-ED record's (U : W) equals (Z+Y : Z-Y) of
+    edwards.oracle_scalar_mul's [s]P for its sigma, projectively."""
+    from tpu_ecm_torch.curve import edwards
+    from tpu_ecm_torch.primes import primes_range
+    n = ctx.n_int
+    s = edwards.stage1_scalar(primes_range(0, b1), b1)
+    for r in recs:
+        c = edwards.build_one_curve(ctx, r.sigma)
+        u, w = edwards.to_montgomery_xz(
+            edwards.oracle_scalar_mul(s, c.x0, c.y0, c.d, n), n)
+        if r.x * w % n != r.z * u % n:
+            raise AssertionError(f"sigma {r.sigma}: Edwards stage-1 point "
+                                 "differs from the integer oracle")
+
+
+def phase_mersenne(tmp, record):
+    """M1277 through the driver at full width, reduced by the fold."""
+    from tpu_ecm_torch.limbs import kernels
+    j = MERSENNE_JOB
+    kernels.reset_launches()
+    t0 = time.time()
+    d = _driver(tmp, n=M1277, curves=j["curves"], b1=j["b1"], b2=j["b2"],
+                sigma=j["sigma"], stop_on_factor=False)
+    if not (d.ctx.is_mersenne and d.engine == "digit"):
+        raise AssertionError("M1277 did not take the fold on the digit "
+                             "engine")
+    res = d.run()
+    wall = time.time() - t0
+    counts = _launches(record, "mersenne", DIGIT_KERNELS)
+    if not all(counts.values()) or kernels.launches["ed_tape"]:
+        raise AssertionError(f"mersenne job launches: {kernels.launches}")
+    _check_save(os.path.join(tmp, "save_b1.txt"), M1277, j)
+    t1 = time.time()
+    _suyama_oracle(d.ctx, res.stage1_residues[:4], j["b1"])
+    return (_job_line(j, 1277, res, wall, counts)
+            + f"; w={d.ctx.p.w}, nw={d.ctx.p.nw}; the first 4 stage-1 "
+            f"residues equal the integer oracle ({time.time() - t1:.2f} s)")
+
+
+def phase_edwards(tmp, record):
+    """The flagship job with Edwards curves: K9 for stage 1, K2-K5 for
+    the Montgomery stage 2."""
+    from tpu_ecm_torch.limbs import kernels
+    j = FLAGSHIP
+    kernels.reset_launches()
+    t0 = time.time()
+    d = _driver(tmp, n=N416, curves=j["curves"], b1=j["b1"], b2=j["b2"],
+                sigma=j["sigma"], curve_mode="edwards", stop_on_factor=False)
+    # stage 2 runs its point ladders through K1: stage 1 must not
+    stage2, k1_stage1 = d._run_stage2, []
+
+    def run_stage2(*args, **kw):
+        k1_stage1.append(kernels.launches["tape"])
+        return stage2(*args, **kw)
+
+    d._run_stage2 = run_stage2
+    res = d.run()
+    wall = time.time() - t0
+    counts = _launches(record, "edwards", ("ed_tape",) + DIGIT_KERNELS)
+    if (k1_stage1 != [0] or kernels.launches["rns_tape"]
+            or not all(c for k, c in counts.items() if k != "tape")):
+        raise AssertionError(f"edwards job launches: {kernels.launches}, "
+                             f"K1 in stage 1: {k1_stage1}")
+    recs = _check_save(os.path.join(tmp, "save_b1.txt"), N416, j,
+                       program="AVX-ECM-ED")
+    t1 = time.time()
+    _edwards_oracle(d.ctx, recs[:4], j["b1"])
+    return (_job_line(j, 416, res, wall, counts)
+            + f" (K1: stage 2's ladders only); ed_normalize "
+            f"{res.timings.get('ed_normalize', 0.0):.2f} s; the first 4 "
+            f"stage-1 points equal the integer oracle "
+            f"({time.time() - t1:.2f} s)")
+
+
+# job -> (N, bounds, driver options, warm-up run of the same path)
+PROFILE_JOBS = {
+    "flagship": (N416, FLAGSHIP, {}, dict(n=N71, engine="digit")),
+    "rns": (None, RNS_JOB, {}, dict(n=N71, engine="rns")),
+    "mersenne": (M1277, MERSENNE_JOB, {}, dict(n=M101)),
+    "edwards": (N416, FLAGSHIP, dict(curve_mode="edwards"),
+                dict(n=N71, curve_mode="edwards")),
+}
 
 
 def profile_job(tmp, out_dir, job: str):
     """One job once under torch.profiler (after a small warm-up run of the
-    same engine, so lazy set-up stays outside the window): device time per
+    same path, so lazy set-up stays outside the window): device time per
     kernel, and the union of the card's kernel intervals against the job's
     wall time, which gives the card's idle share of the job."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    n, j = PROFILE_JOBS[job]
+    n, j, opts, warm = PROFILE_JOBS[job]
     n = n or row21_n()
-    _run(os.path.join(tmp, "o1"), n=N71, curves=4, b1=300, b2=10000,
-         sigma=110, engine="digit" if job == "flagship" else "rns")
+    _run(os.path.join(tmp, "o1"), curves=4, b1=300, b2=10000, sigma=110,
+         **warm)
     sub = os.path.join(tmp, job)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         res = _run(sub, n=n, curves=j["curves"], b1=j["b1"], b2=j["b2"],
-                   sigma=j["sigma"], stop_on_factor=False)
+                   sigma=j["sigma"], stop_on_factor=False, **opts)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
@@ -643,8 +999,8 @@ def main() -> int:
                     const=os.path.join(HERE, "chiprun_out"),
                     help="profile a job instead of the smoke phases; "
                          "write its kernel table under DIR")
-    ap.add_argument("--job", choices=("flagship", "rns", "both"),
-                    default="both", help="the job(s) --profile runs")
+    ap.add_argument("--job", choices=tuple(PROFILE_JOBS) + ("all",),
+                    default="all", help="the job(s) --profile runs")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -659,27 +1015,37 @@ def main() -> int:
     try:
         phase("device", phase_device)
         if args.profile:
-            jobs = (("flagship", "rns") if args.job == "both"
-                    else (args.job,))
+            jobs = tuple(PROFILE_JOBS) if args.job == "all" else (args.job,)
             for job in jobs:
                 phase("profile",
                       lambda: profile_job(tmp, args.profile, job))
             return 0
         phase("kernels", lambda: phase_kernels(record))
         phase("oracle", lambda: phase_oracle(tmp))
-        phase("flagship",
-              lambda: phase_flagship(os.path.join(tmp, "flagship"), record))
-        phase("rns", lambda: phase_rns(os.path.join(tmp, "rns"), record))
+        for name, fn in (("flagship", phase_flagship), ("rns", phase_rns),
+                         ("mersenne", phase_mersenne),
+                         ("edwards", phase_edwards)):
+            phase(name, lambda: fn(os.path.join(tmp, name), record))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
+    # "launches" is the count of the kernel's main path: the flagship job
+    # for the digit kernels, the edwards job for K9, the rns job for RNS
+    main_job = dict.fromkeys(DIGIT_KERNELS, "flagship")
+    main_job.update(dict.fromkeys(RNS_KERNELS, "rns"), ed_tape="edwards")
     out = []
     for name, (source, replaces) in kernels.KERNELS.items():
         r = record[name]
-        out.append(dict(name=name, route="cuda", source=source,
-                        replaces=replaces, launches=r["launches"],
-                        max_abs_err=r["max_abs_err"], ms=r["ms"],
-                        plain_ms=r["plain_ms"]))
+        launches = r["launches_by_job"]
+        if not any(launches.values()):
+            raise AssertionError(f"{name} never launched in any job")
+        out.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=launches[main_job[name]], max_abs_err=r["max_abs_err"],
+            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=r["library_ms"],
+            launches_by_job=launches,
+            **({"fold": r["fold"]} if "fold" in r else {})))
     print(json.dumps({"kernels": out}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {

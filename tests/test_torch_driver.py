@@ -3,6 +3,7 @@ every kernel wrapper takes its plain version): the pinned-sigma N71 finds,
 the golden sweep, the reference binary's save_b1.txt byte for byte, and
 the same stage-1 residues as the JAX driver."""
 
+import dataclasses
 import os
 
 import pytest
@@ -17,6 +18,10 @@ from tpu_ecm_torch.io import cli  # noqa: E402
 
 from moduli import N256  # noqa: E402
 from test_e2e import GOLDEN_SWEEP, N71, P35  # noqa: E402
+
+# the 416-bit semiprime of bench.py's flagship job
+N416 = (205688069665150755269371147819668813122841983204197482918578443
+        * 411376139330301510538742295639337626245683966408394965837157771)
 from test_interop import FIXTURE  # noqa: E402
 
 torch.set_num_threads(1)
@@ -104,24 +109,99 @@ def test_structure_checks(tmp_path):
 
 
 def test_unported_parts_raise(tmp_path):
-    """Mersenne forms and Edwards name their ROADMAP item instead of
-    running something else; beyond the digit engine's bound the driver
-    takes the RNS engine, and an explicit digit request raises."""
-    m101 = (1 << 101) - 1
-    with pytest.raises(NotImplementedError, match="Mersenne"):
-        driver.ECMDriver(_cfg(tmp_path, n=m101, curves=2, b1=100))
-    res = driver.ECMDriver(_cfg(tmp_path, n=m101, curves=2, b1=100, b2=100,
-                                sigma=900, force_no_mersenne=True)).run()
-    assert res.curves_run == 2
+    """What is still not ported or not supported raises instead of running
+    something else: engine="rns" with Edwards curves, Edwards curves beyond
+    the digit engine's bound, an explicit digit request there, an unknown
+    curve mode; beyond the bound "auto" takes the RNS engine."""
     big = (1 << 2200) + 297                 # beyond the int32 digit bound
     assert driver.ECMDriver(_cfg(tmp_path, n=big * 3 * 5 * 7, curves=1,
                                  b1=100)).engine == "rns"
     with pytest.raises(ValueError, match="digit"):
         driver.ECMDriver(_cfg(tmp_path, n=big * 3 * 5 * 7, curves=1,
                               b1=100, engine="digit"))
-    with pytest.raises(NotImplementedError, match="Edwards"):
+    with pytest.raises(ValueError, match="suyama"):
+        driver.ECMDriver(_cfg(tmp_path, n=big * 3 * 5 * 7, curves=1,
+                              b1=100, curve_mode="edwards"))
+    with pytest.raises(ValueError, match="suyama"):
         driver.ECMDriver(_cfg(tmp_path, n=N71, curves=1, b1=100,
-                              curve_mode="edwards"))
+                              engine="rns", curve_mode="edwards"))
+    with pytest.raises(ValueError, match="curve_mode"):
+        driver.ECMDriver(_cfg(tmp_path, n=N71, curves=1, b1=100,
+                              curve_mode="weierstrass"))
+    res = driver.ECMDriver(_cfg(tmp_path, n=(1 << 101) - 1, curves=2,
+                                b1=100, b2=100, sigma=900,
+                                force_no_mersenne=True)).run()
+    assert res.curves_run == 2
+
+
+def _j_cfg(tmp_path, **kw):
+    return j_driver.RunConfig(
+        save_b1_path=str(tmp_path / "save_b1.txt"),
+        checkpoint_path=str(tmp_path / "checkpoint.txt"),
+        results_path=str(tmp_path / "ecm_results.txt"), verbose=0, **kw)
+
+
+def test_mersenne_residues_match_jax_driver(tmp_path):
+    """The twin of tests/test_e2e.py:257-269: M101 = 2^101 - 1, 2 curves,
+    B1 = B2 = 100 run mod M by the fold; the stage-1 residues and
+    save_b1.txt (N = the input) equal the JAX driver's."""
+    m101 = (1 << 101) - 1
+    kw = dict(n=m101, curves=2, b1=100, b2=100, sigma=900)
+    (tmp_path / "t").mkdir()
+    (tmp_path / "j").mkdir()
+    d = driver.ECMDriver(_cfg(tmp_path / "t", **kw))
+    assert d.ctx.is_mersenne and d.ctx.n_int == m101 and d.engine == "digit"
+    got = d.run()
+    want = j_driver.ECMDriver(_j_cfg(tmp_path / "j", **kw)).run()
+    assert got.stage1_residues == want.stage1_residues
+    assert all(0 < x < m101 and 0 < z < m101
+               for _s, x, z in got.stage1_residues)
+    assert (tmp_path / "t" / "save_b1.txt").read_bytes() \
+        == (tmp_path / "j" / "save_b1.txt").read_bytes()
+
+
+@pytest.mark.parametrize("n,form,b2", [((1 << 128) + 1, (128, -1), 3000),
+                                       ((1 << 202) - 225, (202, 225), 200)])
+def test_special_forms_match_jax_driver(tmp_path, n, form, b2):
+    """F7 = 2^128 + 1 (c = -1, the sign of the fold) with a short stage 2,
+    and the composite 2^202 - 225 (a pseudo-Mersenne c of one digit)
+    through stage 1, in both drivers: the contexts, stage-1 residues,
+    save_b1.txt and factor finds are equal."""
+    kw = dict(n=n, curves=2, b1=200, b2=b2, sigma=31, stop_on_factor=False)
+    (tmp_path / "t").mkdir()
+    (tmp_path / "j").mkdir()
+    d = driver.ECMDriver(_cfg(tmp_path / "t", **kw))
+    jd = j_driver.ECMDriver(_j_cfg(tmp_path / "j", **kw))
+    assert (d.ctx.mersenne_e, d.ctx.mersenne_c) == form
+    assert dataclasses.asdict(d.ctx) == dataclasses.asdict(jd.ctx)
+    got, want = d.run(), jd.run()
+    assert got.stage1_residues == want.stage1_residues
+    assert {(h.factor, h.stage, h.sigma) for h in got.factors} \
+        == {(h.factor, h.stage, h.sigma) for h in want.factors}
+    assert (tmp_path / "t" / "save_b1.txt").read_bytes() \
+        == (tmp_path / "j" / "save_b1.txt").read_bytes()
+
+
+@pytest.mark.parametrize("n,engine,curve_mode,want", [
+    ((1 << 1277) - 1, "auto", "suyama", "digit"),
+    (N416, "auto", "edwards", "digit"),
+    (N71, "rns", "edwards", ValueError),
+    (N71, "rns", "suyama", "rns"),
+])
+def test_engine_routing_matches_jax(tmp_path, n, engine, curve_mode, want):
+    """The engine each driver picks for M1277, the 416-bit N with Edwards
+    curves and an explicit RNS request, or the error both raise."""
+    kw = dict(n=n, curves=1, b1=100, engine=engine, curve_mode=curve_mode)
+    if want is ValueError:
+        for make in (lambda: driver.ECMDriver(_cfg(tmp_path, **kw)),
+                     lambda: j_driver.ECMDriver(_j_cfg(tmp_path, **kw))):
+            with pytest.raises(ValueError, match="suyama"):
+                make()
+        return
+    got = driver.ECMDriver(_cfg(tmp_path, **kw))
+    assert got.engine == j_driver.ECMDriver(_j_cfg(tmp_path, **kw)).engine \
+        == want
+    assert got.ctx.is_mersenne == (n == (1 << 1277) - 1)
 
 
 def test_cli_runs_on_cpu(tmp_path, capsys, monkeypatch):
@@ -130,7 +210,10 @@ def test_cli_runs_on_cpu(tmp_path, capsys, monkeypatch):
     assert rc == 0
     assert str(P35) in capsys.readouterr().out
     assert os.path.exists(tmp_path / "save_b1.txt")
-    assert cli.main(["-edwards", str(N71), "2", "300"]) == 1
+    assert cli.main(["-resume", "save_b1.txt", "1000"]) == 1
+    rc = cli.main(["-device", "cpu", "2^101-1", "2", "100", "0", "100",
+                   "900"])
+    assert rc == 0 and "2^101-1" in capsys.readouterr().out
     rc = cli.main(["-device", "cpu", "-rns", str(N71), "2", "300", "0",
                    "300", "174"])
     assert rc == 0 and "engine: RNS" in capsys.readouterr().out

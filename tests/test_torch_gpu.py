@@ -1,7 +1,8 @@
 """Tests that need an NVIDIA GPU (marker `cuda`; they skip without one):
-the ten CUDA kernels against their plain PyTorch versions, the golden
-sweep and the reference's t35 acceptance sweep through the port, and the
-RNS engine's finds through the driver on the card.
+the eleven CUDA kernels against their plain PyTorch versions (the digit
+kernels in REDC and fold modes), the golden sweep and the reference's t35
+acceptance sweep through the port, and the RNS engine's, the Mersenne
+fold's and the Edwards curves' finds through the driver on the card.
 
 The card has no JAX, so run them from the repository root without the
 JAX conftest:
@@ -51,21 +52,29 @@ def _run_cfg(tmp_path, **kw):
         device="cuda", **kw)
 
 
-@pytest.mark.parametrize("modulus,b", [("N64", 128), ("N416", 2048)])
+@pytest.mark.parametrize("modulus,b", [("N64", 128), ("N416", 2048),
+                                       ("M127", 128), ("M1277", 2048)])
 def test_kernels_match_plain(cuda, modulus, b):
-    """K1-K4 digit for digit, K5 mod n, against the plain versions run on
-    the same card tensors (chip_smoke.py's cases)."""
+    """K1-K4 and K9 digit for digit, K5 mod n, against the plain versions
+    run on the same card tensors (chip_smoke.py's cases): REDC at N64 and
+    N416, the fold at M127 (with K9) and M1277 (K1-K5, short stacks)."""
     import numpy as np
 
     import chip_smoke
-    from tpu_ecm import params
+    from tpu_ecm_torch import params
     from tpu_ecm_torch.limbs import kernels
 
-    ctx = params.make_monty(getattr(chip_smoke, modulus))
+    n = getattr(chip_smoke, modulus)
+    mers = (n.bit_length(), 1) if modulus.startswith("M") else None
+    ctx = params.make_monty(n, mersenne=mers)
     rng = np.random.default_rng(7)
-    cases = chip_smoke._kernel_cases(rng, ctx, b)
+    depth = chip_smoke.SHORT
+    if modulus == "M1277":
+        depth = dict(depth, ed_ops=None)
+    cases = chip_smoke._kernel_cases(rng, ctx, b, depth)
+    assert ("ed_tape" in cases) == (modulus != "M1277")
     kernels.reset_launches()
-    for name, (kern, plain, mod_n) in cases.items():
+    for name, (kern, plain, mod_n, _bound) in cases.items():
         got, want = kern(), plain()
         torch.cuda.synchronize()
         if mod_n:
@@ -83,7 +92,7 @@ def test_rns_kernels_match_plain(cuda, modulus, b):
     import numpy as np
 
     import chip_smoke
-    from tpu_ecm import params
+    from tpu_ecm_torch import params
     from tpu_ecm_torch.limbs import kernels, rns
 
     n = chip_smoke.N256 if modulus == "N256" else chip_smoke.row21_n()
@@ -94,7 +103,7 @@ def test_rns_kernels_match_plain(cuda, modulus, b):
     gen = torch.Generator(device="cuda").manual_seed(7)
     cases = chip_smoke._rns_kernel_cases(rng, gen, host, rc, b)
     kernels.reset_launches()
-    for name, (kern, plain) in cases.items():
+    for name, (kern, plain, _bound) in cases.items():
         got, want = kern(), plain()
         torch.cuda.synchronize()
         assert torch.equal(got, want), name
@@ -120,8 +129,40 @@ def test_rns_finds_on_card(cuda, tmp_path, which):
     assert kernels.launches["rns_replay"] and not kernels.launches["tape"]
 
 
+def test_mersenne_finds_on_card(cuda, tmp_path):
+    """tests/test_e2e.py:497-511 through the port on the card: on
+    M101 = 2^101 - 1 (the fold), 12 curves from sigma 500, sigma 511 finds
+    the P13 in stage 1 at B1=1e4 and sigma 502 in stage 2 at B2=1e6."""
+    from tpu_ecm_torch import driver
+    m101 = (1 << 101) - 1
+    d = driver.ECMDriver(_run_cfg(
+        tmp_path, n=m101, curves=12, b1=10_000, b2=1_000_000, sigma=500,
+        stop_on_factor=False))
+    assert d.ctx.is_mersenne and d.ctx.mersenne_e == 101
+    hits = {(h.sigma, h.stage) for h in d.run().factors
+            if h.factor == 7432339208719}
+    assert {(511, 1), (502, 2)} <= hits, sorted(hits)
+
+
+@pytest.mark.parametrize("sigma,b2,stage,want", [(44, 300, 1, 46),
+                                                 (28, 10000, 2, 29)])
+def test_edwards_finds_on_card(cuda, tmp_path, sigma, b2, stage, want):
+    """tests/test_edwards.py:154-165 through the port on the card: N71, 4
+    Edwards curves, B1=300; K9 runs stage 1."""
+    import chip_smoke
+    from tpu_ecm_torch import driver
+    from tpu_ecm_torch.limbs import kernels
+    kernels.reset_launches()
+    res = driver.ECMDriver(_run_cfg(
+        tmp_path, n=chip_smoke.N71, curves=4, b1=300, b2=b2, sigma=sigma,
+        curve_mode="edwards")).run()
+    hit = [h for h in res.factors if h.factor == chip_smoke.P35]
+    assert hit and (hit[0].stage, hit[0].sigma) == (stage, want), res.factors
+    assert kernels.launches["ed_tape"] >= 1
+
+
 def test_wrappers_reject_mixed_devices(cuda):
-    from tpu_ecm import params
+    from tpu_ecm_torch import params
     from tpu_ecm_torch.limbs import kernels, torch_ops
     ctx = params.make_monty(34359738421 * 68719476767)
     cpu_ctx = torch_ops.device_ctx(ctx, "cpu")

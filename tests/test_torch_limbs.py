@@ -169,13 +169,113 @@ def test_fuzz_random_moduli_chain():
             assert ctx.from_mont_int(vals[i] % n) == a * c2 % n, (bits, prog)
 
 
+# special forms M = 2^e - c (the fold): Mersenne, a factor of 2^128+1
+# (c = -1), the pseudo-Mersenne 2^255-19, and M1277 (w=11, nw=118);
+# norm_inputs is on for M127, F7 and M1277, off for M61, the forced-radix
+# M127 (w=10) and 2^255-19
+FOLD = [
+    pytest.param((1 << 61) - 1, (61, 1), None, 8, id="M61"),
+    pytest.param((1 << 127) - 1, (127, 1), None, 8, id="M127"),
+    pytest.param((1 << 127) - 1, (127, 1), 10, 8, id="M127-w10"),
+    pytest.param(5704689200685129054721, (128, -1), None, 8, id="F7"),
+    pytest.param((1 << 255) - 19, (255, 19), None, 8, id="p25519"),
+    pytest.param((1 << 1277) - 1, (1277, 1), None, 8, id="M1277"),
+]
+
+
+def _fold_ctxs(n, mers, force_w):
+    ctx = params.make_monty(n, mersenne=mers, force_w=force_w)
+    assert ctx.is_mersenne
+    return ctx, jnp_ops.device_ctx(ctx), torch_ops.device_ctx(ctx, "cpu")
+
+
+@pytest.mark.parametrize("n,mers,force_w,b", FOLD)
+def test_fold_mulmod_sqrmod_addsub_bitexact(n, mers, force_w, b):
+    """The fold reduction of mulmod/sqrmod, and addsubmod_n, digit for
+    digit against jnp_ops on reduced, lazy (mulmod output) and
+    negative-digit operands, with and without the entry passes."""
+    ctx, jd, td = _fold_ctxs(n, mers, force_w)
+    rng = np.random.default_rng(4)
+    a, c = _rand_planes(rng, ctx, b, 2)
+    lazy = np.array(_jmul(jnp.asarray(a), jnp.asarray(c), jd))
+    for x, y in ((a, c), (lazy, c), (a - c, lazy)):
+        tx, ty, jx, jy = (torch.from_numpy(x), torch.from_numpy(y),
+                          jnp.asarray(x), jnp.asarray(y))
+        for pre in (False, True):
+            _eq(torch_ops.mulmod(tx, ty, td, pre=pre),
+                _jmul(jx, jy, jd, pre=pre))
+            _eq(torch_ops.sqrmod(tx, td, pre=pre), _jsqr(jx, jd, pre=pre))
+        for got, want in zip(torch_ops.addsubmod_n(tx, ty, td),
+                             jnp_ops.addsubmod_n(jx, jy, jd)):
+            _eq(got, want)
+    # the value: a*c mod M
+    got = layout.unpack_batch(torch_ops.mulmod(
+        torch.from_numpy(a), torch.from_numpy(c), td).numpy(), ctx.p.w)
+    av, cv = (layout.unpack_batch(x, ctx.p.w) for x in (a, c))
+    m = ctx.n_int
+    assert [g % m for g in got] == [x * y % m for x, y in zip(av, cv)]
+
+
+def test_fold_random_forms_chain():
+    """A few of the random special forms of tests/test_limbs.py:253-275
+    (2^e - c with c = 1, -1 or an odd c < 2^20), each driven through a
+    random mul/sqr/addsub chain: digits equal jnp's, values the exact
+    integer result mod M."""
+    rng = random.Random(0xF01D)
+    nrng = np.random.default_rng(0xF01D)
+    b = 8
+    for c in (1, -1, rng.randrange(3, 1 << 20) | 1):
+        e = rng.randrange(61, 700)
+        m = (1 << e) - c
+        ctx, jd, td = _fold_ctxs(m, (e, c), None)
+        xv = [int.from_bytes(nrng.bytes(e // 8 + 8), "little") % m
+              for _ in range(b)]
+        yv = [int.from_bytes(nrng.bytes(e // 8 + 8), "little") % m
+              for _ in range(b)]
+        prog = [rng.randrange(4) for _ in range(8)]
+
+        def chain(ops, x, y, dctx):
+            for op in prog:
+                if op == 0:
+                    x = ops.mulmod(x, y, dctx)
+                elif op == 1:
+                    y = ops.sqrmod(y, dctx)
+                elif op == 2:
+                    x, y = ops.addsubmod(x, y, dctx)
+                else:
+                    x = ops.submod(y, x, dctx)
+            return ops.mulmod(x, y, dctx)
+
+        x = layout.pack_batch(xv, ctx.p.w, ctx.p.nw)
+        y = layout.pack_batch(yv, ctx.p.w, ctx.p.nw)
+        got = chain(torch_ops, torch.from_numpy(x), torch.from_numpy(y), td)
+        _eq(got, jax.jit(lambda x, y: chain(jnp_ops, x, y, jd))(
+            jnp.asarray(x), jnp.asarray(y)))
+        vals = layout.unpack_batch(got.numpy(), ctx.p.w)
+        for i in range(b):
+            a, c2 = xv[i], yv[i]
+            for op in prog:
+                if op == 0:
+                    a = a * c2 % m
+                elif op == 1:
+                    c2 = c2 * c2 % m
+                elif op == 2:
+                    a, c2 = (a + c2) % m, (a - c2) % m
+                else:
+                    a = (c2 - a) % m
+            assert vals[i] % m == a * c2 % m, (e, c, prog)
+
+
 def test_mersenne_context_raises():
-    """The Mersenne fold is not ported: a Mersenne-form context must raise
-    rather than run REDC with nprime = 0."""
-    ctx = params.make_monty((1 << 61) - 1, mersenne=(61, 1))
+    """A special-form context whose |c| has more digits than the fold's
+    low part (k0 = e // w) cannot fold: the port raises instead of
+    folding into the wrong rows (jnp_ops asserts the same bound)."""
+    n = (1 << 60) - 1                       # = 2^61 - c with c = 2^60 + 1
+    ctx = params.make_monty(n, mersenne=(61, (1 << 60) + 1))
     td = torch_ops.device_ctx(ctx, "cpu")
+    assert td.c.shape[0] > 61 // ctx.p.w
     x = torch.zeros((ctx.p.nw, 4), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="Mersenne"):
+    with pytest.raises(ValueError, match="pseudo-Mersenne"):
         torch_ops.mulmod(x, x, td)
-    with pytest.raises(NotImplementedError, match="Mersenne"):
+    with pytest.raises(ValueError, match="pseudo-Mersenne"):
         torch_ops.sqrmod(x, td)

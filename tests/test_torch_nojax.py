@@ -1,8 +1,11 @@
-"""The machine with the GPU has no JAX: every module of tpu_ecm_torch (and
-chip_smoke.py) must import, and the CLI must run, with `import jax`
-failing."""
+"""The machine with the GPU has no JAX, and the port imports nothing of the
+JAX package: every module of tpu_ecm_torch (and chip_smoke.py) must import,
+and the CLI must run to the N71 stage-2 find, with `import jax` and
+`import tpu_ecm` failing; and no source line of the port imports either."""
 
+import glob
 import os
+import re
 import subprocess
 import sys
 
@@ -16,6 +19,7 @@ N71 = 34359738421 * 68719476767
 CODE = f"""
 import importlib, pkgutil, sys
 sys.modules["jax"] = None          # any `import jax` now raises ImportError
+sys.modules["tpu_ecm"] = None      # and any `import tpu_ecm...`
 import torch
 torch.set_num_threads(1)
 import chip_smoke
@@ -26,7 +30,8 @@ for m in pkgutil.walk_packages(tpu_ecm_torch.__path__, "tpu_ecm_torch."):
 from tpu_ecm_torch.io import cli
 rc = cli.main(["-device", "cpu", "{N71}", "4", "300", "0", "10000", "110"])
 loaded = [k for k, v in sys.modules.items()
-          if v is not None and (k == "jax" or k.startswith(("jax.", "jaxlib")))]
+          if v is not None and (k == "jax" or k.startswith(("jax.", "jaxlib"))
+                                or k == "tpu_ecm" or k.startswith("tpu_ecm."))]
 assert not loaded, loaded
 sys.exit(rc)
 """
@@ -40,3 +45,26 @@ def test_port_runs_without_jax(tmp_path):
     assert res.returncode == 0, res.stdout[-2000:] + res.stderr[-4000:]
     assert "found PRP11 factor 34359738421 in stage 2" in res.stdout
     assert (tmp_path / "save_b1.txt").exists()
+
+
+IMPORT_RE = re.compile(r"^\s*(from\s+(tpu_ecm|jax|jaxlib)(\.|\s)"
+                       r"|import\s+(tpu_ecm|jax|jaxlib)(\.|\s|,|$))")
+
+
+def test_no_source_line_imports_jax_or_tpu_ecm():
+    """A scan of tpu_ecm_torch/**/*.py and chip_smoke.py: no line imports
+    jax or the JAX package (tpu_ecm_torch itself is fine)."""
+    files = glob.glob(os.path.join(REPO, "tpu_ecm_torch", "**", "*.py"),
+                      recursive=True) + [os.path.join(REPO, "chip_smoke.py")]
+    assert len(files) > 20
+    bad = []
+    for path in files:
+        with open(path) as f:
+            for i, line in enumerate(f, 1):
+                if IMPORT_RE.match(line):
+                    bad.append(f"{os.path.relpath(path, REPO)}:{i}: "
+                               f"{line.strip()}")
+    assert not bad, bad
+    assert IMPORT_RE.match("from tpu_ecm.params import MontyCtx")
+    assert IMPORT_RE.match("    import tpu_ecm")
+    assert not IMPORT_RE.match("from tpu_ecm_torch import driver")

@@ -2,7 +2,8 @@
 versions of K2-K4 bit-identical to the Pallas chain / prefix /
 apply-inverse kernels in interpret mode, the plain K5 equal to the Pallas
 stream replay mod n, and the port's Stage2Runner equal to the JAX CPU
-runner on the same stage-1 point, handed across through convert.py."""
+runner on the same stage-1 point, handed across through convert.py.  The
+helpers serve tests/test_torch_fold.py's fold-mode cases too."""
 
 import numpy as np
 import pytest
@@ -38,7 +39,10 @@ def _t(a):
 def test_chain_prefix_apply_plain_match_pallas_interpret():
     """K2, K3, K4 on CPU tensors (their plain versions) against the Pallas
     executors in interpret mode at N64, B=128, count 6: digits equal."""
-    ctx = params.make_monty(N64)
+    _chain_prefix_apply(params.make_monty(N64))
+
+
+def _chain_prefix_apply(ctx):
     jd, td = jnp_ops.device_ctx(ctx), torch_ops.device_ctx(ctx, "cpu")
     b, k = 128, 6
     p = ctx.p
@@ -81,17 +85,25 @@ def test_replay_plain_matches_pallas_stream_mod_n():
     tree=4, in the pattern of tests/test_stage2.py:417: v-sorted entries
     with unequal runs and trailing pads, live counts T-2 and T; values
     equal mod n to each other and to the sequential jnp product."""
-    ctx = params.make_monty(N64)
+    _replay(params.make_monty(N64))
+
+
+def _replay(ctx):
     jd, td = jnp_ops.device_ctx(ctx), torch_ops.device_ctx(ctx, "cpu")
     p = ctx.p
-    n, b = N64, 128
+    n, b = ctx.n_int, 128
     rng = np.random.default_rng(5)
     PA, PB, T = 17, 9, 16
 
+    def ints():
+        if n < 1 << 64:
+            return [int(v) for v in rng.integers(0, n, b, dtype=np.uint64)]
+        return [int.from_bytes(rng.bytes(p.nbits // 8 + 8), "little") % n
+                for _ in range(b)]
+
     def mk(rows):
-        return np.stack([layout.pack_batch(
-            [int(v) for v in rng.integers(0, n, b, dtype=np.uint64)], p.w,
-            p.nw) for _ in range(rows)])
+        return np.stack([layout.pack_batch(ints(), p.w, p.nw)
+                         for _ in range(rows)])
 
     pa, pb = mk(PA), mk(PB)
     pa[-1] = layout.broadcast_int(ctx.r_mod_n, p.w, p.nw, b)
@@ -140,9 +152,14 @@ def test_stage2_runner_matches_jax_runner(monkeypatch, group):
     if group:
         monkeypatch.setenv("TPU_ECM_PA_GROUP", str(group))
         monkeypatch.setitem(t_exec.PA_GROUP, "cpu", group)
-    ctx = params.make_monty(N71)
-    b1, b2 = 300, 10000
-    pts, s_const = _stage1_point(ctx, range(110, 118), b1)
+    got = _runners(params.make_monty(N71), range(110, 118), 300, 10000)
+    # the sigma-112 curve's accumulator shares P35 with n
+    import math
+    assert math.gcd(got.acc[2], N71) == 34359738421
+
+
+def _runners(ctx, sigmas, b1, b2):
+    pts, s_const = _stage1_point(ctx, sigmas, b1)
     primes = primes_range(b1, b2 + 1000)
 
     jd = jnp_ops.device_ctx(ctx)
@@ -174,9 +191,7 @@ def test_stage2_runner_matches_jax_runner(monkeypatch, group):
                                                    ctx.p.w)] \
             == [v % n for v in layout.unpack_batch(jt[row].numpy(),
                                                    ctx.p.w)], row
-    # the sigma-112 curve's accumulator shares P35 with n
-    import math
-    assert math.gcd(got.acc[2], n) == 34359738421
+    return got
 
 
 def test_convert_checks_layout():

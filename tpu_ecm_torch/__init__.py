@@ -1,8 +1,11 @@
-"""PyTorch/CUDA port of tpu_ecm: batched ECM with the digit engine on one GPU.
+"""PyTorch/CUDA port of tpu_ecm: batched ECM on one GPU, with the digit
+engine (generic REDC and Mersenne-form folds, Suyama and Edwards stage 1)
+and the RNS engine for large moduli.
 
-The JAX package ``tpu_ecm`` beside it is the reference; this package imports
-``torch`` and never ``jax``, and takes only the JAX-free host modules of
-``tpu_ecm`` (params, primes, native, io.calc, io.savefile, utils.rng).
+The JAX package ``tpu_ecm`` beside it is the reference.  This package
+imports ``torch`` and nothing of ``tpu_ecm``: it keeps its own copies of the
+host modules it needs (params, primes, native, io.calc, io.savefile,
+utils.rng, and the curve planners).
 """
 
 __version__ = "0.1.0"

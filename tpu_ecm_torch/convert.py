@@ -14,8 +14,9 @@ import torch
 
 from typing import Dict
 
-from tpu_ecm.params import ArithParams
+from .params import ArithParams
 
+from .curve.edwards import DEFAULT_W
 from .curve.ops import NUM_SLOTS
 from .limbs import rns
 from .limbs.torch_ops import DeviceCtx
@@ -58,6 +59,18 @@ def stage1_state(pts, s_const, p: ArithParams, device) -> Stage1State:
     if pts_t.shape[-1] != s_t.shape[-1]:
         raise ValueError("pts and s_const disagree on the curve batch")
     return Stage1State(pts=pts_t, s_const=s_t)
+
+
+def ed_state(acc, table, p: ArithParams, device):
+    """The Edwards stage-1 state: accumulator acc [4, NW, B] and cached
+    window table [Tp, 3, NW, B] (numpy int32) -> the port's two tensors.
+    The table holds Tp = 2^(w-2) odd multiples at the window width
+    w = edwards.DEFAULT_W."""
+    acc_t = _plane(acc, (4,), p, device, "acc")
+    table_t = _plane(table, (1 << (DEFAULT_W - 2), 3), p, device, "table")
+    if acc_t.shape[-1] != table_t.shape[-1]:
+        raise ValueError("acc and table disagree on the curve batch")
+    return acc_t, table_t
 
 
 def planes(a, p: ArithParams, device) -> torch.Tensor:

@@ -11,7 +11,7 @@
 // reverse) carried the running product in VMEM scratch.
 //
 // Bound on the H100: integer multiply-adds, 1 (K3) or 3 (K4) dependent
-// Montgomery products per row on one thread per curve; each row moves
+// modular products per row on one thread per curve; each row moves
 // 2 (K3) or 4 (K4) nw*4-byte digit rows per curve, coalesced.
 //
 // Design: the running product lives in a local array through a loop over
@@ -22,10 +22,9 @@
 
 __global__ void __launch_bounds__(TPUECM_THREADS)
 prefix_kernel(const int* __restrict__ zs, const int* __restrict__ one,
-              int* __restrict__ out, int count, const int* __restrict__ ndig,
-              int nw, int w, int nprime, int norm, int B) {
+              int* __restrict__ out, int count, TPUECM_MOD_PARAMS, int B) {
     __shared__ Mod m;
-    load_mod(m, ndig, nw, w, nprime, norm);
+    load_mod(m, TPUECM_MOD_ARGS);
     const int b = blockIdx.x * blockDim.x + threadIdx.x;
     if (b >= B) return;
 
@@ -44,10 +43,9 @@ __global__ void __launch_bounds__(TPUECM_THREADS)
 apply_inverse_kernel(const int* __restrict__ xs, const int* __restrict__ zs,
                      const int* __restrict__ pres,
                      const int* __restrict__ total_inv, int* __restrict__ out,
-                     int count, const int* __restrict__ ndig, int nw, int w,
-                     int nprime, int norm, int B) {
+                     int count, TPUECM_MOD_PARAMS, int B) {
     __shared__ Mod m;
-    load_mod(m, ndig, nw, w, nprime, norm);
+    load_mod(m, TPUECM_MOD_ARGS);
     const int b = blockIdx.x * blockDim.x + threadIdx.x;
     if (b >= B) return;
 
@@ -67,21 +65,22 @@ apply_inverse_kernel(const int* __restrict__ xs, const int* __restrict__ zs,
 }
 
 extern "C" int tpuecm_prefix(const int* zs, const int* one, int* out,
-                             int count, const int* ndig, int nw, int w,
-                             int nprime, int norm, int B, void* stream) {
-    if (nw < 2 || nw > TPUECM_NW_MAX || B < 1) return (int)cudaErrorInvalidValue;
+                             int count, TPUECM_MOD_PARAMS, int B,
+                             void* stream) {
+    if (!mod_args_ok(nw, e, cl, w) || B < 1)
+        return (int)cudaErrorInvalidValue;
     const int blocks = (B + TPUECM_THREADS - 1) / TPUECM_THREADS;
-    prefix_kernel<<<blocks, TPUECM_THREADS, 0, (cudaStream_t)stream>>>(zs, one, out, count, ndig, nw, w, nprime, norm, B);
+    prefix_kernel<<<blocks, TPUECM_THREADS, 0, (cudaStream_t)stream>>>(zs, one, out, count, TPUECM_MOD_ARGS, B);
     return (int)cudaGetLastError();
 }
 
 extern "C" int tpuecm_apply_inverse(const int* xs, const int* zs,
                                     const int* pres, const int* total_inv,
-                                    int* out, int count, const int* ndig,
-                                    int nw, int w, int nprime, int norm,
+                                    int* out, int count, TPUECM_MOD_PARAMS,
                                     int B, void* stream) {
-    if (nw < 2 || nw > TPUECM_NW_MAX || B < 1) return (int)cudaErrorInvalidValue;
+    if (!mod_args_ok(nw, e, cl, w) || B < 1)
+        return (int)cudaErrorInvalidValue;
     const int blocks = (B + TPUECM_THREADS - 1) / TPUECM_THREADS;
-    apply_inverse_kernel<<<blocks, TPUECM_THREADS, 0, (cudaStream_t)stream>>>(xs, zs, pres, total_inv, out, count, ndig, nw, w, nprime, norm, B);
+    apply_inverse_kernel<<<blocks, TPUECM_THREADS, 0, (cudaStream_t)stream>>>(xs, zs, pres, total_inv, out, count, TPUECM_MOD_ARGS, B);
     return (int)cudaGetLastError();
 }

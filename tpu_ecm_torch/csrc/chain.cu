@@ -6,7 +6,7 @@
 // sequential grid carried the running pair in VMEM scratch and wrote one
 // point per grid step.
 //
-// Bound on the H100: integer multiply-adds, 6 dependent Montgomery products
+// Bound on the H100: integer multiply-adds, 6 dependent modular products
 // per row on one thread per curve; each row writes 2*nw*4 bytes per curve,
 // coalesced across the warp.
 //
@@ -18,10 +18,9 @@
 __global__ void __launch_bounds__(TPUECM_THREADS)
 chain_kernel(const int* __restrict__ p1, const int* __restrict__ p2,
              const int* __restrict__ pd, int* __restrict__ out, int count,
-             const int* __restrict__ ndig, int nw, int w, int nprime,
-             int norm, int B) {
+             TPUECM_MOD_PARAMS, int B) {
     __shared__ Mod m;
-    load_mod(m, ndig, nw, w, nprime, norm);
+    load_mod(m, TPUECM_MOD_ARGS);
     const int b = blockIdx.x * blockDim.x + threadIdx.x;
     if (b >= B) return;
 
@@ -49,10 +48,11 @@ chain_kernel(const int* __restrict__ p1, const int* __restrict__ p2,
 }
 
 extern "C" int tpuecm_chain(const int* p1, const int* p2, const int* pd,
-                            int* out, int count, const int* ndig, int nw,
-                            int w, int nprime, int norm, int B, void* stream) {
-    if (nw < 2 || nw > TPUECM_NW_MAX || B < 1) return (int)cudaErrorInvalidValue;
+                            int* out, int count, TPUECM_MOD_PARAMS, int B,
+                            void* stream) {
+    if (!mod_args_ok(nw, e, cl, w) || B < 1)
+        return (int)cudaErrorInvalidValue;
     const int blocks = (B + TPUECM_THREADS - 1) / TPUECM_THREADS;
-    chain_kernel<<<blocks, TPUECM_THREADS, 0, (cudaStream_t)stream>>>(p1, p2, pd, out, count, ndig, nw, w, nprime, norm, B);
+    chain_kernel<<<blocks, TPUECM_THREADS, 0, (cudaStream_t)stream>>>(p1, p2, pd, out, count, TPUECM_MOD_ARGS, B);
     return (int)cudaGetLastError();
 }

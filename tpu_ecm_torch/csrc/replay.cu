@@ -9,9 +9,10 @@
 // retire four at a time as pure values: four differences, each given one
 // lazy pass, multiplied pairwise ((d0 d1)(d2 d3)) and then once into acc;
 // the count % 4 tail entries multiply into acc one by one.  A pad entry
-// G << 16 | 0 reads pa_ext[G] = the Montgomery one and pbx[0] = 0.
+// G << 16 | 0 reads pa_ext[G] = the one (R mod n in REDC mode, 1 in fold
+// mode) and pbx[0] = 0.
 //
-// Bound on the H100: integer multiply-adds, 1.25 dependent Montgomery
+// Bound on the H100: integer multiply-adds, 1.25 dependent modular
 // products per entry on one thread per curve, against two nw*4-byte row
 // gathers per entry per curve (coalesced across the warp; the Pa row of a
 // v-sorted entry stream is mostly an L1/L2 hit, the Pb rows come from the
@@ -35,10 +36,9 @@ __device__ __forceinline__ void load_diff(int* d, const int* pa_ext,
 __global__ void __launch_bounds__(TPUECM_THREADS)
 replay_kernel(const int* __restrict__ acc_in, int* __restrict__ acc_out,
               const int* __restrict__ pa_ext, const int* __restrict__ pbx,
-              const int* __restrict__ idx, const int* __restrict__ ndig,
-              int nw, int w, int nprime, int norm, int B) {
+              const int* __restrict__ idx, TPUECM_MOD_PARAMS, int B) {
     __shared__ Mod m;
-    load_mod(m, ndig, nw, w, nprime, norm);
+    load_mod(m, TPUECM_MOD_ARGS);
     const int b = blockIdx.x * blockDim.x + threadIdx.x;
     if (b >= B) return;
 
@@ -72,10 +72,11 @@ replay_kernel(const int* __restrict__ acc_in, int* __restrict__ acc_out,
 
 extern "C" int tpuecm_replay(const int* acc_in, int* acc_out,
                              const int* pa_ext, const int* pbx,
-                             const int* idx, const int* ndig, int nw, int w,
-                             int nprime, int norm, int B, void* stream) {
-    if (nw < 2 || nw > TPUECM_NW_MAX || B < 1) return (int)cudaErrorInvalidValue;
+                             const int* idx, TPUECM_MOD_PARAMS, int B,
+                             void* stream) {
+    if (!mod_args_ok(nw, e, cl, w) || B < 1)
+        return (int)cudaErrorInvalidValue;
     const int blocks = (B + TPUECM_THREADS - 1) / TPUECM_THREADS;
-    replay_kernel<<<blocks, TPUECM_THREADS, 0, (cudaStream_t)stream>>>(acc_in, acc_out, pa_ext, pbx, idx, ndig, nw, w, nprime, norm, B);
+    replay_kernel<<<blocks, TPUECM_THREADS, 0, (cudaStream_t)stream>>>(acc_in, acc_out, pa_ext, pbx, idx, TPUECM_MOD_ARGS, B);
     return (int)cudaGetLastError();
 }

@@ -6,9 +6,10 @@
 // for an 8192-step chunk.
 //
 // Bound on the H100: integer multiply-adds.  A tape step is 5 (DUP) or 6
-// (ADD) dependent Montgomery products of ~2*nw^2 multiply-adds each, on one
-// thread per curve, against about 6*nw*4 bytes of point traffic per curve
-// that stays in L2 (the file is 6*2*nw*B*4 bytes, 3.5 MB at the flagship).
+// (ADD) dependent modular products of ~2*nw^2 (REDC) or ~nw^2 (fold)
+// multiply-adds each, on one thread per curve, against about 6*nw*4 bytes
+// of point traffic per curve that stays in L2 (the file is 6*2*nw*B*4
+// bytes, 3.5 MB at the flagship).
 // So the loop is latency-bound per thread: with one warp per block, 2048
 // curves occupy 64 warps on 64 SMs.
 //
@@ -20,10 +21,9 @@
 
 __global__ void __launch_bounds__(TPUECM_THREADS)
 tape_kernel(const int* __restrict__ tape, long long nsteps, int* pts,
-            const int* __restrict__ s_const, const int* __restrict__ ndig,
-            int nw, int w, int nprime, int norm, int B) {
+            const int* __restrict__ s_const, TPUECM_MOD_PARAMS, int B) {
     __shared__ Mod m;
-    load_mod(m, ndig, nw, w, nprime, norm);
+    load_mod(m, TPUECM_MOD_ARGS);
     const int b = blockIdx.x * blockDim.x + threadIdx.x;
     if (b >= B) return;
 
@@ -63,10 +63,11 @@ tape_kernel(const int* __restrict__ tape, long long nsteps, int* pts,
 }
 
 extern "C" int tpuecm_tape(const int* tape, long long nsteps, int* pts,
-                           const int* s_const, const int* ndig, int nw, int w,
-                           int nprime, int norm, int B, void* stream) {
-    if (nw < 2 || nw > TPUECM_NW_MAX || B < 1) return (int)cudaErrorInvalidValue;
+                           const int* s_const, TPUECM_MOD_PARAMS, int B,
+                           void* stream) {
+    if (!mod_args_ok(nw, e, cl, w) || B < 1)
+        return (int)cudaErrorInvalidValue;
     const int blocks = (B + TPUECM_THREADS - 1) / TPUECM_THREADS;
-    tape_kernel<<<blocks, TPUECM_THREADS, 0, (cudaStream_t)stream>>>(tape, nsteps, pts, s_const, ndig, nw, w, nprime, norm, B);
+    tape_kernel<<<blocks, TPUECM_THREADS, 0, (cudaStream_t)stream>>>(tape, nsteps, pts, s_const, TPUECM_MOD_ARGS, B);
     return (int)cudaGetLastError();
 }

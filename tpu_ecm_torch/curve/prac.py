@@ -1,6 +1,6 @@
 """Host-side PRAC / Lucas-chain planner: primes -> ADD/DUP tapes.
 
-JAX-free copy of tpu_ecm/curve/prac.py, taking its opcodes from this
+Copy of tpu_ecm/curve/prac.py, taking its opcodes from this
 package's curve/ops.py; tests/test_torch_curve.py keeps the tapes equal.
 
 Re-derivation of the reference prac()/lucas_cost() (same golden-ratio
@@ -298,12 +298,12 @@ def stage1_tape(primes: Sequence[int], b1: int, *, include_two: bool = True,
     each odd prime p <= primes in the list, PRAC(p) repeated per the prime-
     power rule `do {prac} while (c*q) < B1` (reference ecm.c:1824-1843).
 
-    Dispatches to the C++ planner (tpu_ecm/native/planner.cpp, bit-identical
+    Dispatches to the C++ planner (native/planner.cpp, bit-identical
     output) when available.
     """
     if allow_native:
         try:
-            from tpu_ecm.native import lib as _native
+            from ..native import lib as _native
             if _native.available():
                 return _native.stage1_tape(np.asarray(primes, np.uint64),
                                            b1, include_two)

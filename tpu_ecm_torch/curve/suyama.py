@@ -1,7 +1,7 @@
 """Suyama curve construction from a 64-bit sigma seed (host side).
 
-JAX-free copy of tpu_ecm/curve/suyama.py (that package's curve/__init__
-imports JAX); tests/test_torch_curve.py keeps the two equal.
+Copy of tpu_ecm/curve/suyama.py (the port imports nothing of tpu_ecm);
+tests/test_torch_curve.py keeps the two equal.
 
 Re-derivation of build_one_curve (reference ecm.c:1548-1803): the
 per-curve scalar GMP work of the reference maps to Python ints here; the
@@ -23,7 +23,7 @@ from __future__ import annotations
 import dataclasses
 import math
 
-from tpu_ecm.params import MontyCtx
+from ..params import MontyCtx
 
 
 class FactorFoundDuringBuild(Exception):

@@ -1,26 +1,34 @@
-"""The ECM driver for Suyama curves on one device — the twin of
-tpu_ecm/driver.py, with its two arithmetic engines:
+"""The ECM driver on one device — the twin of tpu_ecm/driver.py, with its
+two arithmetic engines and two curve families:
 
-  digit  int32 digit planes [.., NW, B], kernels K1-K5 (limbs/kernels.py);
-         the default wherever a digit radix exists (params.device_ok)
+  digit  int32 digit planes [.., NW, B], kernels K1-K5 and K9
+         (limbs/kernels.py), reducing by REDC or, for a special form
+         2^e - c, by the fold; the default wherever a digit radix exists
+         (params.device_ok), and the only engine of Edwards curves and of
+         special forms under engine="auto"
   rns    residue planes [.., 2K+1, B], kernels K10-K13 and K15
-         (limbs/rns_kernels.py); the only engine above the digit engine's
-         int32 column bound (~2000 bits), and selectable below it
+         (limbs/rns_kernels.py), Suyama curves only; the only engine above
+         the digit engine's int32 column bound (~2000 bits), and selectable
+         below it
+
+  suyama   Montgomery curves from sigma, PRAC stage-1 tapes (K1 / K10)
+  edwards  a=-1 twisted Edwards curves from sigma, wNAF stage-1 tapes over
+           a cached window table (K9), handed to the Montgomery stage 2
+           through (U : W) = (Z+Y : Z-Y)
 
 Phase structure per batch of B curves (B = the curve axis of every plane):
 
-  phase 0  build curves        host Suyama from sigma
-  phase 1  stage 1             tape replay per prime chunk (K1 / K10), with
-                               GMP-ECM-format checkpoint.txt between chunks
-                               and save_b1.txt at the end
+  phase 0  build curves        host Suyama or Edwards from sigma
+  phase 1  stage 1             tape replay per prime chunk (K1 / K10 / K9),
+                               with GMP-ECM-format checkpoint.txt between
+                               chunks and save_b1.txt at the end (Edwards:
+                               the window table is rebuilt on the host from
+                               each chunk-boundary point)
   phase 2  stage 2 init        Pb table: chain (K2 / K11) + batch inversion
                                (K3 / K12, host modinv, K4 / K13)
   phase 3  stage 2 pairing     host pair() plan per chunk, giant-step groups
                                (chain, prefix, apply) and the replay (K5 / K15)
   harvest  gcd checks          host, against the original input
-
-Not ported yet, each raising with the ROADMAP.md item that covers it:
-Mersenne-form arithmetic and Edwards stage 1.
 """
 
 from __future__ import annotations
@@ -31,16 +39,17 @@ import math
 import time
 from typing import Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
-from tpu_ecm import params as _params
-from tpu_ecm.io import savefile
-from tpu_ecm.primes import PrimeStream
-from tpu_ecm.utils import rng as _rng
+from . import params as _params
+from .io import savefile
+from .primes import PrimeStream
+from .utils import rng as _rng
 
 from . import stage1 as _stage1
-from .curve import suyama
-from .limbs import rns, rns_exec, torch_ops
+from .curve import edops, edwards, suyama
+from .limbs import kernels, layout, rns, rns_exec, torch_ops
 from .stage2 import exec as s2exec
 from .stage2 import plan as s2plan
 
@@ -72,6 +81,7 @@ class RunConfig:
 
 
 ENGINES = ("auto", "digit", "rns")
+CURVE_MODES = ("suyama", "edwards")
 
 
 @dataclasses.dataclass
@@ -137,13 +147,16 @@ def check_factor(z: int, n: int) -> Optional[int]:
 
 class ECMDriver:
     def __init__(self, cfg: RunConfig):
-        if cfg.curve_mode != "suyama":
-            raise NotImplementedError(
-                f"curve_mode={cfg.curve_mode!r} is not ported yet: "
-                "ROADMAP.md, 'Edwards stage 1'")
+        if cfg.curve_mode not in CURVE_MODES:
+            raise ValueError(f"unknown curve_mode {cfg.curve_mode!r}; "
+                             f"expected one of {CURVE_MODES}")
         if cfg.engine not in ENGINES:
             raise ValueError(f"unknown engine {cfg.engine!r}; "
                              f"expected one of {ENGINES}")
+        if cfg.engine == "rns" and cfg.curve_mode == "edwards":
+            # the Edwards doubling nests two subtractions (E = E0 - A - B),
+            # which breaks the RNS engine's 2V input bound
+            raise ValueError("engine='rns' supports curve_mode='suyama' only")
         self.device = torch.device(cfg.device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device 'cuda' requested but "
@@ -191,11 +204,9 @@ class ECMDriver:
             self._initial_hits = len(self.factors)
             return
         self.ctx = prepare_context(cfg.n, cfg.force_no_mersenne, cfg.verbose)
-        if self.ctx.is_mersenne:
-            raise NotImplementedError(
-                "Mersenne-form input: the fold reduction is not ported yet "
-                "(ROADMAP.md, 'Mersenne / pseudo-Mersenne path'); rerun "
-                "with force_no_mersenne=True for generic REDC")
+        # "auto" takes the digit engine wherever a digit radix exists: it is
+        # the only engine of special forms and of Edwards curves there, and
+        # the port has no measured digit/RNS crossover (ROADMAP A.18)
         self.engine = "digit" if cfg.engine == "auto" else cfg.engine
         if not self.ctx.p.device_ok:
             # no int32 digit radix exists (params._radix_or_host_only): the
@@ -205,6 +216,10 @@ class ECMDriver:
                     f"{self.ctx.p.nbits}-bit modulus exceeds the digit "
                     "engine's int32 column bound (about 2000 bits, "
                     "params._radix_or_host_only); use engine='rns'")
+            if cfg.curve_mode != "suyama":
+                raise ValueError(
+                    f"{self.ctx.p.nbits}-bit moduli require the RNS engine, "
+                    "which supports curve_mode='suyama' only")
             self.engine = "rns"
         if self.engine == "rns":
             self.rhost = rns.make_rns(self.ctx,
@@ -250,11 +265,16 @@ class ECMDriver:
                 self._report_factor(f, stage, base_idx + i, s, bound)
 
     def _write_save(self, path: Optional[str], sigmas: List[int],
-                    xs: List[int], zs: List[int], b1_label: int):
+                    xs: List[int], zs: List[int], b1_label: int,
+                    program: str = "AVX-ECM"):
+        # PROGRAM tags the curve family: AVX-ECM-ED records carry an Edwards
+        # seed in SIGMA (X/Z are on the equivalent Montgomery curve either
+        # way); N is the input, also when the arithmetic is mod 2^e - c
         if not path:
             return
         n_out = self.ctx.input_n
-        recs = [savefile.SaveRecord(sigma=s, b1=b1_label, n=n_out, x=x, z=z)
+        recs = [savefile.SaveRecord(sigma=s, b1=b1_label, n=n_out, x=x, z=z,
+                                    program=program)
                 for s, x, z in zip(sigmas, xs, zs)]
         savefile.append_records(path, recs)
 
@@ -263,8 +283,8 @@ class ECMDriver:
 
     # ------------------------------------------------------------------
 
-    def _build_curves(self, sigmas: List[int], base_idx: int
-                      ) -> List[suyama.CurveInit]:
+    def _build_curves(self, sigmas: List[int], base_idx: int,
+                      build=suyama.build_one_curve) -> list:
         curves = []
         for s in sigmas:
             # keep batch shape: on a gcd hit during construction, report the
@@ -272,7 +292,7 @@ class ECMDriver:
             # factors can trip consecutive substitutes too)
             for _attempt in range(64):
                 try:
-                    curves.append(suyama.build_one_curve(self.ctx, s))
+                    curves.append(build(self.ctx, s))
                     break
                 except suyama.FactorFoundDuringBuild as e:
                     if e.factor:
@@ -311,6 +331,8 @@ class ECMDriver:
     def run_batch(self, sigmas: List[int], base_idx: int
                   ) -> List[Tuple[int, int, int]]:
         cfg = self.cfg
+        if cfg.curve_mode == "edwards":
+            return self._run_batch_edwards(sigmas, base_idx)
         t0 = time.time()
         curves = self._build_curves(sigmas, base_idx)
         if self.engine == "rns":
@@ -346,6 +368,120 @@ class ECMDriver:
 
         # ---- stage 2 ----
         self._run_stage2(state.pts[0], state.s_const, sigmas, base_idx)
+        return residues
+
+    # -- Edwards stage 1 -------------------------------------------------
+
+    def _ed_normalize(self, acc: torch.Tensor, sigmas: List[int],
+                      base_idx: int, bound: int):
+        """Normalize the Edwards accumulator on the host at a chunk boundary
+        (ONE batch modinv): returns (base_pts [(x, y)], u, w) with u/w the
+        canonical Montgomery-x projective pair (Z+Y, Z-Y) of the checkpoint
+        record.  A lane whose Z shares a factor with n is a find (harvested
+        like an inversion failure); it continues from the identity (0, 1)
+        so the batch keeps its shape."""
+        ctx = self.ctx
+        n = ctx.n_int
+        arr = acc.cpu().numpy()
+        xc, yc, zc = ([ctx.from_mont_int(v % n)
+                       for v in layout.unpack_batch(arr[k], ctx.p.w)]
+                      for k in range(3))
+        invs, fnd = s2exec.host_batch_inverse(ctx, zc, premul=1)
+        for i, f in fnd.items():
+            if f:
+                self._report_factor(f, 1, base_idx + i, sigmas[i], bound)
+        base_pts = [(0, 1) if i in fnd else
+                    (xc[i] * invs[i] % n, yc[i] * invs[i] % n)
+                    for i in range(len(zc))]
+        u = [(z + y) % n for z, y in zip(zc, yc)]
+        w = [(z - y) % n for z, y in zip(zc, yc)]
+        return base_pts, u, w
+
+    def _run_batch_edwards(self, sigmas: List[int], base_idx: int
+                           ) -> List[Tuple[int, int, int]]:
+        """Stage 1 on a=-1 twisted Edwards curves (curve/edwards.py), then
+        the Montgomery stage 2 on the birationally equivalent curve through
+        (U : W) = (Z+Y : Z-Y) and (A+2)/4 = 1/(1+d).
+
+        Stage 1 runs per prime chunk: the scalar factorizes over the chunks
+        (s = s_c0 * s_c1 * ...), each chunk replays its own wNAF tape (K9)
+        with the window table rebuilt from the normalized chunk-boundary
+        point, and checkpoint.txt is appended per chunk, as on the Suyama
+        path."""
+        cfg, ctx = self.cfg, self.ctx
+        dctx = self.ops.dctx
+        t0 = time.time()
+        curves = self._build_curves(sigmas, base_idx,
+                                    build=edwards.build_one_curve)
+        sigmas = [c.sigma for c in curves]
+        self._add_time("build", t0)
+
+        t0 = time.time()
+        chunk_list = list(self.stream.chunks(0, cfg.b1))
+        acc = None
+        base_pts = None          # None: the curves' own base points
+        nprimes = 0
+        for ci, (_lo, _hi, primes) in enumerate(chunk_list):
+            tape, lead = edwards.stage1_tape(primes, cfg.b1,
+                                             include_two=(ci == 0))
+            # (re)build the window tables from the chunk's start point (may
+            # harvest a factor from a non-invertible Z)
+            try:
+                pts, table = edwards.build_batch_tables(ctx, curves,
+                                                        base_pts=base_pts)
+            except suyama.FactorFoundDuringBuild as e:
+                if e.factor:
+                    self._report_factor(e.factor, 1 if ci else 0, base_idx,
+                                        e.sigma, cfg.b1)
+                raise RuntimeError(
+                    "window table hit a factor of n; rerun with fresh "
+                    "sigmas or divide the reported factor out") from e
+            acc = torch.from_numpy(edwards.init_accumulator(
+                ctx, pts, lead)).to(self.device)
+            kernels.ed_tape(acc, tape, torch.from_numpy(table).to(
+                self.device), dctx)
+            ops_col = tape[:, 0]
+            nadd = int(np.count_nonzero((ops_col == edwards.ED_ADD)
+                                        | (ops_col == edwards.ED_SUB)))
+            self.counters["ptdups"] = (
+                self.counters.get("ptdups", 0)
+                + int(np.count_nonzero(ops_col <= edwards.ED_DBLT)) + 1)
+            self.counters["ptadds"] = (self.counters.get("ptadds", 0) + nadd
+                                       + table.shape[0] - 1)
+            nprimes += int(np.count_nonzero((primes < cfg.b1)
+                                            & (primes > 2))) + (ci == 0)
+            if ci < len(chunk_list) - 1:
+                # mid-stage-1 checkpoint and the next chunk's table base
+                bound = min(int(primes[-1]), cfg.b1)
+                t1 = time.time()
+                base_pts, u_c, w_c = self._ed_normalize(acc, sigmas,
+                                                        base_idx, bound)
+                self._add_time("ed_normalize", t1)
+                self._check_batch(w_c, sigmas, 1, bound, base_idx)
+                self._write_save(cfg.checkpoint_path, sigmas, u_c, w_c,
+                                 bound, program="AVX-ECM-ED")
+        self.counters["numprimes"] = (self.counters.get("numprimes", 0)
+                                      + nprimes)
+        # Montgomery handoff
+        u, w = edops.to_montgomery_pair(acc, dctx)
+        pts0 = torch.stack([u, w])
+        ux, wz, ax = (self.ops.unpack(t) for t in (u, w, acc[0]))
+        xs = [self.ops.from_mont_int(v) for v in ux]
+        zs = [self.ops.from_mont_int(v) for v in wz]
+        self._add_time("stage1", t0)
+        if cfg.verbose >= 2:
+            print(f"Stage 1 (edwards) completed, "
+                  f"{self.counters.get('ptadds', 0)} window-adds, "
+                  f"{self.counters.get('ptdups', 0)} doublings")
+        # the identity mod p shows as X=0 (and (0,-1) too); y=1 as W=0
+        self._check_batch([self.ops.from_mont_int(v) for v in ax], sigmas,
+                          1, cfg.b1, base_idx)
+        self._check_batch(zs, sigmas, 1, cfg.b1, base_idx)
+        self._write_save(cfg.save_b1_path, sigmas, xs, zs, cfg.b1,
+                         program="AVX-ECM-ED")
+        residues = [(s, x, z) for s, x, z in zip(sigmas, xs, zs)]
+        s_const = self.ops.pack([c.s_mont for c in curves])
+        self._run_stage2(pts0, s_const, sigmas, base_idx)
         return residues
 
     def _stage2_chunk_bounds(self) -> List[Tuple[int, int]]:

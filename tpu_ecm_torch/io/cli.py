@@ -4,27 +4,28 @@
     python -m tpu_ecm_torch -calc
     python -m tpu_ecm_torch -device cpu ...     (default: -device cuda)
     python -m tpu_ecm_torch -rns ... | -digit ...  (engine; default: auto)
+    python -m tpu_ecm_torch -edwards ...        (a=-1 Edwards stage 1)
 
-<input> may be an integer expression (tpu_ecm.io.calc), e.g.
-"fib(791)/13/677/216416017" or "2^127-1".
+<input> may be an integer expression (io/calc.py), e.g.
+"fib(791)/13/677/216416017" or "2^127-1"; a special form 2^e - c runs the
+fold reduction instead of REDC.
 """
 
 from __future__ import annotations
 
 import sys
 
-from tpu_ecm.io import calc as _calc
-from tpu_ecm.io.savefile import classify_factor
+from . import calc as _calc
+from .savefile import classify_factor
 
 from .. import driver
 
 USAGE = ("usage: python -m tpu_ecm_torch [-device cpu|cuda] [-rns|-digit] "
-         "$input $numcurves $B1 [$batch] [$B2] [$sigma]"
+         "[-edwards] $input $numcurves $B1 [$batch] [$B2] [$sigma]"
          "\n       python -m tpu_ecm_torch -calc   (interactive calculator)")
 
 # flags of tpu_ecm's CLI that select parts not ported yet
-NOT_PORTED = {"-edwards": "Edwards stage 1",
-              "-resume": "the remaining surface (resume_stage2, -resume)"}
+NOT_PORTED = {"-resume": "the remaining surface (resume_stage2, -resume)"}
 
 
 def main(argv=None) -> int:
@@ -42,6 +43,10 @@ def main(argv=None) -> int:
         if flag in argv:
             argv.remove(flag)
             engine = flag[1:]
+    curve_mode = "suyama"
+    if "-edwards" in argv:
+        argv.remove("-edwards")
+        curve_mode = "edwards"
     for flag, item in NOT_PORTED.items():
         if flag in argv:
             print(f"{flag} is not ported yet: ROADMAP.md, '{item}'")
@@ -60,7 +65,8 @@ def main(argv=None) -> int:
 
     print(f"commencing parallel ecm on {n}")
     cfg = driver.RunConfig(n=n, curves=curves, b1=b1, b2=b2, sigma=sigma,
-                           batch=batch, device=device, engine=engine)
+                           batch=batch, device=device, engine=engine,
+                           curve_mode=curve_mode)
     result = driver.ECMDriver(cfg).run()
     if result.factors:
         for h in result.factors:

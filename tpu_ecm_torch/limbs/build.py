@@ -27,26 +27,32 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "tpu_ecm_torch")
 HEADERS = ("arith.cuh", "rns_arith.cuh")
 SOURCES = ("tape.cu", "chain.cu", "batch_inverse.cu", "replay.cu",
-           "rns_tape.cu", "rns_chain.cu", "rns_batch_inverse.cu",
-           "rns_replay.cu")
+           "ed_tape.cu", "rns_tape.cu", "rns_chain.cu",
+           "rns_batch_inverse.cu", "rns_replay.cu")
 
 # Largest digit count the kernels take: the digit engine's int32 column
 # bound ends at nw = 210 (params._radix_or_host_only, ~2080 bits).
 NW_MAX = 224
+# Largest digit count of |c| the fold takes (M = 2^e - c): prepare_context
+# keeps c to about 52 bits, 5 digits at w = 11.
+CL_MAX = 8
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 FLAGS = ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-                f"-DTPUECM_NW_MAX={NW_MAX}")
+                f"-DTPUECM_NW_MAX={NW_MAX}", f"-DTPUECM_CL_MAX={CL_MAX}")
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# the digit kernels' modulus arguments, TPUECM_MOD_PARAMS of csrc/arith.cuh:
+# n digits, |c| digits, cl, e, sign of c, nw, w, nprime, norm
+_MOD = [_P, _P, _I, _I, _I, _I, _I, _I, _I]
 # argument lists of the extern "C" entry points (pointers and stream as
 # void*, so ctypes never truncates them to 32 bits)
 SIGNATURES = {
-    "tpuecm_tape": [_P, _L, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "tpuecm_chain": [_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P],
-    "tpuecm_prefix": [_P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P],
-    "tpuecm_apply_inverse": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I,
-                             _I, _P],
-    "tpuecm_replay": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "tpuecm_tape": [_P, _L, _P, _P, *_MOD, _I, _P],
+    "tpuecm_chain": [_P, _P, _P, _P, _I, *_MOD, _I, _P],
+    "tpuecm_prefix": [_P, _P, _P, _I, *_MOD, _I, _P],
+    "tpuecm_apply_inverse": [_P, _P, _P, _P, _P, _I, *_MOD, _I, _P],
+    "tpuecm_replay": [_P, _P, _P, _P, _P, *_MOD, _I, _P],
+    "tpuecm_ed_tape": [_P, _L, _P, _P, *_MOD, _I, _P],
     "tpuecm_rns_tape": [_P, _L, _P, _P, _P, _P, _I, _I, _P],
     "tpuecm_rns_chain": [_P, _P, _P, _P, _I, _P, _P, _I, _I, _P],
     "tpuecm_rns_prefix": [_P, _P, _P, _I, _P, _P, _I, _I, _P],

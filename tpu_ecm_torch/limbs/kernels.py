@@ -1,6 +1,8 @@
-"""Wrappers of the five CUDA kernels of the digit engine (csrc/*.cu), and
+"""Wrappers of the six CUDA kernels of the digit engine (csrc/*.cu), and
 the registry of every kernel of the port (the RNS engine's five wrappers
-are in limbs/rns_kernels.py and count their launches here too).
+are in limbs/rns_kernels.py and count their launches here too).  The digit
+kernels take both reductions of csrc/arith.cuh from one build: REDC for a
+generic n, the fold for a special form 2^e - c (ctx.is_mersenne).
 
 Each wrapper checks device, dtype, shape and contiguity, then routes on
 where its tensors lie: on the CPU it runs the kernel's plain PyTorch
@@ -10,9 +12,10 @@ a CUDA tensor to the plain version.  `launches` counts the kernel launches
 of each wrapper, so a run can show that it went through the kernels.
 
 Planes are int32 [..., NW, B] with the curve axis last; host index arrays
-(the stage-1 tape, the replay entries) are numpy int32 and are checked on
+(the stage-1 tapes, the replay entries) are numpy int32 and are checked on
 the host before they reach a kernel.  The plain versions sit beside the
-wrappers: *_plain below for K2-K5, curve/ops.run_tape for K1.
+wrappers: *_plain below for K2-K5, curve/ops.run_tape for K1 and
+curve/edops.run_tape for K9.
 """
 
 from __future__ import annotations
@@ -22,11 +25,13 @@ from typing import Dict
 import numpy as np
 import torch
 
+from ..curve import edops
 from ..curve.ops import NUM_SLOTS, run_tape, xadd
 from . import build, torch_ops
 from .torch_ops import DeviceCtx
 
-# name -> (CUDA source, the Pallas kernel it replaces)
+# name -> (CUDA source, the Pallas kernel it replaces: the line of its
+# pallas_call, and the kernel function)
 KERNELS = {
     "tape": ("tpu_ecm_torch/csrc/tape.cu",
              "tpu_ecm/limbs/pallas_ops.py:1284 (_tape_kernel :418)"),
@@ -41,6 +46,8 @@ KERNELS = {
         "tpu_ecm_torch/csrc/replay.cu",
         "tpu_ecm/limbs/pallas_ops.py:1127 "
         "(make_replay_stream_executor :933)"),
+    "ed_tape": ("tpu_ecm_torch/csrc/ed_tape.cu",
+                "tpu_ecm/limbs/pallas_ops.py:1438 (_ed_tape_kernel :1338)"),
     "rns_tape": (
         "tpu_ecm_torch/csrc/rns_tape.cu",
         "tpu_ecm/limbs/rns_exec.py:712 (_rns_tape_kernel :198, "
@@ -63,7 +70,8 @@ KERNELS = {
 
 launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 
-# tape entries per stage-1 kernel launch: keeps every launch short
+# tape entries per stage-1 kernel launch (K1, K9): keeps every launch
+# short
 TAPE_SLICE = 1 << 16
 
 
@@ -89,10 +97,6 @@ def _check(name: str, what: str, t: torch.Tensor, shape, ctx: DeviceCtx):
 
 def _on_cpu(name: str, ctx: DeviceCtx) -> bool:
     """True for the plain version (CPU tensors), False for the kernel."""
-    if ctx.is_mersenne:
-        raise NotImplementedError(
-            f"{name}: Mersenne-form arithmetic is not ported yet "
-            "(ROADMAP.md, 'Mersenne / pseudo-Mersenne path')")
     kind = ctx.device.type
     if kind == "cpu":
         return True
@@ -101,12 +105,20 @@ def _on_cpu(name: str, ctx: DeviceCtx) -> bool:
     if ctx.p.nw > build.NW_MAX:
         raise ValueError(f"{name}: nw={ctx.p.nw} exceeds the kernels' "
                          f"NW_MAX={build.NW_MAX}")
+    cl, k0 = int(ctx.c.shape[0]), ctx.mersenne_e // ctx.p.w
+    if ctx.is_mersenne and not (cl <= build.CL_MAX and cl <= k0 < ctx.p.nw):
+        raise ValueError(f"{name}: the fold takes |c| of at most "
+                         f"{build.CL_MAX} digits below bit e; this context "
+                         f"has {cl} digits at e={ctx.mersenne_e}")
     return False
 
 
 def _mod(ctx: DeviceCtx):
+    """TPUECM_MOD_PARAMS of csrc/arith.cuh; e = 0 selects REDC."""
     p = ctx.p
-    return (ctx.n.data_ptr(), p.nw, p.w, ctx.nprime, int(p.norm_inputs))
+    return (ctx.n.data_ptr(), ctx.c.data_ptr(), int(ctx.c.shape[0]),
+            ctx.mersenne_e, ctx.mersenne_c_sign, p.nw, p.w, ctx.nprime,
+            int(p.norm_inputs))
 
 
 def _stream() -> int:
@@ -144,6 +156,35 @@ def tape(pts: torch.Tensor, tape_np: np.ndarray, s_const: torch.Tensor,
             dev[lo].data_ptr(), steps, pts.data_ptr(), s_const.data_ptr(),
             *_mod(ctx), b, _stream()))
     return pts
+
+
+def ed_tape(acc: torch.Tensor, tape_np: np.ndarray, table: torch.Tensor,
+            ctx: DeviceCtx) -> torch.Tensor:
+    """K9: replay a [T, 2] (op, arg) Edwards wNAF tape over the [4, NW, B]
+    accumulator, in place, with the [Tp, 3, NW, B] cached window table;
+    returns acc."""
+    nw, b = ctx.p.nw, int(acc.shape[-1])
+    tp = int(table.shape[0])
+    _check("ed_tape", "acc", acc, (4, nw, b), ctx)
+    _check("ed_tape", "table", table, (tp, 3, nw, b), ctx)
+    t = np.ascontiguousarray(tape_np, dtype=np.int32).reshape(-1, 2)
+    if t.shape[0] and (t[:, 0].min() < 0 or t[:, 0].max() > edops.MAX_OP
+                       or t[:, 1].min() < 0 or t[:, 1].max() >= tp):
+        raise ValueError(f"ed_tape: opcode outside 0..{edops.MAX_OP} or "
+                         f"table row "
+                         f"outside [0, {tp})")
+    if _on_cpu("ed_tape", ctx):
+        return edops.run_tape(acc, t, table, ctx)
+    if t.shape[0] == 0:
+        return acc
+    lib = build.library()
+    dev = torch.from_numpy(t).to(acc.device)
+    for lo in range(0, t.shape[0], TAPE_SLICE):
+        steps = min(TAPE_SLICE, t.shape[0] - lo)
+        _done("ed_tape", lib.tpuecm_ed_tape(
+            dev[lo].data_ptr(), steps, acc.data_ptr(), table.data_ptr(),
+            *_mod(ctx), b, _stream()))
+    return acc
 
 
 def chain(p1: torch.Tensor, p2: torch.Tensor, pd: torch.Tensor, count: int,

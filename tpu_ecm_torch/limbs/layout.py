@@ -1,7 +1,7 @@
 """Host-side packing between Python ints and [NW, B] int32 digit planes.
 
-JAX-free copy of tpu_ecm/limbs/layout.py (that package's limbs/__init__
-imports JAX); tests/test_torch_curve.py keeps the two equal.
+Copy of tpu_ecm/limbs/layout.py (the port imports nothing of tpu_ecm);
+tests/test_torch_curve.py keeps the two equal.
 
 The reference marshals GMP values lane-by-lane into interleaved AVX-512
 vectors (insert_mpz_to_vec / extract_bignum_from_vec_to_mpz,

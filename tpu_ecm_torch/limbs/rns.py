@@ -36,7 +36,7 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
-from tpu_ecm.params import MontyCtx
+from ..params import MontyCtx
 
 # largest K for which the JAX package builds a context (its f32 bound)
 K_MAX = 520

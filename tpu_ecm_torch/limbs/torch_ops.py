@@ -9,8 +9,11 @@ inside int32 by params.select_radix.  The one product that wraps by design
 in jnp, the REDC quotient q = col * nprime mod 2^w, is formed here from the
 low w bits of col, which gives the same q without overflowing.
 
-Only the Montgomery (REDC) reduction is ported; a Mersenne-form context
-raises (the fold is ROADMAP work).
+Two reductions, chosen per modulus as in jnp: Montgomery REDC for a
+generic n, and for a special form M = 2^e - c (ctx.is_mersenne) three
+folds lo + c * (t >> e) on the full product columns.  The fold's c * hi
+terms may wrap int32 in jnp; here they are summed in int64 and narrowed
+once with a wrapping cast, which gives the same digits.
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from tpu_ecm.params import ArithParams, MontyCtx
+from ..params import ArithParams, MontyCtx
 
 from . import layout
 
@@ -162,29 +165,78 @@ def _redc(t: torch.Tensor, ctx: DeviceCtx) -> torch.Tensor:
     return t[nw:].movedim(0, -2)
 
 
-def _check_redc(ctx: DeviceCtx) -> None:
-    if ctx.is_mersenne:
-        raise NotImplementedError(
-            "Mersenne-form arithmetic (the fold reduction) is not ported yet: "
-            "ROADMAP.md, 'Mersenne / pseudo-Mersenne path'")
+# ---------------------------------------------------------------------------
+# Mersenne fold (digit axis first inside)
+# ---------------------------------------------------------------------------
 
+def _fold_rows(t: torch.Tensor, ctx: DeviceCtx, out_rows: int
+               ) -> torch.Tensor:
+    """jnp_ops._fold_once with the digit axis first: value(t) mod 2^e - c
+    by one fold lo + sign * |c| * (t >> e), into out_rows digits.  The bit
+    slice at e = k0*w + s is taken per digit with the two's-complement
+    identity x = (x & (2^s-1)) + (x >> s) * 2^s."""
+    e, w = ctx.mersenne_e, ctx.p.w
+    k0, s = divmod(e, w)
+    rows, cl = t.shape[0], ctx.c.shape[0]
+    if cl > k0:
+        raise ValueError(f"pseudo-Mersenne c has {cl} digits, more than the "
+                         f"{k0} below bit e={e} at radix 2^{w}")
+    lo = t.new_zeros((out_rows,) + tuple(t.shape[1:]), dtype=torch.int64)
+    lo[:k0] = t[:k0]
+    if s > 0:
+        smask = (1 << s) - 1
+        lo[k0] = t[k0] & smask
+        hi = t[k0:] >> s
+        hi[:-1] += (t[k0 + 1:] & smask) << (w - s)
+    else:
+        hi = t[k0:]
+    hi = hi.to(torch.int64)
+    c = ctx.c.to(torch.int64)
+    for l in range(cl):
+        seg = min(rows - k0, out_rows - l)
+        if seg <= 0:
+            break
+        prod = c[l] * hi[:seg]
+        lo[l:l + seg] += -prod if ctx.mersenne_c_sign < 0 else prod
+    return lo.to(torch.int32)
+
+
+def _mersenne_reduce(t: torch.Tensor, ctx: DeviceCtx) -> torch.Tensor:
+    """[..., 2NW, B] product columns -> [..., NW, B] digits of value mod
+    2^e - c: three lazy-normalize + fold rounds (the last one into NW
+    digits), then a final lazy normalize."""
+    w = ctx.p.w
+    t = t.movedim(-2, 0)
+    for out_rows in (t.shape[0], t.shape[0], ctx.p.nw):
+        t = _fold_rows(_lazy_rows(_lazy_rows(t, w), w), ctx, out_rows)
+    return _lazy_rows(_lazy_rows(t, w), w).movedim(0, -2)
+
+
+def _reduce(t: torch.Tensor, ctx: DeviceCtx) -> torch.Tensor:
+    if ctx.is_mersenne:
+        return _mersenne_reduce(t, ctx)
+    return lazy_normalize(_redc(t, ctx), ctx.p.w)
+
+
+# ---------------------------------------------------------------------------
+# public mulmod / sqrmod
+# ---------------------------------------------------------------------------
 
 def mulmod(a: torch.Tensor, b: torch.Tensor, ctx: DeviceCtx, *,
            pre: bool = False) -> torch.Tensor:
-    """Montgomery product a*b/R of digit planes.  pre=True asserts both
-    operands are already safe (mulmod outputs, packed host values or *_n
-    results) and skips the norm_inputs entry passes."""
-    _check_redc(ctx)
+    """Modular product of digit planes: a*b/R (REDC) or a*b mod 2^e - c
+    (fold).  pre=True asserts both operands are already safe (mulmod
+    outputs, packed host values or *_n results) and skips the norm_inputs
+    entry passes."""
     if ctx.p.norm_inputs and not pre:
         a = _lazy_pass(a, ctx.p.w)
         b = _lazy_pass(b, ctx.p.w)
-    return lazy_normalize(_redc(_product_columns(a, b), ctx), ctx.p.w)
+    return _reduce(_product_columns(a, b), ctx)
 
 
 def sqrmod(a: torch.Tensor, ctx: DeviceCtx, *, pre: bool = False
            ) -> torch.Tensor:
-    """Montgomery square a*a/R."""
-    _check_redc(ctx)
+    """Modular square of digit planes (a*a/R or a*a mod 2^e - c)."""
     if ctx.p.norm_inputs and not pre:
         a = _lazy_pass(a, ctx.p.w)
-    return lazy_normalize(_redc(_square_columns(a), ctx), ctx.p.w)
+    return _reduce(_square_columns(a), ctx)

@@ -18,8 +18,8 @@ from typing import Callable, Iterator, List, Tuple
 import numpy as np
 import torch
 
-from tpu_ecm.params import MontyCtx
-from tpu_ecm.primes import PrimeStream
+from .params import MontyCtx
+from .primes import PrimeStream
 
 from .curve import ops, prac
 from .limbs import layout

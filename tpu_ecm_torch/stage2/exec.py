@@ -31,7 +31,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from tpu_ecm.params import MontyCtx
+from ..params import MontyCtx
 
 from ..curve import ops as curve_ops
 from ..curve import prac
@@ -53,9 +53,13 @@ def host_batch_inverse(ctx: MontyCtx, vals_mont: List[int],
     V_i = R^2 * v_i^-1 mod N (so mont_mul(X_m, V_i) = (x/z)*R mod N), plus
     {curve_index: factor} for curves with gcd(v_i, N) > 1 (factor == 0 when
     the gcd is trivial N itself); those curves get V_i = 0.  `premul`
-    overrides the R^2 factor (the RNS engine passes P^2)."""
+    overrides the R^2 factor (the RNS engine passes P^2); a special-form
+    context has no Montgomery factor, so its default is 1."""
     n = ctx.n_int
-    r2 = premul % n if premul is not None else (ctx.p.R * ctx.p.R) % n
+    if premul is not None:
+        r2 = premul % n
+    else:
+        r2 = 1 if ctx.is_mersenne else (ctx.p.R * ctx.p.R) % n
     b = len(vals_mont)
     factors: Dict[int, int] = {}
     vals = [v % n for v in vals_mont]

@@ -1,7 +1,7 @@
 """Stage-2 planning on the host: parameters, residue maps, and the PAIR
 algorithm producing the (v, u) pairmap replayed on device.
 
-JAX-free copy of tpu_ecm/stage2/plan.py without its environment overrides;
+Copy of tpu_ecm/stage2/plan.py without its environment overrides;
 tests/test_torch_curve.py keeps Stage2Params and the pairmaps equal.  U still
 comes from the TPU cost model (params.choose_stage2_U_tpu).
 
@@ -36,7 +36,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from tpu_ecm import params as _params
+from .. import params as _params
 
 
 @dataclasses.dataclass(frozen=True)
@@ -111,7 +111,7 @@ def pair(sp: Stage2Params, primes: Sequence[int], b1: int, b2: int,
     """
     if allow_native and not verbose:
         try:
-            from tpu_ecm.native import lib as _native
+            from ..native import lib as _native
         except Exception:
             _native = None
         if _native is not None and _native.available():

@@ -14,23 +14,32 @@ result and its seconds; any failure raises and exits non-zero.
   2 kernels   every kernel against its plain PyTorch version on the card,
               on seeded random reduced inputs, and timed against it at the
               main path's own depths:
-              digit K1-K5 and K9 at N64/B=128 on short stacks and at the
+              digit K1-K7 and K9 at N64/B=128 on short stacks and at the
               416-bit flagship/B=2048 (a 256-op stage-1 tape split over
-              three launches, 4,096-row chain and inversion groups, a
-              65,536-entry replay block over a 4,097-row Pa group and the
-              full Pb table, a 256-op Edwards tape);
-              the same six in fold mode at M127 = 2^127-1/B=128 on short
-              stacks, and K1-K5 in fold mode at M1277 = 2^1277-1 (w=11,
+              three launches, 4,096-row chain and inversion groups, the
+              full Pb table, K5-K7 on the index arrays of the flagship
+              job's first replay call in their mode: its first 65,536
+              entries as stream entries and as [T, 2] pairs in 16-entry
+              steps, its first 4,096 shared-Pa-row steps; a 256-op
+              Edwards tape);
+              the same eight in fold mode at M127 = 2^127-1/B=128 on short
+              stacks, and K1-K7 in fold mode at M1277 = 2^1277-1 (w=11,
               nw=118)/B=2048 at the mersenne job's depths (the same
               256-op tape over three launches, the Pa group the memory
-              rule picks, a 65,536-entry replay block, the job's Pb
-              table), timed, with the plain versions run on the first 128
-              curves; digits equal for K1-K4 and K9, values mod n for K5;
-              RNS K10-K13 and K15 at N256/B=128 on short stacks and at the
+              rule picks, the job's Pb table and first replay calls),
+              each timed by its compared launch, with the plain versions
+              run on the first 128 curves; digits equal for K1-K4, K6, K7
+              and K9, values mod n for K5; the bound of K8 (not ported) at
+              the flagship depth;
+              RNS K10-K15 at N256/B=128 on short stacks and at the
               2397-bit row-21 geometry (K=200, 401 residue rows)/B=1024
               (a 256-op tape over three launches, the Pa group the memory
-              rule picks, a 65,536-entry replay block, the rns job's
-              963-row Pb table); residues equal, every one;
+              rule picks, the rns job's 963-row Pb table and first replay
+              calls); residues equal, every one;
+              the plain versions run their single-plane products from
+              CUDA graphs (_graphed_products); the replay kernels' bounds
+              count a product per live entry, and their lines give the
+              live entries, the slots and the ms per live entry;
               then K1 against K10 per tape op on one 1536-bit modulus at
               B=1024 (ns per curve per op: the digit/RNS crossover datum),
               and K1 in fold mode at M1277 against K1 in REDC mode on a
@@ -44,7 +53,11 @@ result and its seconds; any failure raises and exits non-zero.
               sigma 112; on M101 = 2^101-1 (fold) sigma 511 finds its P13
               in stage 1 and sigma 502 in stage 2 (tests/test_e2e.py:497);
               Edwards curves on N71 find P35 at sigma 46 in stage 1 and at
-              sigma 29 in stage 2 (tests/test_edwards.py:154-165)
+              sigma 29 in stage 2 (tests/test_edwards.py:154-165); the
+              replay modes: N71 finds P35 at sigma 112 in stage 2 under
+              gather and parow (digit) and gather (RNS), the 2355-bit N
+              under gather, M101 its P13 at sigma 502 under gather and
+              parow, each through its mode's kernel
   4 flagship  bench.py's job at full width: the 416-bit semiprime, 2048
               Suyama curves from sigma 7000 in one batch, B1=1e5, B2=1e7
               (cut 10x from 1e6/1e8 to fit the time limit); save_b1.txt
@@ -54,7 +67,8 @@ result and its seconds; any failure raises and exits non-zero.
               2397-bit N, 1024 Suyama curves from its sigma 377260338 in
               one batch, B1=25,000, B2=2,500,000 (cut 10x from B1=250,000,
               with B2 = 100*B1); save_b1.txt must hold a record per curve,
-              every RNS kernel must have launched and no digit kernel
+              K10-K13 and the replay kernel of the RNS engine's default
+              mode (K14) must have launched and no digit kernel
   6 mersenne  M1277 = 2^1277-1, the smallest Mersenne number with no known
               factor, at full width: 2048 Suyama curves from sigma 7000 in
               one batch, B1=10,000, B2=1,000,000; the fold must be on,
@@ -68,6 +82,16 @@ result and its seconds; any failure raises and exits non-zero.
               hold an AVX-ECM-ED record per curve, and the first 4 curves'
               stage-1 points must equal edwards.oracle_scalar_mul,
               projectively, through to_montgomery_xz
+  8 replay    the replay modes at full width: a 416-bit N with a 20-digit
+              factor (replay_n), 2048 curves from sigma 7000, B1=20,000,
+              B2=2,000,000, in stream, gather and parow (K5, K6, K7), and
+              the 2355-bit n2355() with 1024 curves from sigma 110,
+              B1=2,000, B2=200,000, in stream and gather (K15, K14); each
+              run prints its entries and entry slots (a call pads to
+              whole 16-entry steps at most) and must launch its mode's
+              replay kernel and no other, and the modes' (factor, stage,
+              sigma) sets (with a stage-2 find) and paired/ptadds/numinv
+              counters must be identical
 
 The last three lines are the kernels' JSON record (with each kernel's
 bound: the larger of its multiply-adds over the card's int32 rate and its
@@ -87,6 +111,7 @@ from __future__ import annotations
 
 import argparse
 import ast
+import contextlib
 import json
 import os
 import random
@@ -119,14 +144,19 @@ SHORT = dict(tape_ops=256, tape_slice=None, rows=64, pb_rows=97,
              entries=256, ed_ops=64)
 RNS_SHORT = dict(tape_ops=32, tape_slice=None, rows=16, pb_rows=29,
                  entries=64)
-# replay entries per call of the plain version: bounds its memory
-PLAIN_REPLAY_BLOCK = 1024
 # curves the plain versions run on at M1277's main-path depths (curves are
 # independent: the kernel's first PLAIN_CURVES columns are compared)
 PLAIN_CURVES = 128
-DIGIT_KERNELS = ("tape", "chain", "prefix", "apply_inverse", "replay")
-RNS_KERNELS = ("rns_tape", "rns_chain", "rns_prefix", "rns_apply_inverse",
-               "rns_replay")
+# the kernels every job of an engine launches besides the replay kernel of
+# the engine's default mode (_job_kernels)
+DIGIT_BASE = ("tape", "chain", "prefix", "apply_inverse")
+RNS_BASE = ("rns_tape", "rns_chain", "rns_prefix", "rns_apply_inverse")
+# phase 8 at full width: a 416-bit N with a 20-digit factor (the flagship's
+# radix and digit count) through the digit engine's three modes, and the
+# 2355-bit n2355() through the RNS engine's two
+REPLAY_SEED = 0
+REPLAY_JOB = dict(curves=2048, sigma=7000, b1=20_000, b2=2_000_000)
+RNS_REPLAY_JOB = dict(curves=1024, sigma=110, b1=2_000, b2=200_000)
 # The card's peak rates for a kernel's bound: int32 multiply-adds at 64 per
 # SM per clock (CUDA C++ Programming Guide, throughput of native arithmetic
 # instructions, compute capability 9.0) x 132 SMs x 1.98 GHz (the boost
@@ -134,6 +164,21 @@ RNS_KERNELS = ("rns_tape", "rns_chain", "rns_prefix", "rns_apply_inverse",
 # and 3.35 TB/s of HBM3 (NVIDIA H100 SXM data sheet).
 IMAD_PER_S = 132 * 64 * 1.98e9
 HBM_BYTES_PER_S = 3.35e12
+
+
+def _ops(engine: str):
+    """The stage-2 engine adapter of `engine`: its replay_kernels (mode ->
+    kernel) and default_replay."""
+    from tpu_ecm_torch.stage2 import exec as s2
+    return s2.DigitOps if engine == "digit" else s2.RnsOps
+
+
+def _job_kernels(engine: str) -> tuple:
+    """The kernels a Suyama job of `engine` launches in its default replay
+    mode."""
+    ops = _ops(engine)
+    return ((DIGIT_BASE if engine == "digit" else RNS_BASE)
+            + (ops.replay_kernels[ops.default_replay],))
 
 
 def phase(name: str, fn):
@@ -220,13 +265,15 @@ def _timed(fn, reps: int):
 
 
 def _replay_plain(acc, pa_ext, pbx, idx, d):
-    """The plain K5 over blocks of PLAIN_REPLAY_BLOCK live entries, acc
-    carried across: the same product, in the same order of quadruples."""
+    """The plain K5 over blocks of kernels.PLAIN_REPLAY_BLOCK live entries
+    (bounds its memory), acc carried across: the same product, in the same
+    order of quadruples."""
     import numpy as np
     from tpu_ecm_torch.limbs import kernels
     live = idx[1:1 + int(idx[0])]
-    for lo in range(0, live.size, PLAIN_REPLAY_BLOCK):
-        blk = live[lo:lo + PLAIN_REPLAY_BLOCK]
+    step = kernels.PLAIN_REPLAY_BLOCK
+    for lo in range(0, live.size, step):
+        blk = live[lo:lo + step]
         acc = kernels.replay_plain(
             acc, pa_ext, pbx,
             np.concatenate([np.asarray([blk.size], np.int32), blk]), d)
@@ -256,22 +303,62 @@ def _replay_idx(rng, rows: int, pb_rows: int, entries: int):
     return np.concatenate([[entries - 3], ent]).astype(np.int32)
 
 
+def _random_calls(rng, rows: int, pb_rows: int, entries: int) -> dict:
+    """The gather and parow calls (stage2/exec.replay_calls) of entries - 5
+    random v-sorted entries over a Pa group of `rows` rows (row `rows` the
+    one row) and pb_rows Pb rows, each in one call: K6's ends in 5 pads
+    (rows, 0), K7's short steps hold pb = 0 pads."""
+    import numpy as np
+    from tpu_ecm_torch.stage2 import exec as s2
+    idx = np.stack([np.sort(rng.integers(0, rows, entries - 5)),
+                    rng.integers(1, pb_rows, entries - 5)], 1).astype(np.int32)
+    return {m: next(s2.replay_calls(m, idx, s2.REPLAY_E * entries, rows))[0]
+            for m in ("gather", "parow")}
+
+
+def _first_calls(job: dict, sp, g: int) -> dict:
+    """The index arrays of the main path's first replay call of `job` in
+    each mode: its first stage-2 chunk planned as the driver plans it, the
+    entries of its first Pa group of g rows as Stage2Runner.run_chunk cuts
+    them, and that group's first call (stage2/exec.replay_calls)."""
+    import numpy as np
+    from tpu_ecm_torch.primes import PrimeStream
+    from tpu_ecm_torch.stage2 import exec as s2, plan
+    stream = PrimeStream()
+    lo, hi = job["b1"], min(job["b1"] + stream.chunk, job["b2"])
+    primes = stream.load(lo, hi + 1000 if hi == job["b2"] else hi)
+    v, u, amin0, _ = plan.pair(sp, primes, lo, hi)
+    ent = s2.entries_global(sp, v, u, amin0)
+    idx = ent[ent[:, 0] < g].astype(np.int32)
+    return {m: next(s2.replay_calls(m, idx, s2.REPLAY_BLOCK["cuda"], g))[0]
+            for m in s2.REPLAY_MODES}
+
+
+def _rows_read(rows_idx, row_bytes: int) -> int:
+    """Bytes of the distinct table rows an index array names, each read
+    once."""
+    import numpy as np
+    return int(np.unique(rows_idx).size) * row_bytes
+
+
 def main_path_depth(nw: int, rows: int, b: int, job: dict,
                     ed_ops=None) -> dict:
     """The stack sizes the main path gives the kernels on the card for
     `job` at B curves of `rows`-row planes (nw digits): the Pa group the
-    memory rule picks on this card, replay blocks of REPLAY_BLOCK entries,
-    the job's whole Pb table; a tape slice of 100 ops splits the 256-op
-    tapes (K1's, K9's when ed_ops is set, K10's) over three launches."""
+    memory rule picks on this card, the job's whole Pb table, the replay
+    kernels' index arrays of its first replay call (calls: mode -> array),
+    K8's bound at a REPLAY_BLOCK-entry call; a tape slice of 100 ops
+    splits the 256-op tapes (K1's, K9's when ed_ops is set, K10's) over
+    three launches."""
     import torch
     from tpu_ecm_torch.stage2 import exec as s2, plan
-    num_pb = plan.make_stage2_params(job["b1"], job["b2"], nw=nw,
-                                     batch=b).num_pb
+    sp = plan.make_stage2_params(job["b1"], job["b2"], nw=nw, batch=b)
     free = (torch.cuda.mem_get_info()[0] + torch.cuda.memory_reserved()
             - torch.cuda.memory_allocated())
-    return dict(tape_ops=256, tape_slice=100, pb_rows=num_pb,
-                rows=s2.pa_group_for_memory(rows * b * 4, num_pb, free),
-                entries=s2.REPLAY_BLOCK["cuda"], ed_ops=ed_ops)
+    g = s2.pa_group_for_memory(rows * b * 4, sp.num_pb, free)
+    return dict(tape_ops=256, tape_slice=100, pb_rows=sp.num_pb, rows=g,
+                entries=s2.REPLAY_BLOCK["cuda"], ed_ops=ed_ops,
+                calls=_first_calls(job, sp, g))
 
 
 def _nbytes(*tensors) -> int:
@@ -324,11 +411,14 @@ def _ed_products(tape):
 
 
 def _kernel_cases(rng, ctx, b, depth=SHORT, plain_b=None):
-    """name -> (kernel call, plain call, compare mod n?, bound) on one
-    geometry: B curves and the stack sizes of `depth`; K9 is included when
-    depth["ed_ops"] is set.  The plain calls run on the first plain_b
-    curves (None: all B).  bound = (ms, "operations" | "bytes") of the
-    kernel call's multiply-adds and bytes."""
+    """(cases, slots): cases maps name -> (kernel call, plain call,
+    compare mod n?, bound) on one geometry: B curves and the stack sizes
+    of `depth`; K9 is included when depth["ed_ops"] is set.  The plain
+    calls run on the first plain_b curves (None: all B).  bound = (ms,
+    "operations" | "bytes") of the kernel call's multiply-adds and bytes.
+    slots maps each replay kernel to (live entries, entry slots) of its
+    call: the replay kernels read depth["calls"] (the main path's first
+    replay call) or, without it, random entries."""
     import numpy as np
     import torch
     from tpu_ecm_torch.curve import edops, edwards, ops, prac
@@ -347,7 +437,12 @@ def _kernel_cases(rng, ctx, b, depth=SHORT, plain_b=None):
              zs=R(rows), pres=R(rows), one=one, tinv=R(),
              pa_ext=torch.cat([R(rows), one[None]]), pbx=R(pb_rows), acc=R())
     k["pbx"][0] = 0
-    idx = _replay_idx(rng, rows, pb_rows, entries)
+    calls = depth.get("calls")
+    if calls is None:
+        calls = dict(_random_calls(rng, rows, pb_rows, entries),
+                     stream=_replay_idx(rng, rows, pb_rows, entries))
+    idx, pairs, steps = calls["stream"], calls["gather"], calls["parow"]
+    e = steps.shape[1] - 1
     etape = None
     if depth.get("ed_ops"):
         etape = np.ascontiguousarray(
@@ -356,7 +451,16 @@ def _kernel_cases(rng, ctx, b, depth=SHORT, plain_b=None):
     p = k if plain_b is None else {
         name: t[..., :plain_b].contiguous() for name, t in k.items()}
     row = nw * b * 4
-    live = int(idx[0])
+    # a product per live entry: a step of k live entries takes k - 1 tree
+    # products and one into acc; pads (pb = 0) multiply by one, which the
+    # function does not need
+    pb_live = steps[:, 1:][steps[:, 1:] > 0]
+    slots = {"replay": (int(idx[0]), int(idx[0])),
+               "replay_gather": (int((pairs[:, 1] > 0).sum()),
+                                 pairs.shape[0]),
+               "replay_parow": (pb_live.size, steps[:, 1:].size)}
+    macs = {name: b * live * _digit_macs(ctx, 1, 0)
+            for name, (live, _n) in slots.items()}
     cases = {
         "tape": (lambda: _sliced_tape(kernels, kernels.tape, k["pts"], tape,
                                       k["sc"], d, depth["tape_slice"]),
@@ -386,9 +490,30 @@ def _kernel_cases(rng, ctx, b, depth=SHORT, plain_b=None):
                                           idx, d),
                    lambda: _replay_plain(p["acc"], p["pa_ext"], p["pbx"], idx,
                                          d), True,
-                   _bound(b * live * _digit_macs(ctx, 1, 0),
+                   _bound(macs["replay"],
                           _nbytes(k["acc"], k["pa_ext"], k["pbx"])
                           + idx.nbytes + row)),
+        # one difference and one product per live entry; each row named
+        # is read once
+        "replay_gather": (
+            lambda: kernels.replay_gather(k["acc"], k["pa_ext"], k["pbx"],
+                                          pairs, d, e=e),
+            lambda: kernels.replay_gather_plain(p["acc"], p["pa_ext"],
+                                                p["pbx"], pairs, e, d),
+            False, _bound(macs["replay_gather"],
+                          _rows_read(pairs[:, 0], row)
+                          + _rows_read(pairs[:, 1], row) + pairs.nbytes
+                          + 2 * row)),
+        # as K6, with one Pa row per step and the one row for pb = 0
+        "replay_parow": (
+            lambda: kernels.replay_parow(k["acc"], k["pa_ext"], k["pbx"],
+                                         steps, k["one"], d),
+            lambda: kernels.replay_parow_plain(p["acc"], p["pa_ext"],
+                                               p["pbx"], steps, p["one"], d),
+            False, _bound(macs["replay_parow"],
+                          _rows_read(steps[:, 0], row)
+                          + _rows_read(pb_live, row) + steps.nbytes
+                          + 3 * row)),
     }
     if etape is not None:
         cases["ed_tape"] = (
@@ -399,7 +524,7 @@ def _kernel_cases(rng, ctx, b, depth=SHORT, plain_b=None):
             _bound(b * _digit_macs(ctx, *_ed_products(etape)),
                    2 * _nbytes(k["eacc"]) + _nbytes(k["table"])
                    + etape.nbytes))
-    return cases
+    return cases, slots
 
 
 def _rand_residues(gen, rc, shape):
@@ -419,12 +544,15 @@ def _rns_macs(rc) -> int:
 
 
 def _rns_kernel_cases(rng, gen, host, rc, b, depth=RNS_SHORT):
-    """name -> (kernel call, plain call, bound) for K10-K13 and K15 on one
-    geometry: B curves and the stack sizes of `depth`."""
+    """(cases, slots) for K10-K15 on one geometry, B curves and the stack
+    sizes of `depth`: cases maps name -> (kernel call, plain call, bound),
+    slots each replay kernel to (live entries, entry slots), as
+    _kernel_cases."""
     import torch
     from tpu_ecm_torch.curve import prac
     from tpu_ecm_torch.limbs import rns_exec, rns_kernels
     from tpu_ecm_torch.primes import primes_range
+    from tpu_ecm_torch.stage2 import exec as s2
     rows, entries, pb_rows = depth["rows"], depth["entries"], depth["pb_rows"]
     R = lambda *shape: _rand_residues(gen, rc, shape + (rc.rows, b))
     pts, sc = R(6, 2), R()
@@ -437,7 +565,15 @@ def _rns_kernel_cases(rng, gen, host, rc, b, depth=RNS_SHORT):
     pa_ext = torch.cat([R(rows), one[None]])
     pbx = R(pb_rows)
     pbx[0] = 0
-    idx = _replay_idx(rng, rows, pb_rows, entries)
+    calls = depth.get("calls")
+    if calls is None:
+        calls = dict(_random_calls(rng, rows, pb_rows, entries),
+                     stream=_replay_idx(rng, rows, pb_rows, entries))
+    idx, pairs = calls["stream"], calls["gather"]
+    e = s2.REPLAY_E
+    live = int((pairs[:, 1] > 0).sum())
+    slots = {"rns_replay": (int(idx[0]), int(idx[0])),
+               "rns_replay_gather": (live, pairs.shape[0])}
     acc = R()
     k = rns_kernels
     row = rc.rows * b * 4
@@ -466,7 +602,27 @@ def _rns_kernel_cases(rng, gen, host, rc, b, depth=RNS_SHORT):
                        lambda: k.replay_plain(acc, pa_ext, pbx, idx, rc),
                        _bound(macs * int(idx[0]),
                               _nbytes(acc, pa_ext, pbx) + idx.nbytes + row)),
-    }
+        "rns_replay_gather": (
+            lambda: k.replay_gather(acc, pa_ext, pbx, pairs, rc, e=e),
+            lambda: k.replay_gather_plain(acc, pa_ext, pbx, pairs, e, rc),
+            _bound(macs * live,
+                   _rows_read(pairs[:, 0], row) + _rows_read(pairs[:, 1], row)
+                   + pairs.nbytes + 2 * row)),
+    }, slots
+
+
+def _resident_bound(ctx, b: int, depth: dict):
+    """The bound of one call of K8, the resident replay (not ported), at
+    `depth`: tpu_ecm's make_replay_resident_executor over a block of
+    depth["entries"] entries (one product per entry, as K6), reading the
+    Pa group and one Pb slab of the rows an 80 MB budget holds
+    (tpu_ecm/stage2/exec.py:_pbx_slabs) once."""
+    row = ctx.p.nw * b * 4
+    slab_rows = max(1, (80 << 20) // row - 1) + 1
+    entries = depth["entries"]
+    return _bound(b * entries * _digit_macs(ctx, 1, 0),
+                  (depth["rows"] + 1 + slab_rows) * row + entries * 2 * 4
+                  + 2 * row)
 
 
 def _tape_ms_per_op(rng, ctx, tape, b):
@@ -535,17 +691,74 @@ def _compare(name, label, got, want, ctx, mod_n):
     return err
 
 
-def _timing(kern, plain_ms, bound, err, reps=2):
-    """The record of one timed kernel: mean of `reps` launches after the
-    compared one, beside the plain version's time and the bound."""
-    _, ms = _timed(kern, reps)
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
-                bound_by=bound[1], library_ms=None)
+def _record(ms, plain_ms, bound, err, slots=None):
+    """The record of one timed kernel, beside the plain version's time and
+    the bound; a replay kernel's also holds its call's live entries, its
+    entry slots and its ms per live entry."""
+    r = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
+             bound_by=bound[1], library_ms=None)
+    if slots is not None:
+        r.update(entries=slots[0], slots=slots[1], ms_per_entry=ms / slots[0])
+    return r
+
+
+@contextlib.contextmanager
+def _graphed_products():
+    """While active, the products the plain versions form on single CUDA
+    planes (torch_ops.mulmod and sqrmod on [NW, B], rns.mont_mul on
+    [rows, B]: their sequential chains) replay a CUDA graph captured once
+    per function, shapes and context: the same kernels on the same inputs,
+    so the same digits, in a few launches per product instead of hundreds
+    from the host.  Batched products run as they are."""
+    import torch
+    from tpu_ecm_torch.limbs import rns, torch_ops
+    graphs = {}
+
+    def graphed(fn):
+        def call(*args, **kw):
+            planes = [a for a in args if isinstance(a, torch.Tensor)]
+            if not all(t.is_cuda and t.dim() == 2 for t in planes):
+                return fn(*args, **kw)
+            others = [a for a in args if not isinstance(a, torch.Tensor)]
+            key = (fn, tuple(t.shape for t in planes),
+                   tuple(map(id, others)), tuple(sorted(kw.items())))
+            if key not in graphs:
+                static = [a.clone() if isinstance(a, torch.Tensor) else a
+                          for a in args]
+                side = torch.cuda.Stream()
+                side.wait_stream(torch.cuda.current_stream())
+                with torch.cuda.stream(side):
+                    fn(*static, **kw)            # warm-up, outside the graph
+                torch.cuda.current_stream().wait_stream(side)
+                g = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(g):
+                    out = fn(*static, **kw)
+                graphs[key] = ([a for a in static
+                                if isinstance(a, torch.Tensor)], out, g,
+                               others)
+            static, out, g, _others = graphs[key]
+            for dst, src in zip(static, planes):
+                dst.copy_(src)
+            g.replay()
+            return out.clone()
+        return call
+
+    swapped = [(torch_ops, "mulmod"), (torch_ops, "sqrmod"),
+               (rns, "mont_mul")]
+    saved = [getattr(mod, name) for mod, name in swapped]
+    for mod, name in swapped:
+        setattr(mod, name, graphed(getattr(mod, name)))
+    try:
+        yield
+    finally:
+        for (mod, name), fn in zip(swapped, saved):
+            setattr(mod, name, fn)
+        graphs.clear()
 
 
 def phase_kernels(record):
     """Fills record[name] with the main-path timing of every kernel (and
-    record[name]["fold"] with K1-K5's at M1277, the mersenne job's
+    record[name]["fold"] with K1-K7's at M1277, the mersenne job's
     depths)."""
     import numpy as np
     import torch
@@ -562,22 +775,31 @@ def phase_kernels(record):
                          None),
             "M1277": (main_path_depth(nw, nw, b, MERSENNE_JOB), PLAIN_CURVES),
         }.get(label, (SHORT, None))
-        cases = _kernel_cases(rng, ctx, b, depth, plain_b)
+        cases, slots = _kernel_cases(rng, ctx, b, depth, plain_b)
+        shown = {k: v for k, v in depth.items() if k != "calls"}
         for name, (kern, plain, mod_n, bound) in cases.items():
-            got = kern()
-            want, plain_ms = _timed(plain, 1)
+            # at M1277 the compared launch is the timed one: each runs for
+            # seconds at these depths (the smoke's time limit)
+            got, ms = _timed(kern, 1)
+            with _graphed_products():
+                want, plain_ms = _timed(plain, 1)
             if plain_b is not None:
                 got = got[..., :plain_b]
             err = _compare(name, label, got, want, ctx, mod_n)
             worst[name] = max(worst.get(name, 0), err)
             del got, want
             if label == "flagship":
-                record[name] = _timing(kern, plain_ms, bound, worst[name])
+                # the mean of two launches after the compared one
+                record[name] = _record(_timed(kern, 2)[1], plain_ms, bound,
+                                       worst[name], slots.get(name))
             elif label == "M1277":
-                # one timed launch: each runs for seconds at these depths
                 record[name]["fold"] = dict(
-                    _timing(kern, plain_ms, bound, err, reps=1),
-                    plain_curves=plain_b, depth=depth)
+                    _record(ms, plain_ms, bound, err, slots.get(name)),
+                    plain_curves=plain_b, depth=shown)
+        if label == "flagship":
+            k8 = _resident_bound(ctx, b, depth)
+            print(f"  K8 (resident replay, not ported) at the flagship "
+                  f"depth: bound {k8[0]:.4f} ms by {k8[1]}", flush=True)
         del cases
         torch.cuda.empty_cache()
     from tpu_ecm_torch.limbs import rns
@@ -588,35 +810,41 @@ def phase_kernels(record):
         rc = rns.device_ctx(host, "cuda")
         depth = (main_path_depth(ctx.p.nw, rc.rows, b, RNS_JOB)
                  if label == "row21" else RNS_SHORT)
-        cases = _rns_kernel_cases(rng, gen, host, rc, b, depth)
+        cases, slots = _rns_kernel_cases(rng, gen, host, rc, b, depth)
+        shown = {k: v for k, v in depth.items() if k != "calls"}
         for name, (kern, plain, bound) in cases.items():
             got = kern()
-            want, plain_ms = _timed(plain, 1)
+            with _graphed_products():
+                want, plain_ms = _timed(plain, 1)
             err = _compare(name, label, got, want, ctx, False)
             worst[name] = max(worst.get(name, 0), err)
             del got, want
             if label == "row21":
-                record[name] = _timing(kern, plain_ms, bound, worst[name])
+                record[name] = _record(_timed(kern, 2)[1], plain_ms, bound,
+                                       worst[name], slots.get(name))
         del cases
         torch.cuda.empty_cache()
-    print(f"  rns depths at row 21 (K={rc.K}, B=1024): {depth}", flush=True)
+    print(f"  rns depths at row 21 (K={rc.K}, B=1024): {shown}", flush=True)
     print(f"  fold depths at M1277 (B=2048): {record['tape']['fold']['depth']}"
           f"; plain versions on the first {PLAIN_CURVES} curves", flush=True)
+    per = lambda r: (f", {r['entries']} live entries in {r['slots']} slots, "
+                     f"{r['ms_per_entry']:.5f} ms per live entry"
+                     if "entries" in r else "")
     for name, r in record.items():
         fold = r.get("fold")
         print(f"  {name}: {r['ms']:.3f} ms (plain {r['plain_ms']:.1f}, "
-              f"bound {r['bound_ms']:.4f} by {r['bound_by']})"
+              f"bound {r['bound_ms']:.4f} by {r['bound_by']}{per(r)})"
               + (f"; fold at M1277: {fold['ms']:.3f} ms (plain on "
                  f"{fold['plain_curves']} curves {fold['plain_ms']:.1f}, "
-                 f"bound {fold['bound_ms']:.4f} by {fold['bound_by']})"
-                 if fold else ""), flush=True)
+                 f"bound {fold['bound_ms']:.4f} by {fold['bound_by']}"
+                 f"{per(fold)})" if fold else ""), flush=True)
     cross = _crossover(rng, gen)
     fold = _fold_datum(rng)
     torch.cuda.empty_cache()
-    return ("K1-K5 and K9 equal their plain versions at N64/B=128 (short "
+    return ("K1-K7 and K9 equal their plain versions at N64/B=128 (short "
             "stacks), 416-bit/B=2048 (main-path depths) and, in fold mode, "
-            "M127/B=128; K1-K5 in fold mode at M1277/B=2048 (the mersenne "
-            f"job's depths, plain on {PLAIN_CURVES} curves); K10-K13, K15 "
+            "M127/B=128; K1-K7 in fold mode at M1277/B=2048 (the mersenne "
+            f"job's depths, plain on {PLAIN_CURVES} curves); K10-K15 "
             "at N256/B=128 (short stacks) and row 21/B=1024 (main-path "
             "depths); " + cross + "; " + fold)
 
@@ -734,7 +962,7 @@ def phase_oracle(tmp):
     hits = {(h.sigma, h.stage) for h in res.factors if h.factor == M101_P13}
     if not {(511, 1), (502, 2)} <= hits or res.work_modulus != M101:
         raise AssertionError(f"M101 pinned finds missing: {sorted(hits)}")
-    if not all(kernels.launches[k] for k in DIGIT_KERNELS):
+    if not all(kernels.launches[k] for k in _job_kernels("digit")):
         raise AssertionError(f"M101 skipped a digit kernel: "
                              f"{kernels.launches}")
     ed = {}
@@ -749,12 +977,41 @@ def phase_oracle(tmp):
         ed[stage] = want_sigma
     if not kernels.launches["ed_tape"]:
         raise AssertionError("the Edwards runs did not launch K9")
+    # the same finds through the gather and parow replays (K6, K7, K14)
+    for tag, n, engine, mode in (("o9", N71, "digit", "gather"),
+                                 ("o10", N71, "digit", "parow"),
+                                 ("o11", N71, "rns", "gather"),
+                                 ("o12", n2355(), "auto", "gather")):
+        kernels.reset_launches()
+        res = _run(os.path.join(tmp, tag), n=n, curves=4, b1=300, b2=10000,
+                   sigma=110, engine=engine, replay=mode,
+                   stop_on_factor=False)
+        own = _ops("digit" if engine == "digit" else "rns"
+                   ).replay_kernels[mode]
+        if not any(h.factor % P35 == 0 and (h.stage, h.sigma) == (2, 112)
+                   for h in res.factors) or not kernels.launches[own]:
+            raise AssertionError(f"{n.bit_length()} bits, {engine} {mode}: "
+                                 f"sigma-112 find or {own} launch missing: "
+                                 f"{res.factors}, {kernels.launches}")
+    for tag, mode in (("o13", "gather"), ("o14", "parow")):
+        kernels.reset_launches()
+        res = _run(os.path.join(tmp, tag), n=M101, curves=12, b1=10_000,
+                   b2=1_000_000, sigma=500, stop_on_factor=False,
+                   replay=mode)
+        own = _ops("digit").replay_kernels[mode]
+        if ((M101_P13, 2, 502) not in {(h.factor, h.stage, h.sigma)
+                                       for h in res.factors}
+                or not kernels.launches[own]):
+            raise AssertionError(f"M101 {mode}: sigma-502 stage-2 find or "
+                                 f"{own} launch missing: {res.factors}")
     return (f"(P35, 2, 112) found; golden sweep {len(got)}/{len(want)} "
             "equal; RNS: N71 (P35, 2, 112) found, N256 stage-1 residues "
             "equal to the digit engine's, 2355 bits routed to RNS and P35 "
             "found in stage 2 at sigma 112; M101 (fold): P13 at sigma 511 "
             "in stage 1 and sigma 502 in stage 2; Edwards N71: P35 at sigma "
-            f"{ed[1]} in stage 1 and sigma {ed[2]} in stage 2")
+            f"{ed[1]} in stage 1 and sigma {ed[2]} in stage 2; replay "
+            "gather and parow: N71 (P35, 2, 112) on both engines, 2355 "
+            "bits (gather) and M101 (P13, 2, 502)")
 
 
 def phase_flagship(tmp, record):
@@ -765,7 +1022,7 @@ def phase_flagship(tmp, record):
     res = _run(tmp, n=N416, curves=f["curves"], b1=f["b1"], b2=f["b2"],
                sigma=f["sigma"], stop_on_factor=False)
     wall = time.time() - t0
-    counts = _launches(record, "flagship", DIGIT_KERNELS)
+    counts = _launches(record, "flagship", _job_kernels("digit"))
     missing = [k for k, c in counts.items() if c == 0]
     if missing or kernels.launches["ed_tape"]:
         raise AssertionError(f"kernels never launched on the main path: "
@@ -815,12 +1072,12 @@ def phase_rns(tmp, record):
     res = _run(tmp, n=n, curves=j["curves"], b1=j["b1"], b2=j["b2"],
                sigma=j["sigma"], stop_on_factor=False)
     wall = time.time() - t0
-    counts = _launches(record, "rns", RNS_KERNELS)
+    counts = _launches(record, "rns", _job_kernels("rns"))
     missing = [k for k, c in counts.items() if c == 0]
     if missing:
         raise AssertionError(f"RNS kernels never launched: {missing}")
-    digit = {k: kernels.launches[k] for k in DIGIT_KERNELS + ("ed_tape",)
-             if kernels.launches[k]}
+    digit = {k: c for k, c in kernels.launches.items()
+             if c and not k.startswith("rns_")}
     if digit:
         raise AssertionError(f"digit kernels launched in the rns job: "
                              f"{digit}")
@@ -885,7 +1142,7 @@ def phase_mersenne(tmp, record):
                              "engine")
     res = d.run()
     wall = time.time() - t0
-    counts = _launches(record, "mersenne", DIGIT_KERNELS)
+    counts = _launches(record, "mersenne", _job_kernels("digit"))
     if not all(counts.values()) or kernels.launches["ed_tape"]:
         raise AssertionError(f"mersenne job launches: {kernels.launches}")
     _check_save(os.path.join(tmp, "save_b1.txt"), M1277, j)
@@ -915,7 +1172,8 @@ def phase_edwards(tmp, record):
     d._run_stage2 = run_stage2
     res = d.run()
     wall = time.time() - t0
-    counts = _launches(record, "edwards", ("ed_tape",) + DIGIT_KERNELS)
+    counts = _launches(record, "edwards",
+                       ("ed_tape",) + _job_kernels("digit"))
     if (k1_stage1 != [0] or kernels.launches["rns_tape"]
             or not all(c for k, c in counts.items() if k != "tape")):
         raise AssertionError(f"edwards job launches: {kernels.launches}, "
@@ -929,6 +1187,68 @@ def phase_edwards(tmp, record):
             f"{res.timings.get('ed_normalize', 0.0):.2f} s; the first 4 "
             f"stage-1 points equal the integer oracle "
             f"({time.time() - t1:.2f} s)")
+
+
+def replay_n() -> int:
+    """Phase 8's 416-bit N: _prp(random.Random(REPLAY_SEED), 66), a
+    20-digit prime, times the next 350-bit prp of the same stream."""
+    rng = random.Random(REPLAY_SEED)
+    n = _prp(rng, 66) * _prp(rng, 350)
+    if n.bit_length() != 416:
+        raise AssertionError(f"replay N has {n.bit_length()} bits")
+    return n
+
+
+def phase_replay(tmp, record):
+    """The replay modes at full width (stop_on_factor=False): each run
+    launches its mode's kernel and no other replay kernel, and the modes'
+    (factor, stage, sigma) sets, with at least one stage-2 find, and their
+    paired, ptadds and numinv counters are identical."""
+    from tpu_ecm_torch.limbs import kernels
+    lines = []
+    for engine, n, j, modes in (
+            ("digit", replay_n(), REPLAY_JOB, ("stream", "gather", "parow")),
+            ("rns", n2355(), RNS_REPLAY_JOB, ("stream", "gather"))):
+        names = list(_ops(engine).replay_kernels.values())
+        seen = {}
+        for mode in modes:
+            kernels.reset_launches()
+            t0 = time.time()
+            d = _driver(os.path.join(tmp, f"{engine}_{mode}"), n=n,
+                        curves=j["curves"], b1=j["b1"], b2=j["b2"],
+                        sigma=j["sigma"], engine=engine, replay=mode,
+                        stop_on_factor=False)
+            res = d.run()
+            wall = time.time() - t0
+            counts = _launches(record, f"replay_{engine}_{mode}", names)
+            own = _ops(engine).replay_kernels[mode]
+            if not counts[own] or any(c for k, c in counts.items()
+                                      if k != own):
+                raise AssertionError(f"{engine} {mode}: replay launches "
+                                     f"{counts}")
+            seen[mode] = ({(h.factor, h.stage, h.sigma)
+                           for h in res.factors},
+                          tuple(res.counters[k]
+                                for k in ("paired", "ptadds", "numinv")))
+            t = res.timings
+            lines.append(
+                f"{engine} {mode}: {j['curves'] / wall:.2f} curves/s, "
+                f"stage1 {t['stage1']:.2f} s, stage2_init "
+                f"{t['stage2_init']:.2f} s, stage2 {t['stage2']:.2f} s, "
+                f"{res.counters['paired']} entries in {d.replay_slots} "
+                f"slots, {counts[own]} launches of {own}")
+            print("  " + lines[-1], flush=True)
+        ref = seen[modes[0]]
+        if any(v != ref for v in seen.values()):
+            raise AssertionError(f"{engine}: the replay modes differ: "
+                                 f"{seen}")
+        if not any(stage == 2 for _f, stage, _s in ref[0]):
+            raise AssertionError(f"{engine}: no stage-2 find: {ref[0]}")
+        lines.append(f"{engine} ({n.bit_length()} bits, {j['curves']} "
+                     f"curves, B1={j['b1']}, B2={j['b2']}): {len(ref[0])} "
+                     f"finds ({sum(st == 2 for _f, st, _s in ref[0])} in "
+                     f"stage 2), identical in {', '.join(modes)}")
+    return "; ".join(lines)
 
 
 # job -> (N, bounds, driver options, warm-up run of the same path)
@@ -1024,15 +1344,21 @@ def main() -> int:
         phase("oracle", lambda: phase_oracle(tmp))
         for name, fn in (("flagship", phase_flagship), ("rns", phase_rns),
                          ("mersenne", phase_mersenne),
-                         ("edwards", phase_edwards)):
+                         ("edwards", phase_edwards),
+                         ("replay", phase_replay)):
             phase(name, lambda: fn(os.path.join(tmp, name), record))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
     # "launches" is the count of the kernel's main path: the flagship job
-    # for the digit kernels, the edwards job for K9, the rns job for RNS
-    main_job = dict.fromkeys(DIGIT_KERNELS, "flagship")
-    main_job.update(dict.fromkeys(RNS_KERNELS, "rns"), ed_tape="edwards")
+    # for the digit kernels of its default replay mode, the edwards job for
+    # K9, the rns job for RNS (with K14, its default replay), phase 8's run
+    # in its own mode for the other replay kernels (K6, K7, K15)
+    main_job = {k: f"replay_{e}_{m}" for e in ("digit", "rns")
+                for m, k in _ops(e).replay_kernels.items()}
+    main_job.update(dict.fromkeys(_job_kernels("digit"), "flagship"))
+    main_job.update(dict.fromkeys(_job_kernels("rns"), "rns"),
+                    ed_tape="edwards")
     out = []
     for name, (source, replaces) in kernels.KERNELS.items():
         r = record[name]

@@ -1,8 +1,9 @@
 """Tests that need an NVIDIA GPU (marker `cuda`; they skip without one):
-the eleven CUDA kernels against their plain PyTorch versions (the digit
+the fourteen CUDA kernels against their plain PyTorch versions (the digit
 kernels in REDC and fold modes), the golden sweep and the reference's t35
 acceptance sweep through the port, and the RNS engine's, the Mersenne
-fold's and the Edwards curves' finds through the driver on the card.
+fold's, the Edwards curves' and the stage-2 replay modes' finds through
+the driver on the card.
 
 The card has no JAX, so run them from the repository root without the
 JAX conftest:
@@ -55,9 +56,10 @@ def _run_cfg(tmp_path, **kw):
 @pytest.mark.parametrize("modulus,b", [("N64", 128), ("N416", 2048),
                                        ("M127", 128), ("M1277", 2048)])
 def test_kernels_match_plain(cuda, modulus, b):
-    """K1-K4 and K9 digit for digit, K5 mod n, against the plain versions
-    run on the same card tensors (chip_smoke.py's cases): REDC at N64 and
-    N416, the fold at M127 (with K9) and M1277 (K1-K5, short stacks)."""
+    """K1-K4, K6, K7 and K9 digit for digit, K5 mod n, against the plain
+    versions run on the same card tensors (chip_smoke.py's cases): REDC at
+    N64 and N416, the fold at M127 (with K9) and M1277 (K1-K7, short
+    stacks)."""
     import numpy as np
 
     import chip_smoke
@@ -71,7 +73,7 @@ def test_kernels_match_plain(cuda, modulus, b):
     depth = chip_smoke.SHORT
     if modulus == "M1277":
         depth = dict(depth, ed_ops=None)
-    cases = chip_smoke._kernel_cases(rng, ctx, b, depth)
+    cases, _slots = chip_smoke._kernel_cases(rng, ctx, b, depth)
     assert ("ed_tape" in cases) == (modulus != "M1277")
     kernels.reset_launches()
     for name, (kern, plain, mod_n, _bound) in cases.items():
@@ -86,9 +88,9 @@ def test_kernels_match_plain(cuda, modulus, b):
 
 @pytest.mark.parametrize("modulus,b", [("N256", 128), ("row21", 1024)])
 def test_rns_kernels_match_plain(cuda, modulus, b):
-    """K10-K13 and K15 residue for residue against the plain versions run
-    on the same card tensors (chip_smoke.py's cases, short stacks), at
-    N256 (K=24) and the row-21 geometry (K=200)."""
+    """K10-K15 residue for residue against the plain versions run on the
+    same card tensors (chip_smoke.py's cases, short stacks), at N256
+    (K=24) and the row-21 geometry (K=200)."""
     import numpy as np
 
     import chip_smoke
@@ -101,7 +103,7 @@ def test_rns_kernels_match_plain(cuda, modulus, b):
     rc = rns.device_ctx(host, "cuda")
     rng = np.random.default_rng(7)
     gen = torch.Generator(device="cuda").manual_seed(7)
-    cases = chip_smoke._rns_kernel_cases(rng, gen, host, rc, b)
+    cases, _slots = chip_smoke._rns_kernel_cases(rng, gen, host, rc, b)
     kernels.reset_launches()
     for name, (kern, plain, _bound) in cases.items():
         got, want = kern(), plain()
@@ -126,7 +128,9 @@ def test_rns_finds_on_card(cuda, tmp_path, which):
     ).run()
     assert any(h.factor % chip_smoke.P35 == 0 and h.stage == 2
                and h.sigma == 112 for h in res.factors), res.factors
-    assert kernels.launches["rns_replay"] and not kernels.launches["tape"]
+    from tpu_ecm_torch.stage2.exec import RnsOps
+    assert kernels.launches[RnsOps.replay_kernels[RnsOps.default_replay]]
+    assert not kernels.launches["tape"]
 
 
 def test_mersenne_finds_on_card(cuda, tmp_path):
@@ -159,6 +163,28 @@ def test_edwards_finds_on_card(cuda, tmp_path, sigma, b2, stage, want):
     hit = [h for h in res.factors if h.factor == chip_smoke.P35]
     assert hit and (hit[0].stage, hit[0].sigma) == (stage, want), res.factors
     assert kernels.launches["ed_tape"] >= 1
+
+
+@pytest.mark.parametrize("engine,mode", [("digit", "gather"),
+                                         ("digit", "parow"),
+                                         ("rns", "gather")])
+def test_replay_modes_on_card(cuda, tmp_path, engine, mode):
+    """N71 finds P35 in stage 2 at sigma 112 through the gather and parow
+    replays (K6, K7, K14) on the card, launching its mode's kernel and no
+    other replay kernel."""
+    import chip_smoke
+    from tpu_ecm_torch import driver
+    from tpu_ecm_torch.limbs import kernels
+    kernels.reset_launches()
+    res = driver.ECMDriver(_run_cfg(
+        tmp_path, n=chip_smoke.N71, curves=4, b1=300, b2=10000, sigma=110,
+        engine=engine, replay=mode)).run()
+    assert (chip_smoke.P35, 2, 112) in {(h.factor, h.stage, h.sigma)
+                                        for h in res.factors}
+    from tpu_ecm_torch.stage2.exec import DigitOps, RnsOps
+    own = (DigitOps if engine == "digit" else RnsOps).replay_kernels
+    assert kernels.launches[own[mode]] >= 1
+    assert not any(kernels.launches[k] for m, k in own.items() if m != mode)
 
 
 def test_wrappers_reject_mixed_devices(cuda):

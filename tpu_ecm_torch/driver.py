@@ -1,12 +1,12 @@
 """The ECM driver on one device — the twin of tpu_ecm/driver.py, with its
 two arithmetic engines and two curve families:
 
-  digit  int32 digit planes [.., NW, B], kernels K1-K5 and K9
+  digit  int32 digit planes [.., NW, B], kernels K1-K7 and K9
          (limbs/kernels.py), reducing by REDC or, for a special form
          2^e - c, by the fold; the default wherever a digit radix exists
          (params.device_ok), and the only engine of Edwards curves and of
          special forms under engine="auto"
-  rns    residue planes [.., 2K+1, B], kernels K10-K13 and K15
+  rns    residue planes [.., 2K+1, B], kernels K10-K15
          (limbs/rns_kernels.py), Suyama curves only; the only engine above
          the digit engine's int32 column bound (~2000 bits), and selectable
          below it
@@ -27,7 +27,11 @@ Phase structure per batch of B curves (B = the curve axis of every plane):
   phase 2  stage 2 init        Pb table: chain (K2 / K11) + batch inversion
                                (K3 / K12, host modinv, K4 / K13)
   phase 3  stage 2 pairing     host pair() plan per chunk, giant-step groups
-                               (chain, prefix, apply) and the replay (K5 / K15)
+                               (chain, prefix, apply) and the replay in the
+                               engine's default mode or the one
+                               RunConfig.replay names: stream (K5 / K15),
+                               gather (K6 / K14) or parow (K7, digit
+                               engine only)
   harvest  gcd checks          host, against the original input
 """
 
@@ -78,6 +82,11 @@ class RunConfig:
     # arithmetic engine: "digit", "rns", or "auto" (digit wherever a digit
     # radix exists, RNS above the digit engine's bound)
     engine: str = "auto"
+    # stage-2 replay mode (stage2/exec.py:REPLAY_MODES): None takes the
+    # engine's default (stream on digits, gather on RNS); "stream",
+    # "gather" or "parow" choose one for tests and measurements; a mode the
+    # engine has no kernel for raises
+    replay: Optional[str] = None
 
 
 ENGINES = ("auto", "digit", "rns")
@@ -195,6 +204,9 @@ class ECMDriver:
         self.factors: List[FactorHit] = []
         self.timings: Dict[str, float] = {}
         self.counters: Dict[str, int] = {}
+        # stage-2 replay entry slots, pads included (Stage2Result.slots);
+        # kept apart from the counters, which match tpu_ecm's
+        self.replay_slots = 0
         if self._prp_input:
             if cfg.verbose:
                 print(f"input {n} is a probable prime; nothing to run")
@@ -231,6 +243,7 @@ class ECMDriver:
         else:
             self.ops = s2exec.DigitOps(
                 self.ctx, torch_ops.device_ctx(self.ctx, self.device))
+        self.replay = s2exec.replay_mode(cfg.replay, self.ops)
         self.stream = PrimeStream(cfg.prime_chunk or PrimeStream().chunk)
         # stage-2 pairmap cache: the (v, u) stream depends only on (chunk
         # bounds, B1, B2, D, U) — never on the curves — so it is planned
@@ -555,7 +568,7 @@ class ECMDriver:
         sp = s2plan.make_stage2_params(cfg.b1, self.b2, nw=self.ctx.p.nw,
                                        batch=int(pts0.shape[-1]))
         runner = s2exec.Stage2Runner(self.ctx, None, sp, pts0, s_const,
-                                     ops=self.ops)
+                                     ops=self.ops, replay=self.replay)
         runner.init()
         self._sync()
         self._add_time("stage2_init", t0)
@@ -572,6 +585,7 @@ class ECMDriver:
                   f"(ratio = {s2_pairs / s2_primes:.2f})")
         for k in ("paired", "ptadds", "ptdups", "numinv"):
             self.counters[k] = self.counters.get(k, 0) + getattr(res, k)
+        self.replay_slots += res.slots
         for i, f in res.factors.items():
             if f:
                 self._report_factor(f, 2, base_idx + i, sigmas[i], self.b2)

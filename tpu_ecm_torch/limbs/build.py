@@ -27,8 +27,8 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "tpu_ecm_torch")
 HEADERS = ("arith.cuh", "rns_arith.cuh")
 SOURCES = ("tape.cu", "chain.cu", "batch_inverse.cu", "replay.cu",
-           "ed_tape.cu", "rns_tape.cu", "rns_chain.cu",
-           "rns_batch_inverse.cu", "rns_replay.cu")
+           "replay_gather.cu", "ed_tape.cu", "rns_tape.cu", "rns_chain.cu",
+           "rns_batch_inverse.cu", "rns_replay.cu", "rns_replay_gather.cu")
 
 # Largest digit count the kernels take: the digit engine's int32 column
 # bound ends at nw = 210 (params._radix_or_host_only, ~2080 bits).
@@ -52,6 +52,8 @@ SIGNATURES = {
     "tpuecm_prefix": [_P, _P, _P, _I, *_MOD, _I, _P],
     "tpuecm_apply_inverse": [_P, _P, _P, _P, _P, _I, *_MOD, _I, _P],
     "tpuecm_replay": [_P, _P, _P, _P, _P, *_MOD, _I, _P],
+    "tpuecm_replay_gather": [_P, _P, _P, _P, _P, _I, _I, *_MOD, _I, _P],
+    "tpuecm_replay_parow": [_P, _P, _P, _P, _P, _P, _I, _I, *_MOD, _I, _P],
     "tpuecm_ed_tape": [_P, _L, _P, _P, *_MOD, _I, _P],
     "tpuecm_rns_tape": [_P, _L, _P, _P, _P, _P, _I, _I, _P],
     "tpuecm_rns_chain": [_P, _P, _P, _P, _I, _P, _P, _I, _I, _P],
@@ -59,6 +61,8 @@ SIGNATURES = {
     "tpuecm_rns_apply_inverse": [_P, _P, _P, _P, _P, _I, _P, _P, _I, _I,
                                  _P],
     "tpuecm_rns_replay": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
+    "tpuecm_rns_replay_gather": [_P, _P, _P, _P, _P, _I, _I, _P, _P, _I, _I,
+                                 _P],
 }
 
 _lock = threading.Lock()

@@ -1,5 +1,5 @@
-"""Wrappers of the six CUDA kernels of the digit engine (csrc/*.cu), and
-the registry of every kernel of the port (the RNS engine's five wrappers
+"""Wrappers of the eight CUDA kernels of the digit engine (csrc/*.cu), and
+the registry of every kernel of the port (the RNS engine's six wrappers
 are in limbs/rns_kernels.py and count their launches here too).  The digit
 kernels take both reductions of csrc/arith.cuh from one build: REDC for a
 generic n, the fold for a special form 2^e - c (ctx.is_mersenne).
@@ -12,10 +12,10 @@ a CUDA tensor to the plain version.  `launches` counts the kernel launches
 of each wrapper, so a run can show that it went through the kernels.
 
 Planes are int32 [..., NW, B] with the curve axis last; host index arrays
-(the stage-1 tapes, the replay entries) are numpy int32 and are checked on
-the host before they reach a kernel.  The plain versions sit beside the
-wrappers: *_plain below for K2-K5, curve/ops.run_tape for K1 and
-curve/edops.run_tape for K9.
+(the stage-1 tapes, the replay entries and steps) are numpy int32 and are
+checked on the host before they reach a kernel.  The plain versions sit
+beside the wrappers: *_plain below for K2-K7, curve/ops.run_tape for K1
+and curve/edops.run_tape for K9.
 """
 
 from __future__ import annotations
@@ -46,6 +46,12 @@ KERNELS = {
         "tpu_ecm_torch/csrc/replay.cu",
         "tpu_ecm/limbs/pallas_ops.py:1127 "
         "(make_replay_stream_executor :933)"),
+    "replay_gather": (
+        "tpu_ecm_torch/csrc/replay_gather.cu",
+        "tpu_ecm/limbs/pallas_ops.py:735 (make_replay_executor :664)"),
+    "replay_parow": (
+        "tpu_ecm_torch/csrc/replay_gather.cu",
+        "tpu_ecm/limbs/pallas_ops.py:834 (make_replay_parow_executor :761)"),
     "ed_tape": ("tpu_ecm_torch/csrc/ed_tape.cu",
                 "tpu_ecm/limbs/pallas_ops.py:1438 (_ed_tape_kernel :1338)"),
     "rns_tape": (
@@ -66,6 +72,9 @@ KERNELS = {
         "tpu_ecm_torch/csrc/rns_replay.cu",
         "tpu_ecm/limbs/rns_exec.py:653 "
         "(make_rns_replay_stream_executor :509)"),
+    "rns_replay_gather": (
+        "tpu_ecm_torch/csrc/rns_replay_gather.cu",
+        "tpu_ecm/limbs/rns_exec.py:483 (make_rns_replay_executor :426)"),
 }
 
 launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
@@ -73,6 +82,12 @@ launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 # tape entries per stage-1 kernel launch (K1, K9): keeps every launch
 # short
 TAPE_SLICE = 1 << 16
+# entries per step of the gather-form replays (K6, K7, K14): a power of two
+# up to E_MAX, the bound of the kernels' partial-product stacks
+E_MAX = 16
+# replay entries whose differences the plain K6, K7, K14 and K15 form at
+# once (bounds their memory; a multiple of every E)
+PLAIN_REPLAY_BLOCK = 1024
 
 
 def reset_launches() -> None:
@@ -93,6 +108,38 @@ def _check(name: str, what: str, t: torch.Tensor, shape, ctx: DeviceCtx):
     if t.device != ctx.device:
         raise ValueError(f"{name}: {what} is on {t.device}, the modulus "
                          f"context on {ctx.device}")
+
+
+def check_e(name: str, e: int) -> None:
+    """Entries per step: a power of two from 1 to E_MAX."""
+    if not (1 <= e <= E_MAX and e & (e - 1) == 0):
+        raise ValueError(f"{name}: entries per step must be a power of two "
+                         f"from 1 to {E_MAX}, got {e!r}")
+
+
+def check_pairs(name: str, idx: np.ndarray, e: int, pa_rows: int,
+                pb_rows: int) -> np.ndarray:
+    """idx as contiguous int32 [T, 2] (pa, pb) pairs, T a multiple of e,
+    every row inside its table."""
+    check_e(name, e)
+    idx = np.ascontiguousarray(idx, dtype=np.int32)
+    if idx.ndim != 2 or idx.shape[1] != 2 or idx.shape[0] % e:
+        raise ValueError(f"{name}: idx must be [T, 2] with T a multiple of "
+                         f"E={e}, got {idx.shape}")
+    if idx.size and (int(idx.min()) < 0 or int(idx[:, 0].max()) >= pa_rows
+                     or int(idx[:, 1].max()) >= pb_rows):
+        raise ValueError(f"{name}: entry row outside pa_ext / pbx")
+    return idx
+
+
+def step_roots(d: torch.Tensor, e: int, mul) -> torch.Tensor:
+    """[S*E, ...] differences -> [S, ...]: each step's E values multiplied
+    in the Pallas gather kernels' pairwise tree ((d0 d1)(d2 d3))..., one
+    batched product per level."""
+    d = d.reshape((-1, e) + tuple(d.shape[1:]))
+    while d.shape[1] > 1:
+        d = mul(d[:, 0::2], d[:, 1::2])
+    return d[:, 0]
 
 
 def _on_cpu(name: str, ctx: DeviceCtx) -> bool:
@@ -270,8 +317,65 @@ def replay(acc: torch.Tensor, pa_ext: torch.Tensor, pbx: torch.Tensor,
     return out
 
 
+def replay_gather(acc: torch.Tensor, pa_ext: torch.Tensor, pbx: torch.Tensor,
+                  idx: np.ndarray, ctx: DeviceCtx, *, e: int) -> torch.Tensor:
+    """K6: acc * prod over the entries (pa, pb) of idx [T, 2] of
+    (pa_ext[pa] - pbx[pb]), in steps of e entries whose differences
+    multiply in a pairwise tree before acc (T a multiple of e).  Returns a
+    new [NW, B] plane, digit for digit the plain version's."""
+    nw, b = ctx.p.nw, int(acc.shape[-1])
+    pa_rows, pb_rows = int(pa_ext.shape[0]), int(pbx.shape[0])
+    _check("replay_gather", "acc", acc, (nw, b), ctx)
+    _check("replay_gather", "pa_ext", pa_ext, (pa_rows, nw, b), ctx)
+    _check("replay_gather", "pbx", pbx, (pb_rows, nw, b), ctx)
+    idx = check_pairs("replay_gather", idx, e, pa_rows, pb_rows)
+    if _on_cpu("replay_gather", ctx):
+        return replay_gather_plain(acc, pa_ext, pbx, idx, e, ctx)
+    out = torch.empty_like(acc)
+    dev = torch.from_numpy(idx).to(acc.device)
+    _done("replay_gather", build.library().tpuecm_replay_gather(
+        acc.data_ptr(), out.data_ptr(), pa_ext.data_ptr(), pbx.data_ptr(),
+        dev.data_ptr(), idx.shape[0] // e, e, *_mod(ctx), b, _stream()))
+    return out
+
+
+def replay_parow(acc: torch.Tensor, pa_ext: torch.Tensor, pbx: torch.Tensor,
+                 steps: np.ndarray, one: torch.Tensor, ctx: DeviceCtx
+                 ) -> torch.Tensor:
+    """K7: acc * prod over the steps [S, 1 + E] rows [pa, pb_0..pb_{E-1}]
+    of the tree product of the E values (pa_ext[pa] - pbx[pb_k]), where
+    pb_k == 0 stands for `one` (a pad).  Returns a new [NW, B] plane, digit
+    for digit the plain version's."""
+    nw, b = ctx.p.nw, int(acc.shape[-1])
+    pa_rows, pb_rows = int(pa_ext.shape[0]), int(pbx.shape[0])
+    _check("replay_parow", "acc", acc, (nw, b), ctx)
+    _check("replay_parow", "pa_ext", pa_ext, (pa_rows, nw, b), ctx)
+    _check("replay_parow", "pbx", pbx, (pb_rows, nw, b), ctx)
+    _check("replay_parow", "one", one, (nw, b), ctx)
+    steps = np.ascontiguousarray(steps, dtype=np.int32)
+    if steps.ndim != 2:
+        raise ValueError(f"replay_parow: steps must be [S, 1 + E], got "
+                         f"{steps.shape}")
+    e = steps.shape[1] - 1
+    check_e("replay_parow", e)
+    if steps.size and (int(steps.min()) < 0
+                       or int(steps[:, 0].max()) >= pa_rows
+                       or int(steps[:, 1:].max()) >= pb_rows):
+        raise ValueError("replay_parow: step row outside pa_ext / pbx")
+    if _on_cpu("replay_parow", ctx):
+        return replay_parow_plain(acc, pa_ext, pbx, steps, one, ctx)
+    out = torch.empty_like(acc)
+    dev = torch.from_numpy(steps).to(acc.device)
+    _done("replay_parow", build.library().tpuecm_replay_parow(
+        acc.data_ptr(), out.data_ptr(), pa_ext.data_ptr(), pbx.data_ptr(),
+        dev.data_ptr(), one.data_ptr(), steps.shape[0], e, *_mod(ctx), b,
+        _stream()))
+    return out
+
+
 # ---------------------------------------------------------------------------
-# plain versions of K2-K5 (the twins of tpu_ecm/stage2/exec.py:104-173)
+# plain versions of K2-K7 (the twins of tpu_ecm/stage2/exec.py:104-173 and
+# of the Pallas replay kernels' steps)
 # ---------------------------------------------------------------------------
 
 def chain_plain(p1: torch.Tensor, p2: torch.Tensor, pd: torch.Tensor,
@@ -334,4 +438,41 @@ def replay_plain(acc: torch.Tensor, pa_ext: torch.Tensor, pbx: torch.Tensor,
             acc = torch_ops.mulmod(acc, m[t], ctx, pre=True)
     for k in range(4 * quads, count):
         acc = torch_ops.mulmod(acc, d[k], ctx, pre=True)
+    return acc
+
+
+def replay_gather_plain(acc: torch.Tensor, pa_ext: torch.Tensor,
+                        pbx: torch.Tensor, idx: np.ndarray, e: int,
+                        ctx: DeviceCtx) -> torch.Tensor:
+    """K6 in the kernel's association: each difference gets one lazy pass,
+    each step's e differences multiply in the pairwise tree (one batched
+    product per level over a block of steps), the roots into acc in
+    order."""
+    mul = lambda x, y: torch_ops.mulmod(x, y, ctx, pre=True)
+    ent = torch.from_numpy(idx.astype(np.int64)).to(acc.device)
+    for lo in range(0, ent.shape[0], PLAIN_REPLAY_BLOCK):
+        blk = ent[lo:lo + PLAIN_REPLAY_BLOCK]
+        d = torch_ops._norm_out(pa_ext[blk[:, 0]] - pbx[blk[:, 1]], ctx)
+        for root in step_roots(d, e, mul):
+            acc = mul(acc, root)
+    return acc
+
+
+def replay_parow_plain(acc: torch.Tensor, pa_ext: torch.Tensor,
+                       pbx: torch.Tensor, steps: np.ndarray,
+                       one: torch.Tensor, ctx: DeviceCtx) -> torch.Tensor:
+    """K7 in the kernel's association: per step, the values
+    pa_ext[pa] - pbx[pb_k] with one lazy pass each, `one` where pb_k == 0,
+    multiplied in the pairwise tree, the roots into acc in order."""
+    e = steps.shape[1] - 1
+    mul = lambda x, y: torch_ops.mulmod(x, y, ctx, pre=True)
+    st = torch.from_numpy(steps.astype(np.int64)).to(acc.device)
+    for lo in range(0, st.shape[0], PLAIN_REPLAY_BLOCK // e):
+        blk = st[lo:lo + PLAIN_REPLAY_BLOCK // e]
+        pb = blk[:, 1:].reshape(-1)
+        d = torch_ops._norm_out(
+            pa_ext[blk[:, 0].repeat_interleave(e)] - pbx[pb], ctx)
+        d = torch.where((pb == 0)[:, None, None], one, d)
+        for root in step_roots(d, e, mul):
+            acc = mul(acc, root)
     return acc

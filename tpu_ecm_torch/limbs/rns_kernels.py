@@ -1,4 +1,4 @@
-"""Wrappers of the five CUDA kernels of the RNS engine (csrc/rns_*.cu) and
+"""Wrappers of the six CUDA kernels of the RNS engine (csrc/rns_*.cu) and
 the plain PyTorch versions beside them.
 
 The same contract as limbs/kernels.py: each wrapper checks device, dtype,
@@ -8,7 +8,8 @@ raises for anything else, and counts its launches in kernels.launches.
 Planes are int32 [..., 2K+1, B] residue planes, curve axis last; the plain
 version of K10 is rns_exec.run_tape.  Every kernel gives the plain
 version's residues exactly (K15 too: both multiply acc by one difference
-per entry, in entry order).
+per entry, in entry order; K14: both multiply each step's differences in
+the same pairwise tree).
 """
 
 from __future__ import annotations
@@ -18,13 +19,12 @@ import torch
 
 from ..curve.ops import NUM_SLOTS
 from . import build, rns, rns_exec
-from .kernels import _check, _done, _stream
+from .kernels import (PLAIN_REPLAY_BLOCK, _check, _done, _stream,
+                      check_pairs, step_roots)
 from .rns import RnsCtx
 
 # tape entries per stage-1 kernel launch: keeps every launch short
 TAPE_SLICE = 1 << 12
-# replay entries whose differences the plain K15 forms at once
-PLAIN_REPLAY_BLOCK = 1024
 
 
 def _on_cpu(name: str, rc: RnsCtx) -> bool:
@@ -154,8 +154,30 @@ def replay(acc: torch.Tensor, pa_ext: torch.Tensor, pbx: torch.Tensor,
     return out
 
 
+def replay_gather(acc: torch.Tensor, pa_ext: torch.Tensor, pbx: torch.Tensor,
+                  idx: np.ndarray, rc: RnsCtx, *, e: int) -> torch.Tensor:
+    """K14: acc times the product over the entries (pa, pb) of idx [T, 2]
+    of sub(pa_ext[pa], pbx[pb]), in steps of e entries multiplied in a
+    pairwise tree before acc (T a multiple of e).  Returns a new [rows, B]
+    plane."""
+    rows, b = rc.rows, int(acc.shape[-1])
+    pa_rows, pb_rows = int(pa_ext.shape[0]), int(pbx.shape[0])
+    _check("rns_replay_gather", "acc", acc, (rows, b), rc)
+    _check("rns_replay_gather", "pa_ext", pa_ext, (pa_rows, rows, b), rc)
+    _check("rns_replay_gather", "pbx", pbx, (pb_rows, rows, b), rc)
+    idx = check_pairs("rns_replay_gather", idx, e, pa_rows, pb_rows)
+    if _on_cpu("rns_replay_gather", rc):
+        return replay_gather_plain(acc, pa_ext, pbx, idx, e, rc)
+    out = torch.empty_like(acc)
+    dev = torch.from_numpy(idx).to(acc.device)
+    _done("rns_replay_gather", build.library().tpuecm_rns_replay_gather(
+        acc.data_ptr(), out.data_ptr(), pa_ext.data_ptr(), pbx.data_ptr(),
+        dev.data_ptr(), idx.shape[0] // e, e, *_ctx_args(rc), b, _stream()))
+    return out
+
+
 # ---------------------------------------------------------------------------
-# plain versions of K11-K13 and K15 (the twins of rns_exec.py:135-191 and
+# plain versions of K11-K15 (the twins of rns_exec.py:135-191 and
 # of the Pallas kernels' loops)
 # ---------------------------------------------------------------------------
 
@@ -206,4 +228,21 @@ def replay_plain(acc: torch.Tensor, pa_ext: torch.Tensor, pbx: torch.Tensor,
         d = rns.sub(pa_ext[pa], pbx[pb], rc)
         for k in range(d.shape[0]):
             acc = rns.mont_mul(acc, d[k], rc)
+    return acc
+
+
+def replay_gather_plain(acc: torch.Tensor, pa_ext: torch.Tensor,
+                        pbx: torch.Tensor, idx: np.ndarray, e: int,
+                        rc: RnsCtx) -> torch.Tensor:
+    """K14 in the kernel's association: each step's e differences
+    sub(pa_ext[pa], pbx[pb]) multiplied in the pairwise tree (one batched
+    product per level over a block of steps), the roots into acc in
+    order."""
+    mul = lambda x, y: rns.mont_mul(x, y, rc)
+    ent = torch.from_numpy(idx.astype(np.int64)).to(acc.device)
+    for lo in range(0, ent.shape[0], PLAIN_REPLAY_BLOCK):
+        blk = ent[lo:lo + PLAIN_REPLAY_BLOCK]
+        d = rns.sub(pa_ext[blk[:, 0]], pbx[blk[:, 1]], rc)
+        for root in step_roots(d, e, mul):
+            acc = mul(acc, root)
     return acc

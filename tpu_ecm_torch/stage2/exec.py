@@ -11,14 +11,27 @@ tpu_ecm/stage2/exec.py in its inverted cross form.
   inverted, so the gcd-harvest set is the same for any grouping.
 * A curve whose Z-product is not invertible has gcd(Z..., N) > 1: that gcd
   is a factor, harvested like the reference's inversion-failure path.
-* The replay acc *= Pa_inv[pa] - PbX[pb] runs in the replay kernel; pbx[0]
-  is the zero row and pa_ext[G] the Montgomery one, so a pad entry changes
-  acc by a unit (digits: by one; RNS: by one + F, equal mod n).
+* The replay acc *= Pa_inv[pa] - PbX[pb] runs in the replay kernel of the
+  runner's `replay` mode; pbx[0] is the zero row and pa_ext[G] the
+  Montgomery one, so a pad entry changes acc by a unit (digits: by one;
+  RNS: by one + F, equal mod n).  The modes (replay_calls):
+
+    stream  K5 / K15: packed pa << 16 | pb entries with a live count
+    gather  K6 / K14: [T, 2] (pa, pb) pairs, REPLAY_E entries per step
+            multiplied in a tree, padded with (G, 0) to whole steps
+    parow   K7, digit engine only: steps [pa, pb_0..pb_{E-1}] sharing one
+            Pa row, pb = 0 masked to one
+
+  Each engine names its default (`default_replay`: the mode whose kernel
+  is fastest per entry on the H100, PERF.md); `replay=` overrides it for
+  tests and measurements, never the environment.  A mode the engine has no
+  kernel for raises (tpu_ecm falls back to gather there), and so does the
+  resident mode (K8), which is not ported.
 
 The orchestration is engine-generic, as the JAX runner's is through `ops`:
-DigitOps (digit planes [.., NW, B], kernels K1-K5) and RnsOps (residue
-planes [.., 2K+1, B], kernels K10-K13 and K15) give it packing and the five
-kernel calls.  The plain versions of the kernels are beside their wrappers
+DigitOps (digit planes [.., NW, B], kernels K1-K7) and RnsOps (residue
+planes [.., 2K+1, B], kernels K10-K15) give it packing and the kernel
+calls.  The plain versions of the kernels are beside their wrappers
 (limbs/kernels.py, limbs/rns_kernels.py).
 """
 
@@ -92,9 +105,13 @@ def host_batch_inverse(ctx: MontyCtx, vals_mont: List[int],
 
 class DigitOps:
     """Digit planes [.., NW, B] on the runner's device (the twin of
-    tpu_ecm's DigitOps); kernels K1-K5."""
+    tpu_ecm's DigitOps); kernels K1-K7."""
 
     inv_premul = None                 # host_batch_inverse's R^2 default
+    # replay mode -> the kernel it launches (kernels.KERNELS)
+    replay_kernels = {"stream": "replay", "gather": "replay_gather",
+                      "parow": "replay_parow"}
+    default_replay = "stream"
 
     def __init__(self, ctx: MontyCtx, dctx: DeviceCtx):
         self.ctx, self.dctx = ctx, dctx
@@ -128,13 +145,25 @@ class DigitOps:
     def apply_inverse(self, xs, zs, pres, total_inv):
         return kernels.apply_inverse(xs, zs, pres, total_inv, self.dctx)
 
-    def replay(self, acc, pa_ext, pbx, idx):
+    # the replay of one call's index array (replay_calls) in each mode;
+    # `one` is the one plane, which K7 takes for its pb = 0 pads
+    def replay_stream(self, acc, pa_ext, pbx, idx, one):
         return kernels.replay(acc, pa_ext, pbx, idx, self.dctx)
+
+    def replay_gather(self, acc, pa_ext, pbx, idx, one):
+        return kernels.replay_gather(acc, pa_ext, pbx, idx, self.dctx,
+                                     e=REPLAY_E)
+
+    def replay_parow(self, acc, pa_ext, pbx, steps, one):
+        return kernels.replay_parow(acc, pa_ext, pbx, steps, one, self.dctx)
 
 
 class RnsOps:
     """Residue planes [.., 2K+1, B] (the twin of rns_exec.RnsOps); kernels
-    K10-K13 and K15."""
+    K10-K15 (no shared-Pa-row replay: tpu_ecm has none for RNS)."""
+
+    replay_kernels = {"stream": "rns_replay", "gather": "rns_replay_gather"}
+    default_replay = "gather"
 
     def __init__(self, host: rns.RnsHost, rc: rns.RnsCtx):
         self.host, self.rc = host, rc
@@ -169,8 +198,12 @@ class RnsOps:
     def apply_inverse(self, xs, zs, pres, total_inv):
         return rns_kernels.apply_inverse(xs, zs, pres, total_inv, self.rc)
 
-    def replay(self, acc, pa_ext, pbx, idx):
+    def replay_stream(self, acc, pa_ext, pbx, idx, one):
         return rns_kernels.replay(acc, pa_ext, pbx, idx, self.rc)
+
+    def replay_gather(self, acc, pa_ext, pbx, idx, one):
+        return rns_kernels.replay_gather(acc, pa_ext, pbx, idx, self.rc,
+                                         e=REPLAY_E)
 
 
 # ---------------------------------------------------------------------------
@@ -182,6 +215,7 @@ class Stage2Result:
     acc: List[int]                  # canonical accumulator per curve (mod n)
     factors: Dict[int, int]         # curve -> factor found during inversions
     paired: int
+    slots: int                      # replay entry slots, pads included
     ptadds: int
     ptdups: int
     numinv: int
@@ -191,9 +225,15 @@ class Stage2Result:
 # CPU pair is the JAX package's CPU pair (so the tests compare like with
 # like).  On CUDA the group is the largest power of two up to
 # PA_GROUP["cuda"] that fits the card's free memory (pa_group_for_memory);
-# the replay block is fixed here, not tuned (PERF.md).
+# the replay block, the most entries of one kernel call, is fixed here,
+# not tuned (PERF.md).
 PA_GROUP = {"cpu": 512, "cuda": 4096}
 REPLAY_BLOCK = {"cpu": 4096, "cuda": 1 << 16}
+# the replay modes (an engine's ops name the kernel of each they have);
+# entries per step of the gather and parow modes (tpu_ecm's _replay_e(16)
+# default; every replay block is a multiple of it)
+REPLAY_MODES = ("stream", "gather", "parow")
+REPLAY_E = 16
 # planes live per Pa group row at the peak of a group: the chain output
 # (2), the contiguous x and z stacks (2), prefix, shifted prefix, apply
 # output and the extended inverse table
@@ -222,14 +262,109 @@ def pa_group_for_memory(plane_bytes: int, num_pb: int, free_bytes: int,
     return g
 
 
+def replay_mode(mode: Optional[str], ops) -> str:
+    """The replay mode a runner on `ops` takes for `mode` (None: the
+    engine's default); raises unless the engine has a kernel for it."""
+    if mode is None:
+        return ops.default_replay
+    if mode == "resident":
+        raise NotImplementedError(
+            "replay='resident' (K8, the resident Pb slab) is not ported: "
+            "ROADMAP B.8")
+    if mode not in REPLAY_MODES:
+        raise ValueError(f"unknown replay mode {mode!r}; expected one of "
+                         f"{REPLAY_MODES}")
+    if mode not in ops.replay_kernels:
+        raise ValueError(f"replay={mode!r} has no kernel on the "
+                         f"{type(ops).__name__} engine")
+    return mode
+
+
+def pack_parow_steps(idx: np.ndarray, e: int) -> np.ndarray:
+    """[T, 2] v-sorted entries -> [S, 1+E] parow steps: runs of equal Pa
+    row split into ceil(run/E)-step groups, short tails padded with pb = 0
+    (masked to one in kernel).  Packing efficiency is T / (S*E)
+    (tpu_ecm/stage2/exec.py:1065-1085)."""
+    pa = idx[:, 0].astype(np.int64)
+    pb = idx[:, 1].astype(np.int32)
+    uniq, start, counts = np.unique(pa, return_index=True,
+                                    return_counts=True)
+    nsteps_per = -(-counts // e)
+    total = int(nsteps_per.sum())
+    steps = np.zeros((total, 1 + e), dtype=np.int32)
+    steps[:, 0] = np.repeat(uniq, nsteps_per)
+    ranks = (np.arange(idx.shape[0], dtype=np.int64)
+             - np.repeat(start, counts))
+    sbase = np.concatenate([[0], np.cumsum(nsteps_per)[:-1]])
+    estep = np.repeat(sbase, counts) + ranks // e
+    steps[estep, 1 + (ranks % e)] = pb
+    return steps
+
+
+def replay_calls(mode: str, idx: np.ndarray, block: int, g: int):
+    """(index array, entry slots) of each kernel call that replays the
+    v-sorted [T, 2] int32 (pa, pb) entries of one Pa group of g rows in
+    `mode`, each call at most `block` entries (a multiple of REPLAY_E);
+    the slots are the entries the kernel steps through, pads included:
+
+      stream  [count, pa << 16 | pb, ...]
+      gather  [T', 2] pairs, the last call padded with (g, 0) to whole
+              steps of REPLAY_E entries
+      parow   [S', 1 + REPLAY_E] steps of pack_parow_steps (S' * E slots)
+
+    tpu_ecm pads every call to the whole block (exec.py:1087-1106,
+    1214-1222), the fixed shape of its Pallas kernels; the CUDA kernels
+    take their length at run time, so no call runs a pad step."""
+    if mode == "stream":
+        packed = ((idx[:, 0].astype(np.int64) << 16)
+                  | idx[:, 1].astype(np.int64)).astype(np.int32)
+        for lo in range(0, packed.shape[0], block):
+            blk = packed[lo:lo + block]
+            yield (np.concatenate([np.asarray([blk.shape[0]], np.int32),
+                                   blk]), blk.shape[0])
+        return
+    if mode == "gather":
+        arr = np.concatenate([idx, np.tile(np.asarray([[g, 0]], np.int32),
+                                           (-idx.shape[0] % REPLAY_E, 1))])
+        per = 1
+    else:
+        arr, block = pack_parow_steps(idx, REPLAY_E), block // REPLAY_E
+        per = REPLAY_E
+    for lo in range(0, arr.shape[0], block):
+        blk = arr[lo:lo + block]
+        yield blk, per * blk.shape[0]
+
+
+def entries_global(sp: Stage2Params, map_v: np.ndarray, map_u: np.ndarray,
+                   amin0: int) -> np.ndarray:
+    """Pairmap -> [T, 2] int64 (global Pa index j, Pb storage index),
+    sorted by j (stably)."""
+    v = map_v.astype(np.int64)
+    u = map_u.astype(np.int64)
+    sent = (v == 0) & (u == 0)
+    shifts = np.cumsum(sent)                 # s at each position
+    keep = ~sent
+    j = v[keep] - amin0 + sp.U * shifts[keep]
+    win_lo = 2 * sp.U * shifts[keep]
+    if j.size and not ((j >= win_lo).all()
+                       and (j < win_lo + 2 * sp.L).all()):
+        raise ValueError("pairmap v outside its window")
+    pb = sp.rprime_map[u[keep]].astype(np.int64)
+    if not (pb > 0).all():
+        raise ValueError("pairmap u outside the stored baby steps")
+    entries = np.stack([j, pb], axis=1)
+    return entries[np.argsort(entries[:, 0], kind="stable")]
+
+
 class Stage2Runner:
     """Per-batch stage-2 state machine (phases 2+3 of vececm)."""
 
     def __init__(self, ctx: MontyCtx, dctx: Optional[DeviceCtx],
                  sp: Stage2Params, pt: torch.Tensor, s_const: torch.Tensor,
-                 ops=None):
+                 ops=None, replay: Optional[str] = None):
         self.ctx, self.sp = ctx, sp
         self.ops = ops if ops is not None else DigitOps(ctx, dctx)
+        self.replay = replay_mode(replay, self.ops)
         self.pt = pt                  # stage-1 point [2, rows, B]
         self.s_const = s_const
         self.b = b = int(pt.shape[-1])
@@ -249,6 +384,7 @@ class Stage2Runner:
         self.acc = self.one_plane     # mdata->one init
         self.factors: Dict[int, int] = {}
         self.paired = 0
+        self.slots = 0
         self.ptadds = 0
         self.ptdups = 0
         self.numinv = 0
@@ -351,33 +487,12 @@ class Stage2Runner:
     # order is irrelevant.  Points are built once, in groups of G, each
     # group batch-inverted with ONE host modinv for the whole block.
 
-    def _entries_global(self, map_v: np.ndarray, map_u: np.ndarray,
-                        amin0: int) -> np.ndarray:
-        """Pairmap -> [T, 2] int64 (global Pa index j, Pb storage index)."""
-        sp = self.sp
-        v = map_v.astype(np.int64)
-        u = map_u.astype(np.int64)
-        sent = (v == 0) & (u == 0)
-        shifts = np.cumsum(sent)                 # s at each position
-        keep = ~sent
-        j = v[keep] - amin0 + sp.U * shifts[keep]
-        win_lo = 2 * sp.U * shifts[keep]
-        if j.size and not ((j >= win_lo).all()
-                           and (j < win_lo + 2 * sp.L).all()):
-            raise ValueError("pairmap v outside its window")
-        pb = sp.rprime_map[u[keep]].astype(np.int64)
-        if not (pb > 0).all():
-            raise ValueError("pairmap u outside the stored baby steps")
-        return np.stack([j, pb], axis=1)
-
     def run_chunk(self, map_v: np.ndarray, map_u: np.ndarray, amin0: int):
         """Replay one chunk's pairmap (built by plan.pair for this chunk)."""
         sp = self.sp
-        entries = self._entries_global(map_v, map_u, amin0)
+        entries = entries_global(sp, map_v, map_u, amin0)
         if entries.shape[0] == 0:
             return
-        order = np.argsort(entries[:, 0], kind="stable")
-        entries = entries[order]
         max_j = int(entries[-1, 0])
         G = self.pa_group
 
@@ -431,15 +546,14 @@ class Stage2Runner:
             base += G
 
     def _replay(self, pa_inv_ext: torch.Tensor, idx: np.ndarray):
-        """acc *= prod (Pa_inv[v] - PbX[u]) over the entry list, in blocks
-        of replay_block entries per kernel call."""
-        packed = ((idx[:, 0].astype(np.int64) << 16)
-                  | idx[:, 1].astype(np.int64)).astype(np.int32)
-        tb = self.replay_block
-        for lo in range(0, packed.shape[0], tb):
-            blk = packed[lo:lo + tb]
-            arr = np.concatenate([np.asarray([blk.shape[0]], np.int32), blk])
-            self.acc = self.ops.replay(self.acc, pa_inv_ext, self.pbx, arr)
+        """acc *= prod (Pa_inv[v] - PbX[u]) over the v-sorted [T, 2] entry
+        list, through the kernel of the runner's replay mode."""
+        launch = getattr(self.ops, "replay_" + self.replay)
+        for arr, slots in replay_calls(self.replay, idx, self.replay_block,
+                                       self.pa_group):
+            self.acc = launch(self.acc, pa_inv_ext, self.pbx, arr,
+                              self.one_plane)
+            self.slots += slots
 
     # -- harvest ----------------------------------------------------------
 
@@ -447,5 +561,6 @@ class Stage2Runner:
         accs = [self.ops.from_mont_int(a)
                 for a in self.ops.unpack(self.acc)]
         return Stage2Result(acc=accs, factors=dict(self.factors),
-                            paired=self.paired, ptadds=self.ptadds,
+                            paired=self.paired, slots=self.slots,
+                            ptadds=self.ptadds,
                             ptdups=self.ptdups, numinv=self.numinv)

@@ -14,23 +14,27 @@ result and its seconds; any failure raises and exits non-zero.
   2 kernels   every kernel against its plain PyTorch version on the card,
               on seeded random reduced inputs, and timed against it at the
               main path's own depths:
-              digit K1-K7 and K9 at N64/B=128 on short stacks and at the
-              416-bit flagship/B=2048 (a 256-op stage-1 tape split over
-              three launches, 4,096-row chain and inversion groups, the
-              full Pb table, K5-K7 on the index arrays of the flagship
-              job's first replay call in their mode: its first 65,536
-              entries as stream entries and as [T, 2] pairs in 16-entry
-              steps, its first 4,096 shared-Pa-row steps; a 256-op
-              Edwards tape);
-              the same eight in fold mode at M127 = 2^127-1/B=128 on short
-              stacks, and K1-K7 in fold mode at M1277 = 2^1277-1 (w=11,
+              digit K1-K9 at N64/B=128 on short stacks (K8 with slabs of
+              8 rows) and at the 416-bit flagship/B=2048 (a 256-op
+              stage-1 tape split over three launches, 4,096-row chain and
+              inversion groups, the full Pb table, K5-K8 on the index
+              arrays of the flagship job's first replay call in their
+              mode: its first 65,536 entries as stream entries, as [T, 2]
+              pairs in 16-entry steps, in 4,096 shared-Pa-row steps, and
+              partitioned by slabs of the rows a block's shared memory
+              holds on this card; a 256-op Edwards tape);
+              the same nine in fold mode at M127 = 2^127-1/B=128 on short
+              stacks, and K1-K8 in fold mode at M1277 = 2^1277-1 (w=11,
               nw=118)/B=2048 at the mersenne job's depths (the same
               256-op tape over three launches, the Pa group the memory
               rule picks, the job's Pb table and first replay calls),
               each timed by its compared launch, with the plain versions
-              run on the first 128 curves; digits equal for K1-K4, K6, K7
-              and K9, values mod n for K5; the bound of K8 (not ported) at
-              the flagship depth;
+              run on the first 128 curves; digits equal for K1-K4 and
+              K6-K9, values mod n for K5; K8's slabs, slab height, shared
+              memory, ptxas report and ms per live entry beside K6's at
+              both main-path depths, K6 on K8's own entries (digits equal
+              to K8's), and at M1277 K8 with 6-row slabs without and with
+              a 50% shared-carveout preference (_resident_probe);
               RNS K10-K15 at N256/B=128 on short stacks and at the
               2397-bit row-21 geometry (K=200, 401 residue rows)/B=1024
               (a 256-op tape over three launches, the Pa group the memory
@@ -55,9 +59,9 @@ result and its seconds; any failure raises and exits non-zero.
               Edwards curves on N71 find P35 at sigma 46 in stage 1 and at
               sigma 29 in stage 2 (tests/test_edwards.py:154-165); the
               replay modes: N71 finds P35 at sigma 112 in stage 2 under
-              gather and parow (digit) and gather (RNS), the 2355-bit N
-              under gather, M101 its P13 at sigma 502 under gather and
-              parow, each through its mode's kernel
+              gather, parow and resident (digit) and gather (RNS), the
+              2355-bit N under gather, M101 its P13 at sigma 502 under
+              gather, parow and resident, each through its mode's kernel
   4 flagship  bench.py's job at full width: the 416-bit semiprime, 2048
               Suyama curves from sigma 7000 in one batch, B1=1e5, B2=1e7
               (cut 10x from 1e6/1e8 to fit the time limit); save_b1.txt
@@ -84,7 +88,8 @@ result and its seconds; any failure raises and exits non-zero.
               projectively, through to_montgomery_xz
   8 replay    the replay modes at full width: a 416-bit N with a 20-digit
               factor (replay_n), 2048 curves from sigma 7000, B1=20,000,
-              B2=2,000,000, in stream, gather and parow (K5, K6, K7), and
+              B2=2,000,000, in stream, gather, parow and resident (K5-K8),
+              and
               the 2355-bit n2355() with 1024 curves from sigma 110,
               B1=2,000, B2=200,000, in stream and gather (K15, K14); each
               run prints its entries and entry slots (a call pads to
@@ -141,9 +146,15 @@ RNS_JOB = dict(curves=1024, sigma=377_260_338, b1=25_000, b2=2_500_000)
 MERSENNE_JOB = dict(curves=2048, sigma=7000, b1=10_000, b2=1_000_000)
 # short kernel-test stacks (main_path_depth gives the main path's own)
 SHORT = dict(tape_ops=256, tape_slice=None, rows=64, pb_rows=97,
-             entries=256, ed_ops=64)
+             entries=256, ed_ops=64, cap=8)
 RNS_SHORT = dict(tape_ops=32, tape_slice=None, rows=16, pb_rows=29,
                  entries=64)
+# K8's slab height in phase 2's probe at M1277: 7 rows of 15,104 bytes
+# (106 KB) against the 14 rows (226 KB) the card allows; with half of the
+# SM's 228 KB shared carveout preferred, the driver's next capacity up
+# (132 KB) leaves ~124 KB of the 256 KB array to L1
+PROBE_SLAB_ROWS = 6
+PROBE_CARVEOUT = 50
 # curves the plain versions run on at M1277's main-path depths (curves are
 # independent: the kernel's first PLAIN_CURVES columns are compared)
 PLAIN_CURVES = 128
@@ -303,24 +314,29 @@ def _replay_idx(rng, rows: int, pb_rows: int, entries: int):
     return np.concatenate([[entries - 3], ent]).astype(np.int32)
 
 
-def _random_calls(rng, rows: int, pb_rows: int, entries: int) -> dict:
-    """The gather and parow calls (stage2/exec.replay_calls) of entries - 5
-    random v-sorted entries over a Pa group of `rows` rows (row `rows` the
-    one row) and pb_rows Pb rows, each in one call: K6's ends in 5 pads
-    (rows, 0), K7's short steps hold pb = 0 pads."""
+def _random_calls(rng, rows: int, pb_rows: int, entries: int,
+                  cap=None) -> dict:
+    """The gather, parow and (with cap set) resident calls
+    (stage2/exec.replay_calls) of entries - 5 random v-sorted entries over
+    a Pa group of `rows` rows (row `rows` the one row) and pb_rows Pb rows,
+    each in one call: K6's ends in 5 pads (rows, 0), K7's short steps hold
+    pb = 0 pads, K8's slabs of cap rows end in (rows, 0) pads."""
     import numpy as np
     from tpu_ecm_torch.stage2 import exec as s2
     idx = np.stack([np.sort(rng.integers(0, rows, entries - 5)),
                     rng.integers(1, pb_rows, entries - 5)], 1).astype(np.int32)
-    return {m: next(s2.replay_calls(m, idx, s2.REPLAY_E * entries, rows))[0]
-            for m in ("gather", "parow")}
+    return {m: next(s2.replay_calls(m, idx, s2.REPLAY_E * entries, rows,
+                                    cap))[0]
+            for m in ("gather", "parow", "resident")
+            if cap or m != "resident"}
 
 
-def _first_calls(job: dict, sp, g: int) -> dict:
+def _first_calls(job: dict, sp, g: int, cap=None) -> dict:
     """The index arrays of the main path's first replay call of `job` in
-    each mode: its first stage-2 chunk planned as the driver plans it, the
-    entries of its first Pa group of g rows as Stage2Runner.run_chunk cuts
-    them, and that group's first call (stage2/exec.replay_calls)."""
+    each mode (resident, with slabs of cap rows, when cap is set): its
+    first stage-2 chunk planned as the driver plans it, the entries of its
+    first Pa group of g rows as Stage2Runner.run_chunk cuts them, and that
+    group's first call (stage2/exec.replay_calls)."""
     import numpy as np
     from tpu_ecm_torch.primes import PrimeStream
     from tpu_ecm_torch.stage2 import exec as s2, plan
@@ -330,8 +346,9 @@ def _first_calls(job: dict, sp, g: int) -> dict:
     v, u, amin0, _ = plan.pair(sp, primes, lo, hi)
     ent = s2.entries_global(sp, v, u, amin0)
     idx = ent[ent[:, 0] < g].astype(np.int32)
-    return {m: next(s2.replay_calls(m, idx, s2.REPLAY_BLOCK["cuda"], g))[0]
-            for m in s2.REPLAY_MODES}
+    return {m: next(s2.replay_calls(m, idx, s2.REPLAY_BLOCK["cuda"], g,
+                                    cap))[0]
+            for m in s2.REPLAY_MODES if cap or m != "resident"}
 
 
 def _rows_read(rows_idx, row_bytes: int) -> int:
@@ -341,15 +358,23 @@ def _rows_read(rows_idx, row_bytes: int) -> int:
     return int(np.unique(rows_idx).size) * row_bytes
 
 
+def _slab_rows_read(call, pb_rows: int) -> int:
+    """The Pb rows of the distinct slabs a K8 call loads (rows [lo, lo +
+    cap) inside the table), each counted once."""
+    import numpy as np
+    return sum(min(call.cap, pb_rows - int(lo))
+               for lo in np.unique(call.slabs[:, 0]))
+
+
 def main_path_depth(nw: int, rows: int, b: int, job: dict,
-                    ed_ops=None) -> dict:
+                    ed_ops=None, cap=None) -> dict:
     """The stack sizes the main path gives the kernels on the card for
     `job` at B curves of `rows`-row planes (nw digits): the Pa group the
     memory rule picks on this card, the job's whole Pb table, the replay
-    kernels' index arrays of its first replay call (calls: mode -> array),
-    K8's bound at a REPLAY_BLOCK-entry call; a tape slice of 100 ops
-    splits the 256-op tapes (K1's, K9's when ed_ops is set, K10's) over
-    three launches."""
+    kernels' index arrays of its first replay call (calls: mode -> array;
+    K8's with slabs of cap rows when cap is set, the digit engine's slab
+    on this card); a tape slice of 100 ops splits the 256-op tapes (K1's,
+    K9's when ed_ops is set, K10's) over three launches."""
     import torch
     from tpu_ecm_torch.stage2 import exec as s2, plan
     sp = plan.make_stage2_params(job["b1"], job["b2"], nw=nw, batch=b)
@@ -357,8 +382,8 @@ def main_path_depth(nw: int, rows: int, b: int, job: dict,
             - torch.cuda.memory_allocated())
     g = s2.pa_group_for_memory(rows * b * 4, sp.num_pb, free)
     return dict(tape_ops=256, tape_slice=100, pb_rows=sp.num_pb, rows=g,
-                entries=s2.REPLAY_BLOCK["cuda"], ed_ops=ed_ops,
-                calls=_first_calls(job, sp, g))
+                entries=s2.REPLAY_BLOCK["cuda"], ed_ops=ed_ops, cap=cap,
+                calls=_first_calls(job, sp, g, cap))
 
 
 def _nbytes(*tensors) -> int:
@@ -410,7 +435,7 @@ def _ed_products(tape):
     return 3 * dbl + 4 * dblt + 7 * adds, 4 * (dbl + dblt)
 
 
-def _kernel_cases(rng, ctx, b, depth=SHORT, plain_b=None):
+def _kernel_cases(rng, ctx, b, depth=SHORT, plain_b=None, same=None):
     """(cases, slots): cases maps name -> (kernel call, plain call,
     compare mod n?, bound) on one geometry: B curves and the stack sizes
     of `depth`; K9 is included when depth["ed_ops"] is set.  The plain
@@ -418,13 +443,18 @@ def _kernel_cases(rng, ctx, b, depth=SHORT, plain_b=None):
     "operations" | "bytes") of the kernel call's multiply-adds and bytes.
     slots maps each replay kernel to (live entries, entry slots) of its
     call: the replay kernels read depth["calls"] (the main path's first
-    replay call) or, without it, random entries."""
+    replay call) or, without it, random entries.  A dict `same` gets
+    same["replay_resident"]: K6 on K8's call, its entries mapped back to
+    pbx rows (pads to the zero row 0), which gives K8's digits; and
+    same["resident_at"](cap): K8 on the call's live entries cut into
+    slabs of cap rows, in one launch."""
     import numpy as np
     import torch
     from tpu_ecm_torch.curve import edops, edwards, ops, prac
     from tpu_ecm_torch.limbs import kernels, layout
     from tpu_ecm_torch.limbs.torch_ops import device_ctx
     from tpu_ecm_torch.primes import primes_range
+    from tpu_ecm_torch.stage2 import exec as s2
     d = device_ctx(ctx, "cuda")
     nw = ctx.p.nw
     rows, entries, pb_rows = depth["rows"], depth["entries"], depth["pb_rows"]
@@ -439,9 +469,11 @@ def _kernel_cases(rng, ctx, b, depth=SHORT, plain_b=None):
     k["pbx"][0] = 0
     calls = depth.get("calls")
     if calls is None:
-        calls = dict(_random_calls(rng, rows, pb_rows, entries),
+        calls = dict(_random_calls(rng, rows, pb_rows, entries,
+                                   depth["cap"]),
                      stream=_replay_idx(rng, rows, pb_rows, entries))
     idx, pairs, steps = calls["stream"], calls["gather"], calls["parow"]
+    res = calls["resident"]
     e = steps.shape[1] - 1
     etape = None
     if depth.get("ed_ops"):
@@ -456,9 +488,11 @@ def _kernel_cases(rng, ctx, b, depth=SHORT, plain_b=None):
     # function does not need
     pb_live = steps[:, 1:][steps[:, 1:] > 0]
     slots = {"replay": (int(idx[0]), int(idx[0])),
-               "replay_gather": (int((pairs[:, 1] > 0).sum()),
-                                 pairs.shape[0]),
-               "replay_parow": (pb_live.size, steps[:, 1:].size)}
+             "replay_gather": (int((pairs[:, 1] > 0).sum()),
+                               pairs.shape[0]),
+             "replay_parow": (pb_live.size, steps[:, 1:].size),
+             "replay_resident": (int((res.entries[:, 1] > 0).sum()),
+                                 res.entries.shape[0])}
     macs = {name: b * live * _digit_macs(ctx, 1, 0)
             for name, (live, _n) in slots.items()}
     cases = {
@@ -514,7 +548,35 @@ def _kernel_cases(rng, ctx, b, depth=SHORT, plain_b=None):
                           _rows_read(steps[:, 0], row)
                           + _rows_read(pb_live, row) + steps.nbytes
                           + 3 * row)),
+        # as K6, with the Pb rows of every slab the call loads read once
+        "replay_resident": (
+            lambda: kernels.replay_resident(k["acc"], k["pa_ext"], k["pbx"],
+                                            res.entries, res.slabs, res.cap,
+                                            d, e=e),
+            lambda: kernels.replay_resident_plain(
+                p["acc"], p["pa_ext"], p["pbx"], res.entries, res.slabs,
+                res.cap, e, d),
+            False, _bound(macs["replay_resident"],
+                          _rows_read(res.entries[:, 0], row)
+                          + _slab_rows_read(res, pb_rows) * row
+                          + res.entries.nbytes + res.slabs.nbytes
+                          + 2 * row)),
     }
+    if same is not None:
+        on_pbx = np.stack([res.entries[:, 0],
+                           kernels.pbx_rows(res.entries, res.slabs, e)], 1)
+        same["replay_resident"] = lambda: kernels.replay_gather(
+            k["acc"], k["pa_ext"], k["pbx"], on_pbx, d, e=e)
+        live = on_pbx[res.entries[:, 1] > 0].astype(np.int32)
+
+        def resident_at(cap):
+            call = next(s2.replay_calls("resident", live,
+                                        e * (live.shape[0] + pb_rows), rows,
+                                        cap))[0]
+            return kernels.replay_resident(k["acc"], k["pa_ext"], k["pbx"],
+                                           call.entries, call.slabs, cap, d,
+                                           e=e)
+        same["resident_at"] = resident_at
     if etape is not None:
         cases["ed_tape"] = (
             lambda: _sliced_tape(kernels, kernels.ed_tape, k["eacc"], etape,
@@ -609,20 +671,6 @@ def _rns_kernel_cases(rng, gen, host, rc, b, depth=RNS_SHORT):
                    _rows_read(pairs[:, 0], row) + _rows_read(pairs[:, 1], row)
                    + pairs.nbytes + 2 * row)),
     }, slots
-
-
-def _resident_bound(ctx, b: int, depth: dict):
-    """The bound of one call of K8, the resident replay (not ported), at
-    `depth`: tpu_ecm's make_replay_resident_executor over a block of
-    depth["entries"] entries (one product per entry, as K6), reading the
-    Pa group and one Pb slab of the rows an 80 MB budget holds
-    (tpu_ecm/stage2/exec.py:_pbx_slabs) once."""
-    row = ctx.p.nw * b * 4
-    slab_rows = max(1, (80 << 20) // row - 1) + 1
-    entries = depth["entries"]
-    return _bound(b * entries * _digit_macs(ctx, 1, 0),
-                  (depth["rows"] + 1 + slab_rows) * row + entries * 2 * 4
-                  + 2 * row)
 
 
 def _tape_ms_per_op(rng, ctx, tape, b):
@@ -756,12 +804,78 @@ def _graphed_products():
         graphs.clear()
 
 
+def _resident_line(label, record, depth, nw, k6_same: float) -> str:
+    """K8's first call at a main-path depth beside K6 on the same entries
+    (k6_same ms per live entry) and on its own first call: K8's slabs,
+    slab height, dynamic shared memory per block, ms per live entry, and
+    what ptxas reported for it (registers, stack frame)."""
+    from tpu_ecm_torch.limbs import kernels
+    call = depth["calls"]["resident"]
+    r8, r6 = record["replay_resident"], record["replay_gather"]
+    if label == "M1277":
+        r8, r6 = r8["fold"], r6["fold"]
+    slabs = int(len(set(call.slabs[:, 0].tolist())))
+    r8.update(cap=call.cap, slabs=slabs,
+              smem_bytes=kernels.slab_bytes(call.cap, nw),
+              k6_ms_per_entry_same=k6_same)
+    return (f"K8 at {label}: {r8['entries']} live entries in {r8['slots']} "
+            f"slots, {slabs} slabs of cap={call.cap} rows, "
+            f"{r8['smem_bytes']} bytes of dynamic shared memory per block; "
+            f"{r8['ms_per_entry']:.5f} ms per live entry (K6 on the same "
+            f"entries {k6_same:.5f}, on its own first call "
+            f"{r6['ms_per_entry']:.5f}); ptxas: "
+            + "; ".join(_ptxas_lines("replay_resident_kernel")))
+
+
+def _resident_probe(record, resident_at, nw) -> str:
+    """K8 at M1277 on its first call's live entries with slabs of
+    PROBE_SLAB_ROWS rows, under the driver's own split of the SM's
+    L1/shared array and then with PROBE_CARVEOUT percent of it preferred
+    as shared memory, which leaves the rest to L1, where the fold's local
+    memory lives (the preference is reset afterwards)."""
+    from tpu_ecm_torch.limbs import build, kernels
+    r = record["replay_resident"]["fold"]
+    lib = build.library()
+    probe = dict(cap=PROBE_SLAB_ROWS, carveout=PROBE_CARVEOUT,
+                 smem_bytes=kernels.slab_bytes(PROBE_SLAB_ROWS, nw))
+    for key, pct in (("ms_per_entry", -1),
+                     ("ms_per_entry_carveout", PROBE_CARVEOUT)):
+        if lib.tpuecm_replay_resident_carveout(pct) != 0:
+            raise RuntimeError(f"K8: carveout {pct} refused")
+        ms = _timed(lambda: resident_at(PROBE_SLAB_ROWS), 1)[1]
+        probe[key] = ms / r["entries"]
+    if lib.tpuecm_replay_resident_carveout(-1) != 0:
+        raise RuntimeError("K8: carveout reset refused")
+    r["probe"] = probe
+    return (f"K8 at M1277 with slabs of {PROBE_SLAB_ROWS} rows "
+            f"({probe['smem_bytes']} bytes of shared memory per block): "
+            f"{probe['ms_per_entry']:.5f} ms per live entry, "
+            f"{probe['ms_per_entry_carveout']:.5f} with {PROBE_CARVEOUT}% "
+            f"of the L1/shared array preferred as shared memory")
+
+
+def _ptxas_lines(kernel: str) -> list:
+    """What nvcc -Xptxas -v reported for one kernel (its stack frame,
+    spills, registers and static shared memory), from the build log."""
+    from tpu_ecm_torch.limbs import build
+    with open(build.library_path()[:-3] + ".log") as f:
+        log = f.read().splitlines()
+    out, inside = [], False
+    for line in log:
+        if "Compiling entry function" in line:
+            inside = kernel in line
+        elif inside and re.search(r"stack frame|Used \d+ registers", line):
+            out.append(line.split(":", 1)[-1].strip())
+    return out
+
+
 def phase_kernels(record):
     """Fills record[name] with the main-path timing of every kernel (and
     record[name]["fold"] with K1-K7's at M1277, the mersenne job's
     depths)."""
     import numpy as np
     import torch
+    from tpu_ecm_torch.limbs import kernels
     rng = np.random.default_rng(20261016)
     worst = {}
     for label, n, mers, b in (("N64", N64, None, 128),
@@ -770,17 +884,27 @@ def phase_kernels(record):
                               ("M1277", M1277, (1277, 1), 2048)):
         ctx = _make_ctx(n, mers)
         nw = ctx.p.nw
+        cap = kernels.resident_slab_rows(nw, "cuda")
         depth, plain_b = {
-            "flagship": (main_path_depth(nw, nw, b, FLAGSHIP, ed_ops=256),
-                         None),
-            "M1277": (main_path_depth(nw, nw, b, MERSENNE_JOB), PLAIN_CURVES),
+            "flagship": (main_path_depth(nw, nw, b, FLAGSHIP, ed_ops=256,
+                                         cap=cap), None),
+            "M1277": (main_path_depth(nw, nw, b, MERSENNE_JOB, cap=cap),
+                      PLAIN_CURVES),
         }.get(label, (SHORT, None))
-        cases, slots = _kernel_cases(rng, ctx, b, depth, plain_b)
+        same = {}
+        cases, slots = _kernel_cases(rng, ctx, b, depth, plain_b, same)
         shown = {k: v for k, v in depth.items() if k != "calls"}
         for name, (kern, plain, mod_n, bound) in cases.items():
             # at M1277 the compared launch is the timed one: each runs for
             # seconds at these depths (the smoke's time limit)
             got, ms = _timed(kern, 1)
+            if name in same and label in ("flagship", "M1277"):
+                # K6 on the same entries: the same digits, and its time
+                k6, k6_ms = _timed(same[name], 1)
+                _compare("replay_gather on K8's entries", label, got, k6,
+                         ctx, False)
+                same[name] = k6_ms / slots[name][0]
+                del k6
             with _graphed_products():
                 want, plain_ms = _timed(plain, 1)
             if plain_b is not None:
@@ -796,10 +920,13 @@ def phase_kernels(record):
                 record[name]["fold"] = dict(
                     _record(ms, plain_ms, bound, err, slots.get(name)),
                     plain_curves=plain_b, depth=shown)
-        if label == "flagship":
-            k8 = _resident_bound(ctx, b, depth)
-            print(f"  K8 (resident replay, not ported) at the flagship "
-                  f"depth: bound {k8[0]:.4f} ms by {k8[1]}", flush=True)
+        if label in ("flagship", "M1277"):
+            print("  " + _resident_line(label, record, depth, nw,
+                                        same["replay_resident"]),
+                  flush=True)
+        if label == "M1277":
+            print("  " + _resident_probe(record, same["resident_at"], nw),
+                  flush=True)
         del cases
         torch.cuda.empty_cache()
     from tpu_ecm_torch.limbs import rns
@@ -841,9 +968,9 @@ def phase_kernels(record):
     cross = _crossover(rng, gen)
     fold = _fold_datum(rng)
     torch.cuda.empty_cache()
-    return ("K1-K7 and K9 equal their plain versions at N64/B=128 (short "
+    return ("K1-K9 equal their plain versions at N64/B=128 (short "
             "stacks), 416-bit/B=2048 (main-path depths) and, in fold mode, "
-            "M127/B=128; K1-K7 in fold mode at M1277/B=2048 (the mersenne "
+            "M127/B=128; K1-K8 in fold mode at M1277/B=2048 (the mersenne "
             f"job's depths, plain on {PLAIN_CURVES} curves); K10-K15 "
             "at N256/B=128 (short stacks) and row 21/B=1024 (main-path "
             "depths); " + cross + "; " + fold)
@@ -977,11 +1104,13 @@ def phase_oracle(tmp):
         ed[stage] = want_sigma
     if not kernels.launches["ed_tape"]:
         raise AssertionError("the Edwards runs did not launch K9")
-    # the same finds through the gather and parow replays (K6, K7, K14)
+    # the same finds through the gather, parow and resident replays (K6,
+    # K7, K8, K14)
     for tag, n, engine, mode in (("o9", N71, "digit", "gather"),
                                  ("o10", N71, "digit", "parow"),
                                  ("o11", N71, "rns", "gather"),
-                                 ("o12", n2355(), "auto", "gather")):
+                                 ("o12", n2355(), "auto", "gather"),
+                                 ("o15", N71, "digit", "resident")):
         kernels.reset_launches()
         res = _run(os.path.join(tmp, tag), n=n, curves=4, b1=300, b2=10000,
                    sigma=110, engine=engine, replay=mode,
@@ -993,7 +1122,8 @@ def phase_oracle(tmp):
             raise AssertionError(f"{n.bit_length()} bits, {engine} {mode}: "
                                  f"sigma-112 find or {own} launch missing: "
                                  f"{res.factors}, {kernels.launches}")
-    for tag, mode in (("o13", "gather"), ("o14", "parow")):
+    for tag, mode in (("o13", "gather"), ("o14", "parow"),
+                      ("o16", "resident")):
         kernels.reset_launches()
         res = _run(os.path.join(tmp, tag), n=M101, curves=12, b1=10_000,
                    b2=1_000_000, sigma=500, stop_on_factor=False,
@@ -1010,8 +1140,9 @@ def phase_oracle(tmp):
             "found in stage 2 at sigma 112; M101 (fold): P13 at sigma 511 "
             "in stage 1 and sigma 502 in stage 2; Edwards N71: P35 at sigma "
             f"{ed[1]} in stage 1 and sigma {ed[2]} in stage 2; replay "
-            "gather and parow: N71 (P35, 2, 112) on both engines, 2355 "
-            "bits (gather) and M101 (P13, 2, 502)")
+            "gather, parow and resident: N71 (P35, 2, 112) on both engines "
+            "(digit only for parow and resident), 2355 bits (gather) and "
+            "M101 (P13, 2, 502)")
 
 
 def phase_flagship(tmp, record):
@@ -1207,7 +1338,8 @@ def phase_replay(tmp, record):
     from tpu_ecm_torch.limbs import kernels
     lines = []
     for engine, n, j, modes in (
-            ("digit", replay_n(), REPLAY_JOB, ("stream", "gather", "parow")),
+            ("digit", replay_n(), REPLAY_JOB,
+             ("stream", "gather", "parow", "resident")),
             ("rns", n2355(), RNS_REPLAY_JOB, ("stream", "gather"))):
         names = list(_ops(engine).replay_kernels.values())
         seen = {}
@@ -1371,7 +1503,8 @@ def main() -> int:
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"],
             launches_by_job=launches,
-            **({"fold": r["fold"]} if "fold" in r else {})))
+            **{k: r[k] for k in ("cap", "slabs", "smem_bytes",
+                                 "k6_ms_per_entry_same", "fold") if k in r}))
     print(json.dumps({"kernels": out}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,5 @@
 """Tests that need an NVIDIA GPU (marker `cuda`; they skip without one):
-the fourteen CUDA kernels against their plain PyTorch versions (the digit
+the fifteen CUDA kernels against their plain PyTorch versions (the digit
 kernels in REDC and fold modes), the golden sweep and the reference's t35
 acceptance sweep through the port, and the RNS engine's, the Mersenne
 fold's, the Edwards curves' and the stage-2 replay modes' finds through
@@ -56,10 +56,10 @@ def _run_cfg(tmp_path, **kw):
 @pytest.mark.parametrize("modulus,b", [("N64", 128), ("N416", 2048),
                                        ("M127", 128), ("M1277", 2048)])
 def test_kernels_match_plain(cuda, modulus, b):
-    """K1-K4, K6, K7 and K9 digit for digit, K5 mod n, against the plain
-    versions run on the same card tensors (chip_smoke.py's cases): REDC at
-    N64 and N416, the fold at M127 (with K9) and M1277 (K1-K7, short
-    stacks)."""
+    """K1-K4 and K6-K9 digit for digit, K5 mod n, against the plain
+    versions run on the same card tensors (chip_smoke.py's cases; K8 with
+    slabs of 8 rows): REDC at N64 and N416, the fold at M127 (with K9) and
+    M1277 (K1-K8, short stacks)."""
     import numpy as np
 
     import chip_smoke
@@ -167,11 +167,12 @@ def test_edwards_finds_on_card(cuda, tmp_path, sigma, b2, stage, want):
 
 @pytest.mark.parametrize("engine,mode", [("digit", "gather"),
                                          ("digit", "parow"),
+                                         ("digit", "resident"),
                                          ("rns", "gather")])
 def test_replay_modes_on_card(cuda, tmp_path, engine, mode):
-    """N71 finds P35 in stage 2 at sigma 112 through the gather and parow
-    replays (K6, K7, K14) on the card, launching its mode's kernel and no
-    other replay kernel."""
+    """N71 finds P35 in stage 2 at sigma 112 through the gather, parow and
+    resident replays (K6, K7, K8, K14) on the card, launching its mode's
+    kernel and no other replay kernel."""
     import chip_smoke
     from tpu_ecm_torch import driver
     from tpu_ecm_torch.limbs import kernels
@@ -185,6 +186,50 @@ def test_replay_modes_on_card(cuda, tmp_path, engine, mode):
     own = (DigitOps if engine == "digit" else RnsOps).replay_kernels
     assert kernels.launches[own[mode]] >= 1
     assert not any(kernels.launches[k] for m, k in own.items() if m != mode)
+
+
+def test_resident_refused_launch_raises(cuda):
+    """K8's slab is sized from the card (opt-in shared memory per block
+    less the kernel's static shared memory): a slab one row taller is
+    refused by the wrapper, and by the C entry point, whose error does not
+    leak into the next launch, which runs and equals the plain version."""
+    import ctypes
+
+    import numpy as np
+
+    import chip_smoke
+    from tpu_ecm_torch import params
+    from tpu_ecm_torch.limbs import build, kernels, torch_ops
+    ctx = params.make_monty(chip_smoke.N71)
+    d = torch_ops.device_ctx(ctx, "cuda")
+    nw, b = ctx.p.nw, 64
+    cap = kernels.resident_slab_rows(nw, cuda)
+    st, optin = ctypes.c_int(), ctypes.c_int()
+    assert build.library().tpuecm_replay_resident_smem(
+        ctypes.byref(st), ctypes.byref(optin)) == 0
+    assert kernels.slab_bytes(cap, nw) <= optin.value - st.value \
+        < kernels.slab_bytes(cap + 1, nw)
+    rng = np.random.default_rng(5)
+    r = lambda *shape: chip_smoke._rand_planes(rng, ctx, shape + (nw, b))
+    acc, pa, pbx = r(), r(3), r(cap + 2)
+    ent = np.asarray([[0, 1], [1, 2], [2, 0], [2, 0]], np.int32)
+    slabs = np.asarray([[0, 0, 1]], np.int32)
+    with pytest.raises(ValueError, match="shared memory"):
+        kernels.replay_resident(acc, pa, pbx, ent, slabs, cap + 1, d, e=4)
+    dev = torch.from_numpy(ent).cuda()
+    dsl = torch.from_numpy(slabs).cuda()
+    out = torch.empty_like(acc)
+    rc = build.library().tpuecm_replay_resident(
+        acc.data_ptr(), out.data_ptr(), pa.data_ptr(), pbx.data_ptr(),
+        cap + 2, dev.data_ptr(), dsl.data_ptr(), 1, cap + 1, 4,
+        *kernels._mod(d), b, kernels._stream())
+    assert rc != 0
+    kernels.reset_launches()
+    got = kernels.replay_resident(acc, pa, pbx, ent, slabs, cap, d, e=4)
+    torch.cuda.synchronize()
+    want = kernels.replay_resident_plain(acc, pa, pbx, ent, slabs, cap, 4,
+                                         d)
+    assert torch.equal(got, want) and kernels.launches["replay_resident"] == 1
 
 
 def test_wrappers_reject_mixed_devices(cuda):

@@ -1,6 +1,7 @@
 """The stage-2 replay modes of the PyTorch port (stage2/exec.py: stream,
-gather, parow) held against the JAX package on the CPU, where every wrapper
-runs its kernel's plain version: the plain K6 and K7 against the Pallas
+gather, parow, resident) held against the JAX package on the CPU, where
+every wrapper runs its kernel's plain version: the plain K6 and K7 against
+the Pallas
 gather and shared-Pa-row kernels in interpret mode, the plain K14 against
 the Pallas RNS gather kernel, the parow step packing against tpu_ecm's,
 the fold's one, the runner and the driver in every mode against each other
@@ -316,6 +317,7 @@ def n71_jax_hits(tmp_path_factory):
 @pytest.mark.parametrize("engine,mode", [("digit", "stream"),
                                          ("digit", "gather"),
                                          ("digit", "parow"),
+                                         ("digit", "resident"),
                                          ("rns", "gather")])
 def test_driver_n71_finds_in_every_mode(tmp_path, n71_jax_hits, engine,
                                         mode):
@@ -331,7 +333,7 @@ def test_driver_n71_finds_in_every_mode(tmp_path, n71_jax_hits, engine,
     assert res.counters["paired"] > 0
 
 
-@pytest.mark.parametrize("mode", ["gather", "parow"])
+@pytest.mark.parametrize("mode", ["gather", "parow", "resident"])
 def test_driver_m101_stage2_find(tmp_path, mode):
     """tests/test_e2e.py:497-511's stage-2 find through the port's driver
     in the fold: on M101 = 2^101 - 1 the sigma-502 curve finds the P13
@@ -349,11 +351,15 @@ def test_driver_m101_stage2_find(tmp_path, mode):
 # ---------------------------------------------------------------------------
 
 def test_replay_mode_errors(tmp_path):
-    """resident (K8) raises naming ROADMAP B.8; parow on the RNS engine
-    raises (tpu_ecm substitutes gather there); an unknown mode raises."""
+    """resident (K8) and parow on the RNS engine raise (tpu_ecm substitutes
+    gather there); an unknown mode raises; resident on the digit engine
+    is taken."""
     kw = dict(n=N71, curves=1, b1=100)
-    with pytest.raises(NotImplementedError, match="B.8"):
-        driver.ECMDriver(_cfg(tmp_path, replay="resident", **kw))
+    with pytest.raises(ValueError, match="resident"):
+        driver.ECMDriver(_cfg(tmp_path, replay="resident", engine="rns",
+                              **kw))
+    assert driver.ECMDriver(_cfg(tmp_path, replay="resident",
+                                 **kw)).replay == "resident"
     with pytest.raises(ValueError, match="parow"):
         driver.ECMDriver(_cfg(tmp_path, replay="parow", engine="rns", **kw))
     with pytest.raises(ValueError, match="unknown replay mode"):
@@ -375,20 +381,25 @@ def test_replay_default_follows_engine(tmp_path, engine, want):
     assert d.ops.replay_kernels[want] in kernels.KERNELS
 
 
-@pytest.mark.parametrize("mode", ["stream", "gather", "parow"])
+@pytest.mark.parametrize("mode", ["stream", "gather", "parow", "resident"])
 def test_replay_calls_pad_no_more_than_steps(mode):
     """replay_calls cuts 1,000 v-sorted entries of a 40-row group into
     calls of at most a 256-entry block: every entry is replayed once, in
-    order; gather pads the last call with (G, 0) to whole 16-entry steps
-    only, parow runs no pad step, and stream carries each call's count;
-    each call's slots are the entries its kernel steps through."""
+    order (resident: in slab order, v-order within each slab of 7 Pb
+    rows); gather pads the last call with (G, 0) to whole 16-entry steps
+    only, resident each slab's part, parow runs no pad step, and stream
+    carries each call's count; each call's slots are the entries its
+    kernel steps through."""
     rng = np.random.default_rng(5)
-    G, T, block, e = 40, 1000, 256, t_exec.REPLAY_E
+    G, T, block, e, cap = 40, 1000, 256, t_exec.REPLAY_E, 7
     idx = np.stack([np.sort(rng.integers(0, G, T)), rng.integers(1, 60, T)],
                    1).astype(np.int32)
-    calls, slots = zip(*t_exec.replay_calls(mode, idx, block, G))
+    calls, slots = zip(*t_exec.replay_calls(mode, idx, block, G, cap))
+    per_slab = np.bincount(idx[:, 1] // cap)
     assert sum(slots) == {"stream": T, "gather": T + (-T % e),
-                          "parow": e * sum(map(len, calls))}[mode]
+                          "parow": e * sum(map(len, calls)),
+                          "resident": int((-(-per_slab // e) * e).sum())
+                          }[mode]
     if mode == "stream":
         assert all(c[0] == c.size - 1 <= block for c in calls)
         got = np.concatenate([c[1:] for c in calls]).view(np.uint32)
@@ -400,6 +411,18 @@ def test_replay_calls_pad_no_more_than_steps(mode):
         assert got.shape[0] == T + (-T % e)
         assert (got[T:] == [G, 0]).all()
         got = got[:T]
+    elif mode == "resident":
+        got = []
+        for c in calls:
+            assert c.entries.shape[0] <= block and c.cap == cap
+            assert c.slabs[:, 2].sum() * e == c.entries.shape[0]
+            for lo, first, n in c.slabs:
+                seg = c.entries[first * e:(first + n) * e]
+                live = seg[:, 1] > 0
+                assert (seg[~live] == [G, 0]).all() and live.sum() > 0
+                assert (seg[live, 1] <= cap).all()
+                got += [(pa, lo + u - 1) for pa, u in seg[live]]
+        idx = idx[np.argsort(idx[:, 1] // cap, kind="stable")]
     else:
         assert all(c.shape[0] <= block // e for c in calls)
         steps = np.concatenate(calls)

@@ -13,12 +13,9 @@
 //    step would otherwise multiply by pa); a whole pad step has pa = G.
 //
 // In both, each difference gets one lazy pass and the step's E differences
-// multiply in the pairwise tree of the Pallas kernels (pallas_ops.py:
-// 703-708, 807-810): ((d0 d1)(d2 d3))..., then the root goes into acc once.
-// The tree is reduced with a stack of log2(E)+1 partial products: a new
-// difference is pushed, and while the two on top have equal height they
-// merge, the earlier one on the left.  For E a power of two this is the
-// Pallas tree exactly, so the digits equal the plain versions'.
+// multiply in the pairwise tree of the Pallas kernels (replay_tree.cuh),
+// then the root goes into acc once, so the digits equal the plain
+// versions'.
 //
 // Bound on the H100: integer multiply-adds, (E-1)/E + 1/E = 1 modular
 // product per entry on one thread per curve, against two nw*4-byte row
@@ -30,23 +27,7 @@
 // Design: as K5 (csrc/replay.cu), every thread reads the same index entry
 // (uniform, no divergence) and keeps acc, the stack and (K7) the Pa row in
 // local arrays for the whole call.
-#include "arith.cuh"
-
-#define TPUECM_E_MAX 16
-#define TPUECM_STACK 5     // log2(TPUECM_E_MAX) + 1 partial products
-
-__host__ inline bool step_args_ok(int nsteps, int E) {
-    return nsteps >= 0 && E >= 1 && E <= TPUECM_E_MAX && (E & (E - 1)) == 0;
-}
-
-// After pushing difference k (0-based) of a step: merge equal heights.
-__device__ __forceinline__ void merge_tree(int (*part)[TPUECM_NW_MAX],
-                                           int& top, int k, const Mod& m) {
-    for (int h = k + 1; (h & 1) == 0; h >>= 1) {
-        mulmod(part[top - 2], part[top - 2], part[top - 1], m);
-        --top;
-    }
-}
+#include "replay_tree.cuh"
 
 __global__ void __launch_bounds__(TPUECM_THREADS)
 replay_gather_kernel(const int* __restrict__ acc_in, int* __restrict__ acc_out,

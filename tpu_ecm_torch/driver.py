@@ -1,7 +1,7 @@
 """The ECM driver on one device — the twin of tpu_ecm/driver.py, with its
 two arithmetic engines and two curve families:
 
-  digit  int32 digit planes [.., NW, B], kernels K1-K7 and K9
+  digit  int32 digit planes [.., NW, B], kernels K1-K9
          (limbs/kernels.py), reducing by REDC or, for a special form
          2^e - c, by the fold; the default wherever a digit radix exists
          (params.device_ok), and the only engine of Edwards curves and of
@@ -30,8 +30,8 @@ Phase structure per batch of B curves (B = the curve axis of every plane):
                                (chain, prefix, apply) and the replay in the
                                engine's default mode or the one
                                RunConfig.replay names: stream (K5 / K15),
-                               gather (K6 / K14) or parow (K7, digit
-                               engine only)
+                               gather (K6 / K14), parow (K7) or resident
+                               (K8; both digit engine only)
   harvest  gcd checks          host, against the original input
 """
 
@@ -84,8 +84,8 @@ class RunConfig:
     engine: str = "auto"
     # stage-2 replay mode (stage2/exec.py:REPLAY_MODES): None takes the
     # engine's default (stream on digits, gather on RNS); "stream",
-    # "gather" or "parow" choose one for tests and measurements; a mode the
-    # engine has no kernel for raises
+    # "gather", "parow" or "resident" choose one for tests and
+    # measurements; a mode the engine has no kernel for raises
     replay: Optional[str] = None
 
 
@@ -299,18 +299,19 @@ class ECMDriver:
     def _build_curves(self, sigmas: List[int], base_idx: int,
                       build=suyama.build_one_curve) -> list:
         curves = []
-        for s in sigmas:
+        for i, s in enumerate(sigmas):
             # keep batch shape: on a gcd hit during construction, report the
-            # factor and retry with fresh sigmas (an input with several small
-            # factors can trip consecutive substitutes too)
+            # factor at the curve's own index (tpu_ecm reports base_idx,
+            # ROADMAP C.1) and retry with fresh sigmas (an input with several
+            # small factors can trip consecutive substitutes too)
             for _attempt in range(64):
                 try:
                     curves.append(build(self.ctx, s))
                     break
                 except suyama.FactorFoundDuringBuild as e:
                     if e.factor:
-                        self._report_factor(e.factor, 0, base_idx, e.sigma,
-                                            self.cfg.b1)
+                        self._report_factor(e.factor, 0, base_idx + i,
+                                            e.sigma, self.cfg.b1)
                     s = s + 1_000_003
             else:
                 raise RuntimeError(
@@ -348,10 +349,9 @@ class ECMDriver:
             return self._run_batch_edwards(sigmas, base_idx)
         t0 = time.time()
         curves = self._build_curves(sigmas, base_idx)
-        if self.engine == "rns":
-            # as the JAX RNS driver: each curve keeps the sigma it was
-            # built from
-            sigmas = [c.sigma for c in curves]
+        # each curve keeps the sigma it was built from, on both engines
+        # (tpu_ecm's digit engine keeps the requested one, ROADMAP C.2)
+        sigmas = [c.sigma for c in curves]
         state = self._init_state(curves)
         self._add_time("build", t0)
 
@@ -444,8 +444,12 @@ class ECMDriver:
                                                         base_pts=base_pts)
             except suyama.FactorFoundDuringBuild as e:
                 if e.factor:
-                    self._report_factor(e.factor, 1 if ci else 0, base_idx,
-                                        e.sigma, cfg.b1)
+                    # the index of the curve whose sigma hit (tpu_ecm
+                    # reports base_idx, ROADMAP C.1)
+                    hit = next((i for i, c in enumerate(curves)
+                                if c.sigma == e.sigma), 0)
+                    self._report_factor(e.factor, 1 if ci else 0,
+                                        base_idx + hit, e.sigma, cfg.b1)
                 raise RuntimeError(
                     "window table hit a factor of n; rerun with fresh "
                     "sigmas or divide the reported factor out") from e

@@ -25,10 +25,11 @@ import threading
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "tpu_ecm_torch")
-HEADERS = ("arith.cuh", "rns_arith.cuh")
+HEADERS = ("arith.cuh", "replay_tree.cuh", "rns_arith.cuh")
 SOURCES = ("tape.cu", "chain.cu", "batch_inverse.cu", "replay.cu",
-           "replay_gather.cu", "ed_tape.cu", "rns_tape.cu", "rns_chain.cu",
-           "rns_batch_inverse.cu", "rns_replay.cu", "rns_replay_gather.cu")
+           "replay_gather.cu", "replay_resident.cu", "ed_tape.cu",
+           "rns_tape.cu", "rns_chain.cu", "rns_batch_inverse.cu",
+           "rns_replay.cu", "rns_replay_gather.cu")
 
 # Largest digit count the kernels take: the digit engine's int32 column
 # bound ends at nw = 210 (params._radix_or_host_only, ~2080 bits).
@@ -41,6 +42,7 @@ FLAGS = ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
                 f"-DTPUECM_NW_MAX={NW_MAX}", f"-DTPUECM_CL_MAX={CL_MAX}")
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_IP = ctypes.POINTER(ctypes.c_int)
 # the digit kernels' modulus arguments, TPUECM_MOD_PARAMS of csrc/arith.cuh:
 # n digits, |c| digits, cl, e, sign of c, nw, w, nprime, norm
 _MOD = [_P, _P, _I, _I, _I, _I, _I, _I, _I]
@@ -54,6 +56,10 @@ SIGNATURES = {
     "tpuecm_replay": [_P, _P, _P, _P, _P, *_MOD, _I, _P],
     "tpuecm_replay_gather": [_P, _P, _P, _P, _P, _I, _I, *_MOD, _I, _P],
     "tpuecm_replay_parow": [_P, _P, _P, _P, _P, _P, _I, _I, *_MOD, _I, _P],
+    "tpuecm_replay_resident": [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I,
+                               *_MOD, _I, _P],
+    "tpuecm_replay_resident_smem": [_IP, _IP],
+    "tpuecm_replay_resident_carveout": [_I],
     "tpuecm_ed_tape": [_P, _L, _P, _P, *_MOD, _I, _P],
     "tpuecm_rns_tape": [_P, _L, _P, _P, _P, _P, _I, _I, _P],
     "tpuecm_rns_chain": [_P, _P, _P, _P, _I, _P, _P, _I, _I, _P],

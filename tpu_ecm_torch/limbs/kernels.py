@@ -1,4 +1,4 @@
-"""Wrappers of the eight CUDA kernels of the digit engine (csrc/*.cu), and
+"""Wrappers of the nine CUDA kernels of the digit engine (csrc/*.cu), and
 the registry of every kernel of the port (the RNS engine's six wrappers
 are in limbs/rns_kernels.py and count their launches here too).  The digit
 kernels take both reductions of csrc/arith.cuh from one build: REDC for a
@@ -14,12 +14,13 @@ of each wrapper, so a run can show that it went through the kernels.
 Planes are int32 [..., NW, B] with the curve axis last; host index arrays
 (the stage-1 tapes, the replay entries and steps) are numpy int32 and are
 checked on the host before they reach a kernel.  The plain versions sit
-beside the wrappers: *_plain below for K2-K7, curve/ops.run_tape for K1
+beside the wrappers: *_plain below for K2-K8, curve/ops.run_tape for K1
 and curve/edops.run_tape for K9.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Dict
 
 import numpy as np
@@ -52,6 +53,10 @@ KERNELS = {
     "replay_parow": (
         "tpu_ecm_torch/csrc/replay_gather.cu",
         "tpu_ecm/limbs/pallas_ops.py:834 (make_replay_parow_executor :761)"),
+    "replay_resident": (
+        "tpu_ecm_torch/csrc/replay_resident.cu",
+        "tpu_ecm/limbs/pallas_ops.py:1231 "
+        "(make_replay_resident_executor :1152)"),
     "ed_tape": ("tpu_ecm_torch/csrc/ed_tape.cu",
                 "tpu_ecm/limbs/pallas_ops.py:1438 (_ed_tape_kernel :1338)"),
     "rns_tape": (
@@ -82,12 +87,15 @@ launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 # tape entries per stage-1 kernel launch (K1, K9): keeps every launch
 # short
 TAPE_SLICE = 1 << 16
-# entries per step of the gather-form replays (K6, K7, K14): a power of two
+# entries per step of the gather-form replays (K6-K8, K14): a power of two
 # up to E_MAX, the bound of the kernels' partial-product stacks
 E_MAX = 16
-# replay entries whose differences the plain K6, K7, K14 and K15 form at
+# replay entries whose differences the plain K6-K8, K14 and K15 form at
 # once (bounds their memory; a multiple of every E)
 PLAIN_REPLAY_BLOCK = 1024
+# curves per block of K8 (TPUECM_THREADS of csrc/arith.cuh): the width of
+# its shared-memory slab
+RESIDENT_TILE = 32
 
 
 def reset_launches() -> None:
@@ -373,8 +381,98 @@ def replay_parow(acc: torch.Tensor, pa_ext: torch.Tensor, pbx: torch.Tensor,
     return out
 
 
+def slab_bytes(cap: int, nw: int) -> int:
+    """K8's dynamic shared memory per block: cap + 1 slab rows (the zero
+    row first) of nw digits for RESIDENT_TILE curves."""
+    return (cap + 1) * nw * RESIDENT_TILE * 4
+
+
+def resident_slab_rows(nw: int, device) -> int:
+    """The Pb rows of K8's slab on `device`: the device's opt-in shared
+    memory per block less the kernel's static shared memory, in rows of
+    nw digits for RESIDENT_TILE curves, less the zero row."""
+    st, optin = ctypes.c_int(), ctypes.c_int()
+    with torch.cuda.device(device):
+        rc = build.library().tpuecm_replay_resident_smem(
+            ctypes.byref(st), ctypes.byref(optin))
+    if rc != 0:
+        raise RuntimeError(f"replay_resident: shared-memory query failed, "
+                           f"CUDA error {rc}")
+    cap = (optin.value - st.value) // slab_bytes(0, nw) - 1
+    if cap < 1:
+        raise ValueError(f"replay_resident: {optin.value} bytes of shared "
+                         f"memory per block hold no slab row at nw={nw}")
+    return cap
+
+
+def pbx_rows(entries: np.ndarray, slabs: np.ndarray, e: int) -> np.ndarray:
+    """The pbx row of each entry of a K8 call: lo + u - 1 for a live local
+    row u of its segment's slab, 0 (the zero row) for a pad (u = 0)."""
+    lo = np.repeat(slabs[:, 0].astype(np.int64),
+                   slabs[:, 2].astype(np.int64) * e)
+    u = entries[:, 1].astype(np.int64)
+    return np.where(u > 0, lo + u - 1, 0)
+
+
+def check_slabs(name: str, slabs: np.ndarray, idx: np.ndarray, e: int,
+                cap: int, pb_rows: int) -> np.ndarray:
+    """slabs as contiguous int32 [S, 3] (lo, first step, steps): segments
+    of whole steps covering the call's idx in order, each slab inside the
+    Pb table, and every live entry's row lo + u - 1 in it."""
+    slabs = np.ascontiguousarray(slabs, dtype=np.int32).reshape(-1, 3)
+    nsteps = idx.shape[0] // e
+    ends = np.cumsum(slabs[:, 2], dtype=np.int64)
+    starts = ends - slabs[:, 2]
+    if (slabs.size and (int(slabs[:, 2].min()) < 1
+                        or int(slabs[:, 0].min()) < 0
+                        or int(slabs[:, 0].max()) >= pb_rows)
+            or not np.array_equal(slabs[:, 1], starts)
+            or (ends[-1] if slabs.size else 0) != nsteps):
+        raise ValueError(f"{name}: slabs must be [S, 3] (lo, first step, "
+                         f"steps) segments covering the {nsteps} steps in "
+                         f"order, each lo inside pbx")
+    if cap < 1:
+        raise ValueError(f"{name}: slab rows must be >= 1, got {cap}")
+    if idx.size and int(pbx_rows(idx, slabs, e).max()) >= pb_rows:
+        raise ValueError(f"{name}: entry row outside pbx")
+    return slabs
+
+
+def replay_resident(acc: torch.Tensor, pa_ext: torch.Tensor,
+                    pbx: torch.Tensor, entries: np.ndarray,
+                    slabs: np.ndarray, cap: int, ctx: DeviceCtx, *, e: int
+                    ) -> torch.Tensor:
+    """K8: acc * prod over the entries (pa, u) of entries [T, 2] of
+    (pa_ext[pa] - slab[u]) in steps of e entries multiplied in a pairwise
+    tree before acc, where the segment of slabs [S, 3] (lo, first step,
+    steps) that holds the entry gives slab[0] = 0 and slab[u] = pbx[lo + u
+    - 1] for 1 <= u <= cap.  Returns a new [NW, B] plane, digit for digit
+    the plain version's."""
+    nw, b = ctx.p.nw, int(acc.shape[-1])
+    pa_rows, pb_rows = int(pa_ext.shape[0]), int(pbx.shape[0])
+    _check("replay_resident", "acc", acc, (nw, b), ctx)
+    _check("replay_resident", "pa_ext", pa_ext, (pa_rows, nw, b), ctx)
+    _check("replay_resident", "pbx", pbx, (pb_rows, nw, b), ctx)
+    entries = check_pairs("replay_resident", entries, e, pa_rows, cap + 1)
+    slabs = check_slabs("replay_resident", slabs, entries, e, cap, pb_rows)
+    if _on_cpu("replay_resident", ctx):
+        return replay_resident_plain(acc, pa_ext, pbx, entries, slabs, cap,
+                                     e, ctx)
+    if cap > resident_slab_rows(nw, acc.device):
+        raise ValueError(f"replay_resident: a slab of {cap} rows does not "
+                         f"fit the shared memory of a block at nw={nw}")
+    out = torch.empty_like(acc)
+    dev_e = torch.from_numpy(entries).to(acc.device)
+    dev_s = torch.from_numpy(slabs).to(acc.device)
+    _done("replay_resident", build.library().tpuecm_replay_resident(
+        acc.data_ptr(), out.data_ptr(), pa_ext.data_ptr(), pbx.data_ptr(),
+        pb_rows, dev_e.data_ptr(), dev_s.data_ptr(), slabs.shape[0], cap, e,
+        *_mod(ctx), b, _stream()))
+    return out
+
+
 # ---------------------------------------------------------------------------
-# plain versions of K2-K7 (the twins of tpu_ecm/stage2/exec.py:104-173 and
+# plain versions of K2-K8 (the twins of tpu_ecm/stage2/exec.py:104-173 and
 # of the Pallas replay kernels' steps)
 # ---------------------------------------------------------------------------
 
@@ -473,6 +571,29 @@ def replay_parow_plain(acc: torch.Tensor, pa_ext: torch.Tensor,
         d = torch_ops._norm_out(
             pa_ext[blk[:, 0].repeat_interleave(e)] - pbx[pb], ctx)
         d = torch.where((pb == 0)[:, None, None], one, d)
+        for root in step_roots(d, e, mul):
+            acc = mul(acc, root)
+    return acc
+
+
+def replay_resident_plain(acc: torch.Tensor, pa_ext: torch.Tensor,
+                          pbx: torch.Tensor, entries: np.ndarray,
+                          slabs: np.ndarray, cap: int, e: int,
+                          ctx: DeviceCtx) -> torch.Tensor:
+    """K8 in the kernel's association: each local row mapped back to its
+    pbx row (pbx_rows; a pad takes zeros, not pbx[0]), then K6's: one lazy
+    pass per difference, each step's e differences in the pairwise tree,
+    the roots into acc in order.  cap only bounds u (checked by the
+    wrapper)."""
+    mul = lambda x, y: torch_ops.mulmod(x, y, ctx, pre=True)
+    dev = acc.device
+    rows = torch.from_numpy(pbx_rows(entries, slabs, e)).to(dev)
+    pa = torch.from_numpy(entries[:, 0].astype(np.int64)).to(dev)
+    keep = torch.from_numpy(entries[:, 1] > 0).to(dev)[:, None, None]
+    for a in range(0, entries.shape[0], PLAIN_REPLAY_BLOCK):
+        z = slice(a, a + PLAIN_REPLAY_BLOCK)
+        pb = torch.where(keep[z], pbx[rows[z]], 0)
+        d = torch_ops._norm_out(pa_ext[pa[z]] - pb, ctx)
         for root in step_roots(d, e, mul):
             acc = mul(acc, root)
     return acc

@@ -62,8 +62,6 @@ def _load() -> Optional[ctypes.CDLL]:
         if _tried:
             return _lib
         _tried = True
-        if os.environ.get("TPU_ECM_NO_NATIVE"):
-            return None
         path = _build()
         if path is None:
             return None

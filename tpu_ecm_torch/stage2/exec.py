@@ -21,15 +21,17 @@ tpu_ecm/stage2/exec.py in its inverted cross form.
             multiplied in a tree, padded with (G, 0) to whole steps
     parow   K7, digit engine only: steps [pa, pb_0..pb_{E-1}] sharing one
             Pa row, pb = 0 masked to one
+    resident  K8, digit engine only: the entries partitioned by Pb slab
+            of `slab_rows` rows, each slab's part in local rows and padded
+            to whole steps; the kernel holds a slab in shared memory
 
   Each engine names its default (`default_replay`: the mode whose kernel
   is fastest per entry on the H100, PERF.md); `replay=` overrides it for
   tests and measurements, never the environment.  A mode the engine has no
-  kernel for raises (tpu_ecm falls back to gather there), and so does the
-  resident mode (K8), which is not ported.
+  kernel for raises (tpu_ecm falls back to gather there).
 
 The orchestration is engine-generic, as the JAX runner's is through `ops`:
-DigitOps (digit planes [.., NW, B], kernels K1-K7) and RnsOps (residue
+DigitOps (digit planes [.., NW, B], kernels K1-K8) and RnsOps (residue
 planes [.., 2K+1, B], kernels K10-K15) give it packing and the kernel
 calls.  The plain versions of the kernels are beside their wrappers
 (limbs/kernels.py, limbs/rns_kernels.py).
@@ -39,7 +41,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -105,12 +107,12 @@ def host_batch_inverse(ctx: MontyCtx, vals_mont: List[int],
 
 class DigitOps:
     """Digit planes [.., NW, B] on the runner's device (the twin of
-    tpu_ecm's DigitOps); kernels K1-K7."""
+    tpu_ecm's DigitOps); kernels K1-K8."""
 
     inv_premul = None                 # host_batch_inverse's R^2 default
     # replay mode -> the kernel it launches (kernels.KERNELS)
     replay_kernels = {"stream": "replay", "gather": "replay_gather",
-                      "parow": "replay_parow"}
+                      "parow": "replay_parow", "resident": "replay_resident"}
     default_replay = "stream"
 
     def __init__(self, ctx: MontyCtx, dctx: DeviceCtx):
@@ -156,6 +158,18 @@ class DigitOps:
 
     def replay_parow(self, acc, pa_ext, pbx, steps, one):
         return kernels.replay_parow(acc, pa_ext, pbx, steps, one, self.dctx)
+
+    def replay_resident(self, acc, pa_ext, pbx, call, one):
+        return kernels.replay_resident(acc, pa_ext, pbx, call.entries,
+                                       call.slabs, call.cap, self.dctx,
+                                       e=REPLAY_E)
+
+    def slab_rows(self) -> int:
+        """K8's default slab height: what a block's shared memory holds on
+        the card, PLAIN_SLAB_ROWS on the CPU."""
+        if self.device.type == "cuda":
+            return kernels.resident_slab_rows(self.ctx.p.nw, self.device)
+        return PLAIN_SLAB_ROWS
 
 
 class RnsOps:
@@ -230,10 +244,13 @@ class Stage2Result:
 PA_GROUP = {"cpu": 512, "cuda": 4096}
 REPLAY_BLOCK = {"cpu": 4096, "cuda": 1 << 16}
 # the replay modes (an engine's ops name the kernel of each they have);
-# entries per step of the gather and parow modes (tpu_ecm's _replay_e(16)
-# default; every replay block is a multiple of it)
-REPLAY_MODES = ("stream", "gather", "parow")
+# entries per step of the gather, parow and resident modes (tpu_ecm's
+# _replay_e(16) default; every replay block is a multiple of it)
+REPLAY_MODES = ("stream", "gather", "parow", "resident")
 REPLAY_E = 16
+# K8's slab height on the CPU, where no shared memory bounds the plain
+# version: small, so that CPU runs cut their Pb tables into several slabs
+PLAIN_SLAB_ROWS = 16
 # planes live per Pa group row at the peak of a group: the chain output
 # (2), the contiguous x and z stacks (2), prefix, shifted prefix, apply
 # output and the extended inverse table
@@ -267,10 +284,6 @@ def replay_mode(mode: Optional[str], ops) -> str:
     engine's default); raises unless the engine has a kernel for it."""
     if mode is None:
         return ops.default_replay
-    if mode == "resident":
-        raise NotImplementedError(
-            "replay='resident' (K8, the resident Pb slab) is not ported: "
-            "ROADMAP B.8")
     if mode not in REPLAY_MODES:
         raise ValueError(f"unknown replay mode {mode!r}; expected one of "
                          f"{REPLAY_MODES}")
@@ -301,16 +314,53 @@ def pack_parow_steps(idx: np.ndarray, e: int) -> np.ndarray:
     return steps
 
 
-def replay_calls(mode: str, idx: np.ndarray, block: int, g: int):
-    """(index array, entry slots) of each kernel call that replays the
-    v-sorted [T, 2] int32 (pa, pb) entries of one Pa group of g rows in
-    `mode`, each call at most `block` entries (a multiple of REPLAY_E);
-    the slots are the entries the kernel steps through, pads included:
+class SlabCall(NamedTuple):
+    """The arguments of one K8 call: entries [T, 2] (pa, local slab row),
+    its slab segments [S, 3] (lo, first step, steps) and the slab
+    height."""
+    entries: np.ndarray
+    slabs: np.ndarray
+    cap: int
 
-      stream  [count, pa << 16 | pb, ...]
-      gather  [T', 2] pairs, the last call padded with (g, 0) to whole
-              steps of REPLAY_E entries
-      parow   [S', 1 + REPLAY_E] steps of pack_parow_steps (S' * E slots)
+
+def slab_segments(idx: np.ndarray, cap: int, g: int
+                  ) -> Tuple[np.ndarray, np.ndarray]:
+    """The v-sorted [T, 2] (pa, pb) entries of a Pa group of g rows,
+    partitioned by Pb slab as tpu_ecm's _replay_resident partitions them
+    (exec.py:1037-1063): slab h holds pbx rows [h*cap, (h+1)*cap); its
+    entries, slab after slab and in v-order within each, get the local row
+    pb - h*cap + 1, and each slab's part is padded with (g, 0) to whole
+    REPLAY_E-entry steps.  Returns (entries [T', 2], segments [S, 3] of
+    (lo, first step, steps)), int32."""
+    e = REPLAY_E
+    h = idx[:, 1].astype(np.int64) // cap
+    order = np.argsort(h, kind="stable")
+    hs = h[order]
+    ent = idx[order].astype(np.int32)
+    ent[:, 1] -= (hs * cap - 1).astype(np.int32)
+    heads, starts, counts = np.unique(hs, return_index=True,
+                                      return_counts=True)
+    steps = -(-counts // e)
+    first = np.concatenate([[0], np.cumsum(steps)[:-1]])
+    out = np.tile(np.asarray([[g, 0]], np.int32), (int(steps.sum()) * e, 1))
+    out[np.repeat(first * e - starts, counts) + np.arange(ent.shape[0])] = ent
+    return out, np.stack([heads * cap, first, steps], 1).astype(np.int32)
+
+
+def replay_calls(mode: str, idx: np.ndarray, block: int, g: int,
+                 cap: Optional[int] = None):
+    """(call, entry slots) of each kernel call that replays the v-sorted
+    [T, 2] int32 (pa, pb) entries of one Pa group of g rows in `mode`, each
+    call at most `block` entries (a multiple of REPLAY_E); the slots are
+    the entries the kernel steps through, pads included:
+
+      stream    [count, pa << 16 | pb, ...]
+      gather    [T', 2] pairs, the last call padded with (g, 0) to whole
+                steps of REPLAY_E entries
+      parow     [S', 1 + REPLAY_E] steps of pack_parow_steps (S' * E slots)
+      resident  SlabCall: slab_segments' entries with slabs of cap rows,
+                cut into calls at step boundaries, each with the segments
+                it holds
 
     tpu_ecm pads every call to the whole block (exec.py:1087-1106,
     1214-1222), the fixed shape of its Pallas kernels; the CUDA kernels
@@ -322,6 +372,19 @@ def replay_calls(mode: str, idx: np.ndarray, block: int, g: int):
             blk = packed[lo:lo + block]
             yield (np.concatenate([np.asarray([blk.shape[0]], np.int32),
                                    blk]), blk.shape[0])
+        return
+    if mode == "resident":
+        ent, segs = slab_segments(idx, cap, g)
+        e, total = REPLAY_E, ent.shape[0] // REPLAY_E
+        seg_end = segs[:, 1] + segs[:, 2]
+        for a in range(0, total, block // e):
+            b = min(a + block // e, total)
+            s0 = np.maximum(segs[:, 1], a)
+            s1 = np.minimum(seg_end, b)
+            held = s1 > s0
+            tab = np.stack([segs[held, 0], s0[held] - a, (s1 - s0)[held]],
+                           1).astype(np.int32)
+            yield SlabCall(ent[a * e:b * e], tab, cap), (b - a) * e
         return
     if mode == "gather":
         arr = np.concatenate([idx, np.tile(np.asarray([[g, 0]], np.int32),
@@ -361,10 +424,16 @@ class Stage2Runner:
 
     def __init__(self, ctx: MontyCtx, dctx: Optional[DeviceCtx],
                  sp: Stage2Params, pt: torch.Tensor, s_const: torch.Tensor,
-                 ops=None, replay: Optional[str] = None):
+                 ops=None, replay: Optional[str] = None,
+                 slab_rows: Optional[int] = None):
         self.ctx, self.sp = ctx, sp
         self.ops = ops if ops is not None else DigitOps(ctx, dctx)
         self.replay = replay_mode(replay, self.ops)
+        # K8's Pb rows per slab: the keyword (tests cut many slabs) or what
+        # the device holds (DigitOps.slab_rows)
+        self.slab_rows = None
+        if self.replay == "resident":
+            self.slab_rows = slab_rows or self.ops.slab_rows()
         self.pt = pt                  # stage-1 point [2, rows, B]
         self.s_const = s_const
         self.b = b = int(pt.shape[-1])
@@ -550,7 +619,7 @@ class Stage2Runner:
         list, through the kernel of the runner's replay mode."""
         launch = getattr(self.ops, "replay_" + self.replay)
         for arr, slots in replay_calls(self.replay, idx, self.replay_block,
-                                       self.pa_group):
+                                       self.pa_group, self.slab_rows):
             self.acc = launch(self.acc, pa_inv_ext, self.pbx, arr,
                               self.one_plane)
             self.slots += slots

@@ -40,6 +40,11 @@ result and its seconds; any failure raises and exits non-zero.
               (a 256-op tape over three launches, the Pa group the memory
               rule picks, the rns job's 963-row Pb table and first replay
               calls); residues equal, every one;
+              K1's line at both main-path depths gives its geometry
+              (lanes a curve, digits a lane, curves a block, blocks,
+              resident and launched warps per SM), its instantiation's
+              ptxas report (registers, stack frame, spills) and its share
+              of the bound (_tape_line);
               the plain versions run their single-plane products from
               CUDA graphs (_graphed_products); the replay kernels' bounds
               count a product per live entry, and their lines give the
@@ -869,6 +874,68 @@ def _ptxas_lines(kernel: str) -> list:
     return out
 
 
+def _tape_ptxas() -> dict:
+    """What nvcc -Xptxas -v reported for each K1 instantiation (digits a
+    lane -> registers, stack frame and spill bytes), from the build log."""
+    from tpu_ecm_torch.limbs import build
+    with open(build.library_path()[:-3] + ".log") as f:
+        log = f.read().splitlines()
+    out, digits = {}, None
+    for line in log:
+        hit = re.search(r"Compiling entry function '_Z\d+tape_lanes_kernel"
+                        r"ILi(\d+)EE", line)
+        if hit:
+            digits = int(hit.group(1))
+            out[digits] = {}
+            continue
+        if "Compiling entry function" in line:
+            digits = None
+        if digits is None:
+            continue
+        frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", line)
+        if frame:
+            out[digits].update(stack_bytes=int(frame.group(1)),
+                               spill_store_bytes=int(frame.group(2)),
+                               spill_load_bytes=int(frame.group(3)))
+        regs = re.search(r"Used (\d+) registers", line)
+        if regs:
+            out[digits]["registers"] = int(regs.group(1))
+    return out
+
+
+def _tape_line(label, r, nw, b) -> str:
+    """K1's geometry at nw digits and B curves (lanes a curve, curves a
+    block, blocks, resident warps per SM the card allows and warps per SM
+    the launch gives), its instantiation's ptxas report and its share of
+    the bound, added to its record r."""
+    import ctypes
+    import torch
+    from tpu_ecm_torch.limbs import build, kernels
+    lanes, digits, per_block, blocks = kernels.tape_geometry(nw, b)
+    per_sm = ctypes.c_int()
+    if build.library().tpuecm_tape_occupancy(lanes, digits,
+                                             ctypes.byref(per_sm)) != 0:
+        raise RuntimeError("K1: occupancy query refused")
+    warps = kernels.TAPE_BLOCK // 32
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    r.update(geometry=dict(
+        lanes=lanes, digits=digits, curves_per_block=per_block,
+        blocks=blocks, resident_warps_per_sm=per_sm.value * warps,
+        launch_warps_per_sm=blocks * warps / sms),
+        ptxas=_tape_ptxas()[digits], share_of_bound=r["bound_ms"] / r["ms"])
+    g, x = r["geometry"], r["ptxas"]
+    return (f"K1 at {label} (nw={nw}, B={b}): {g['lanes']} lanes a curve, "
+            f"{g['digits']} digits a lane, {g['curves_per_block']} curves a "
+            f"block, {g['blocks']} blocks, {g['resident_warps_per_sm']} "
+            f"resident warps per SM allowed, {g['launch_warps_per_sm']:.2f} "
+            f"launched per SM; ptxas: {x.get('registers')} registers, "
+            f"{x.get('stack_bytes')} bytes stack frame, "
+            f"{x.get('spill_store_bytes')}/{x.get('spill_load_bytes')} "
+            f"bytes spill stores/loads; {r['ms']:.3f} ms against the bound "
+            f"{r['bound_ms']:.4f}: {100 * r['share_of_bound']:.2f}% of it")
+
+
 def phase_kernels(record):
     """Fills record[name] with the main-path timing of every kernel (and
     record[name]["fold"] with K1-K7's at M1277, the mersenne job's
@@ -921,6 +988,9 @@ def phase_kernels(record):
                     _record(ms, plain_ms, bound, err, slots.get(name)),
                     plain_curves=plain_b, depth=shown)
         if label in ("flagship", "M1277"):
+            k1 = record["tape"] if label == "flagship" else \
+                record["tape"]["fold"]
+            print("  " + _tape_line(label, k1, nw, b), flush=True)
             print("  " + _resident_line(label, record, depth, nw,
                                         same["replay_resident"]),
                   flush=True)
@@ -1504,7 +1574,9 @@ def main() -> int:
             bound_by=r["bound_by"], library_ms=r["library_ms"],
             launches_by_job=launches,
             **{k: r[k] for k in ("cap", "slabs", "smem_bytes",
-                                 "k6_ms_per_entry_same", "fold") if k in r}))
+                                 "k6_ms_per_entry_same", "geometry",
+                                 "ptxas", "share_of_bound", "fold")
+               if k in r}))
     print(json.dumps({"kernels": out}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {

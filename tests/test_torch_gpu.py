@@ -1,6 +1,7 @@
 """Tests that need an NVIDIA GPU (marker `cuda`; they skip without one):
 the fifteen CUDA kernels against their plain PyTorch versions (the digit
-kernels in REDC and fold modes), the golden sweep and the reference's t35
+kernels in REDC and fold modes; K1 also at ragged batches and at every
+instantiation's edge nw, and a refused launch), the golden sweep and the reference's t35
 acceptance sweep through the port, and the RNS engine's, the Mersenne
 fold's, the Edwards curves' and the stage-2 replay modes' finds through
 the driver on the card.
@@ -84,6 +85,105 @@ def test_kernels_match_plain(cuda, modulus, b):
         else:
             assert torch.equal(got, want), name
         assert kernels.launches[name] >= 1, name
+
+
+def _ctx_at_nw(nw: int, fold: bool):
+    """A modulus context with exactly nw digits: the largest radix whose
+    column bound (with the entry pass) holds at nw, and a bits-bit odd N
+    (REDC) or 2^bits - 1 (the fold), bits = w*(nw-1) - 4.  Past the int32
+    column bound (nw > 210) no radix holds, and w = 9 is taken: columns may
+    then wrap, in the kernel and in the plain version alike."""
+    import random
+
+    from tpu_ecm_torch import params
+    limit = int(0.95 * 2**31)
+    w = next((w for w in range(13, 5, -1)
+              if params._digit_bound_fixed_point(w, nw, True) < limit), 9)
+    bits = w * (nw - 1) - 4
+    if fold:
+        ctx = params.make_monty((1 << bits) - 1, mersenne=(bits, 1),
+                                force_w=w)
+    else:
+        n = random.Random(nw).getrandbits(bits) | 1 | (1 << (bits - 1))
+        ctx = params.make_monty(n, force_w=w)
+    assert ctx.p.nw == nw
+    return ctx
+
+
+def _k1_against_plain(ctx, b: int, ops: int, seed: int):
+    """K1 over the first `ops` entries of the flagship's stage-1 tape, with
+    a NOP and an ADD whose dst is its own input appended, against
+    curve.ops.run_tape on the same card tensors, digit for digit."""
+    import numpy as np
+
+    import chip_smoke
+    from tpu_ecm_torch.curve import ops as curve_ops
+    from tpu_ecm_torch.curve import prac
+    from tpu_ecm_torch.limbs import kernels, torch_ops
+    from tpu_ecm_torch.primes import primes_range
+    tape = prac.stage1_tape(primes_range(0, 1000), 1000)[:ops]
+    tape = np.concatenate([tape, [[2, 3, 1, 0, 0], [1, 2, 2, 1, 0]]]
+                          ).astype(np.int32)
+    d = torch_ops.device_ctx(ctx, "cuda")
+    rng = np.random.default_rng(seed)
+    nw = ctx.p.nw
+    pts = chip_smoke._rand_planes(rng, ctx, (6, 2, nw, b))
+    sc = chip_smoke._rand_planes(rng, ctx, (nw, b))
+    want = curve_ops.run_tape(pts.clone(), tape, sc, d)
+    kernels.reset_launches()
+    got = kernels.tape(pts.clone(), tape, sc, d)
+    torch.cuda.synchronize()
+    assert kernels.launches["tape"] == 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("fold", [False, True], ids=["redc", "fold"])
+@pytest.mark.parametrize("b", [1, 33, 100])
+def test_tape_ragged_batches(cuda, fold, b):
+    """K1 at batches that leave the last block part empty (B = 1, 33, 100),
+    at the flagship's N416 (REDC, 8 lanes a curve) and at M1277 (the fold,
+    16 lanes), against its plain version digit for digit."""
+    import chip_smoke
+    from tpu_ecm_torch import params
+    ctx = (params.make_monty(chip_smoke.M1277, mersenne=(1277, 1)) if fold
+           else params.make_monty(chip_smoke.N416))
+    _k1_against_plain(ctx, b, 24, b)
+
+
+# every instantiation's smallest and largest nw (D = ceil(nw / lanes)),
+# and the nw on each side of a change of lanes (32/33, 64/65, 128/129);
+# the fold needs e >= w, so its smallest nw is 3
+TAPE_EDGE_NW = (2, 3, 8, 9, 12, 13, 16, 17, 21, 25, 29, 32, 33, 64, 65, 128,
+                129, 160, 192, 224)
+
+
+@pytest.mark.parametrize("nw,fold", [
+    (nw, fold) for nw in TAPE_EDGE_NW for fold in (False, True)
+    if nw > 2 or not fold])
+def test_tape_nw_edges(cuda, nw, fold):
+    """K1 at the edges of its instantiations (limbs/kernels.py:
+    tape_geometry) in both modes, at B = 5, against its plain version."""
+    _k1_against_plain(_ctx_at_nw(nw, fold), 5, 12, nw)
+
+
+def test_tape_refused_launch_raises(cuda, monkeypatch):
+    """A geometry that no instantiation takes (9 digits a lane) is refused
+    by the C entry point, the wrapper raises, and no launch is counted."""
+    import numpy as np
+
+    import chip_smoke
+    from tpu_ecm_torch import params
+    from tpu_ecm_torch.limbs import kernels, torch_ops
+    ctx = params.make_monty(chip_smoke.N416)
+    d = torch_ops.device_ctx(ctx, "cuda")
+    pts = torch.zeros((6, 2, ctx.p.nw, 32), dtype=torch.int32, device=cuda)
+    sc = torch.zeros((ctx.p.nw, 32), dtype=torch.int32, device=cuda)
+    monkeypatch.setattr(kernels, "tape_geometry",
+                        lambda nw, b: (4, 9, 32, 1))
+    kernels.reset_launches()
+    with pytest.raises(RuntimeError, match="launch failed"):
+        kernels.tape(pts, np.asarray([[0, 0, 0, 0, 0]], np.int32), sc, d)
+    assert kernels.launches["tape"] == 0
 
 
 @pytest.mark.parametrize("modulus,b", [("N256", 128), ("row21", 1024)])

@@ -1,0 +1,179 @@
+"""Run the lane core of tpu_ecm_torch/csrc/arith_lanes.cuh (K1's
+arithmetic) on the CPU and hold it against its plain version.
+
+The CUDA source is built by g++ against cuda_runtime.h beside this file,
+which runs every CUDA thread as a std::thread and shuffles through a
+per-warp buffer between barriers (see its header).  lanes_check.cpp's
+entry points run a product step per curve (a*b, a*a, or a*b written over
+a's slot, each paired with b*b) and the DUP and ADD programs; they are
+compared digit for digit with limbs/torch_ops.mulmod / sqrmod and
+curve/ops.xdbl / xadd on CPU tensors.  From the repository root:
+
+    python tools/lane_shim/check.py              # -O2 build
+    python tools/lane_shim/check.py --sanitize   # ASan + UBSan build
+
+The library goes to build/lane_shim/ (a directory .gitignore lists),
+named by a hash of the sources and flags.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import hashlib
+import os
+import subprocess
+import sys
+
+import numpy as np
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+REPO = os.path.dirname(os.path.dirname(HERE))
+sys.path.insert(0, REPO)
+
+import torch  # noqa: E402
+
+from tpu_ecm_torch import params  # noqa: E402
+from tpu_ecm_torch.curve import ops as curve_ops  # noqa: E402
+from tpu_ecm_torch.limbs import build, kernels, torch_ops  # noqa: E402
+
+BUILD_DIR = os.path.join(REPO, "build", "lane_shim")
+SOURCES = (os.path.join(HERE, "cuda_runtime.h"),
+           os.path.join(HERE, "lanes_check.cpp"),
+           os.path.join(build.CSRC, "arith.cuh"),
+           os.path.join(build.CSRC, "arith_lanes.cuh"))
+SANITIZE = ("-O1", "-g", "-fsanitize=address,undefined")
+
+
+def build_lib(sanitize: bool = False) -> str:
+    """g++ build of lanes_check.cpp unless this source hash is built;
+    returns the library's path."""
+    flags = ["-std=c++20", "-fPIC", "-shared", "-pthread",
+             *(SANITIZE if sanitize else ("-O2",)), "-I", HERE,
+             "-I", build.CSRC, f"-DTPUECM_NW_MAX={build.NW_MAX}",
+             f"-DTPUECM_CL_MAX={build.CL_MAX}"]
+    h = hashlib.sha256(" ".join(flags).encode())
+    for path in SOURCES:
+        with open(path, "rb") as f:
+            h.update(f.read())
+    out = os.path.join(BUILD_DIR, f"liblanes_{h.hexdigest()[:16]}.so")
+    if not os.path.exists(out):
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{out}.{os.getpid()}.tmp"
+        subprocess.run(["g++", *flags, "-o", tmp, SOURCES[1]], check=True)
+        os.replace(tmp, out)
+    return out
+
+
+def load(path: str) -> ctypes.CDLL:
+    lib = ctypes.CDLL(path)
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.lanes_mul.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I,
+                              I]
+    lib.lanes_point.argtypes = [P, P, P, P, P, I, I, I, I, I, I, I, I, I, I,
+                                I]
+    lib.lanes_mul.restype = lib.lanes_point.restype = I
+    return lib
+
+
+def _mod(d):
+    p = d.p
+    return (d.n.data_ptr(), d.c.data_ptr(), int(d.c.shape[0]),
+            d.mersenne_e, d.mersenne_c_sign, p.nw, p.w, d.nprime,
+            int(p.norm_inputs))
+
+
+def _values(ctx, d, rng, count, b):
+    """count operands [nw, B]: reduced random values through one product
+    and a difference."""
+    p = ctx.p
+    k = (p.nbits - 1) // p.w
+
+    def reduced():
+        a = np.zeros((p.nw, b), np.int32)
+        a[:k] = rng.integers(0, 1 << p.w, (k, b))
+        return torch.from_numpy(a)
+
+    return [torch_ops.submod_n(torch_ops.mulmod(reduced(), y, d, pre=True),
+                               y, d)
+            for y in (reduced() for _ in range(count))]
+
+
+def compare(lib, ctx, b: int, lanes=None, seed: int = 0) -> list:
+    """(what, equal) of each product and point program of the lane core
+    against the plain version on B curves, at tape_geometry's lanes or at
+    `lanes` (then D = ceil(nw / lanes), at least 2)."""
+    d = torch_ops.device_ctx(ctx, "cpu")
+    nw = ctx.p.nw
+    if lanes is None:
+        lanes, digits, _, _ = kernels.tape_geometry(nw, b)
+    else:
+        digits = max(2, -(-nw // lanes))
+    rng = np.random.default_rng(seed)
+    a, y, s, *pts = _values(ctx, d, rng, 9, b)
+    out, res = [], []
+    want2 = torch_ops.sqrmod(y, d, pre=True)
+    for op, want in ((0, torch_ops.mulmod(a, y, d, pre=True)),
+                     (1, torch_ops.sqrmod(a, d, pre=True)),
+                     (2, torch_ops.mulmod(a, y, d, pre=True))):
+        got, got2 = torch.zeros_like(a), torch.zeros_like(a)
+        if lib.lanes_mul(a.data_ptr(), y.data_ptr(), got.data_ptr(),
+                         got2.data_ptr(), *_mod(d), b, lanes, digits, op):
+            raise ValueError(f"no instantiation for D={digits}")
+        res.append((("a*b", "a*a", "a*b over a")[op] + " with b*b",
+                    torch.equal(got, want) and torch.equal(got2, want2)))
+    stack = torch.stack(pts).contiguous()
+    for add, want in ((0, curve_ops.xdbl(pts[0], pts[1], s, d)),
+                      (1, curve_ops.xadd(*pts, d))):
+        got = torch.zeros((2, nw, b), dtype=torch.int32)
+        if lib.lanes_point(stack.data_ptr(), got.data_ptr(), s.data_ptr(),
+                           *_mod(d), b, lanes, digits, add):
+            raise ValueError(f"no instantiation for D={digits}")
+        res.append((("xdbl", "xadd")[add],
+                    torch.equal(got, torch.stack(want))))
+    return [(f"nw={nw} L={lanes} D={digits} B={b} {what}", ok)
+            for what, ok in res]
+
+
+N416 = (205688069665150755269371147819668813122841983204197482918578443
+        * 411376139330301510538742295639337626245683966408394965837157771)
+# (modulus, mersenne, force_w, B, lanes): REDC with norm_inputs on and
+# off, Mersenne and pseudo-Mersenne folds (c > 1 of several digits,
+# c = -1, c < 0), at tape_geometry's lanes and others
+CASES = (
+    (N416, None, None, 20, None), (N416, None, 10, 20, None),
+    (N416, None, None, 5, 16), (N416, None, None, 7, 32),
+    ((1 << 127) - 1, (127, 1), None, 9, None),
+    ((1 << 200) - 1234567890123, (200, 1234567890123), None, 10, None),
+    ((1 << 201) + 1, (201, -1), None, 10, 8),
+    ((1 << 301) + 987654321, (301, -987654321), 9, 6, None),
+    ((1 << 1277) - 1, (1277, 1), None, 3, None),
+)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--sanitize", action="store_true",
+                    help="build with ASan and UBSan (rerun under their "
+                         "runtimes through LD_PRELOAD)")
+    args = ap.parse_args()
+    path = build_lib(args.sanitize)
+    if args.sanitize and "LD_PRELOAD" not in os.environ:
+        libs = [subprocess.run(["g++", f"-print-file-name={n}"], check=True,
+                               capture_output=True, text=True).stdout.strip()
+                for n in ("libasan.so", "libubsan.so")]
+        env = dict(os.environ, LD_PRELOAD=":".join(libs),
+                   ASAN_OPTIONS="detect_leaks=0")
+        return subprocess.run([sys.executable, *sys.argv], env=env).returncode
+    lib = load(path)
+    bad = 0
+    for n, mers, fw, b, lanes in CASES:
+        ctx = params.make_monty(n, mersenne=mers, force_w=fw)
+        for what, ok in compare(lib, ctx, b, lanes):
+            print(f"{what}: {'equal' if ok else 'DIFFER'}", flush=True)
+            bad += not ok
+    return 1 if bad else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,98 @@
+// Entry points that run the lane core of tpu_ecm_torch/csrc/arith_lanes.cuh
+// on the CPU through cuda_runtime.h beside this file, on host arrays laid
+// out as the kernels' planes ([.., NW, B], curve axis last):
+//   lanes_mul:   out = a*b (op 0), a*a (op 1), or a*b written over a's slot
+//                (op 2), paired in one step with out2 = b*b;
+//   lanes_point: the DUP (add = 0) or ADD (add = 1) program on
+//                in = [x, z, x2, z2, xd, zd] with s, into out = [x, z].
+// Each returns 0, or 1 for a digit count with no instantiation.
+#include <cuda_runtime.h>
+
+#include "arith_lanes.cuh"
+
+namespace {
+
+int smem_words[1 << 16];
+
+template <int D>
+void mul_body(const int* a, const int* b, int* out, int* out2,
+              TPUECM_MOD_PARAMS, int B, int L, int op) {
+    __shared__ Mod m;
+    load_mod(m, TPUECM_MOD_ARGS);
+    const Group g = make_group<D>(smem_words, L, m);
+    const int curve = blockIdx.x * (blockDim.x / L) + threadIdx.x / L;
+    const int c = curve < B ? curve : B - 1;
+    load_slot<D>(g.slot(SLOT_T0), a + c, B, g, nw);
+    load_slot<D>(g.slot(SLOT_T1), b + c, B, g, nw);
+    int* const dst[TPUECM_PAIR] = {g.slot(op == 2 ? SLOT_T0 : SLOT_T2),
+                                   g.slot(SLOT_T3)};
+    const int* const x[TPUECM_PAIR] = {g.slot(SLOT_T0), g.slot(SLOT_T1)};
+    const int* const y[TPUECM_PAIR] = {
+        g.slot(op == 1 ? SLOT_T0 : SLOT_T1), g.slot(SLOT_T1)};
+    mul_slots<D, TPUECM_PAIR>(dst, x, y, g);
+    if (curve < B) {
+        store_slot<D>(out + c, dst[0], B, g, nw);
+        store_slot<D>(out2 + c, dst[1], B, g, nw);
+    }
+}
+
+template <int D>
+void point_body(const int* in, int* out, const int* s, TPUECM_MOD_PARAMS,
+                int B, int L, int add) {
+    __shared__ Mod m;
+    load_mod(m, TPUECM_MOD_ARGS);
+    const Group g = make_group<D>(smem_words, L, m);
+    const int curve = blockIdx.x * (blockDim.x / L) + threadIdx.x / L;
+    const int c = curve < B ? curve : B - 1;
+    const size_t plane = (size_t)nw * B;
+    for (int i = 0; i < 6; ++i)
+        load_slot<D>(g.slot(SLOT_X + i), in + i * plane + c, B, g, nw);
+    load_slot<D>(g.slot(SLOT_S), s + c, B, g, nw);
+    if (add)
+        run_steps<D>(TPUECM_ADD, TPUECM_ADD_STEPS, g);
+    else
+        run_steps<D>(TPUECM_DUP, TPUECM_DUP_STEPS, g);
+    if (curve < B) {
+        store_slot<D>(out + c, g.slot(SLOT_X), B, g, nw);
+        store_slot<D>(out + plane + c, g.slot(SLOT_Z), B, g, nw);
+    }
+}
+
+int blocks_for(int B, int L) {
+    const int per = TPUECM_TAPE_BLOCK / L;
+    return (B + per - 1) / per;
+}
+
+}  // namespace
+
+#define LANES_DIGITS(X) X(2) X(3) X(4) X(5) X(6) X(7) X(8)
+
+extern "C" int lanes_mul(const int* a, const int* b, int* out, int* out2,
+                         TPUECM_MOD_PARAMS, int B, int L, int D, int op) {
+    switch (D) {
+#define LANES_CASE(d)                                                        \
+    case d:                                                                  \
+        emu_launch(blocks_for(B, L), TPUECM_TAPE_BLOCK, [&] {                \
+            mul_body<d>(a, b, out, out2, TPUECM_MOD_ARGS, B, L, op);         \
+        });                                                                  \
+        return 0;
+        LANES_DIGITS(LANES_CASE)
+#undef LANES_CASE
+    }
+    return 1;
+}
+
+extern "C" int lanes_point(const int* in, int* out, const int* s,
+                           TPUECM_MOD_PARAMS, int B, int L, int D, int add) {
+    switch (D) {
+#define LANES_CASE(d)                                                        \
+    case d:                                                                  \
+        emu_launch(blocks_for(B, L), TPUECM_TAPE_BLOCK, [&] {                \
+            point_body<d>(in, out, s, TPUECM_MOD_ARGS, B, L, add);           \
+        });                                                                  \
+        return 0;
+        LANES_DIGITS(LANES_CASE)
+#undef LANES_CASE
+    }
+    return 1;
+}

@@ -7,67 +7,134 @@
 //
 // Bound on the H100: integer multiply-adds.  A tape step is 5 (DUP) or 6
 // (ADD) dependent modular products of ~2*nw^2 (REDC) or ~nw^2 (fold)
-// multiply-adds each, on one thread per curve, against about 6*nw*4 bytes
-// of point traffic per curve that stays in L2 (the file is 6*2*nw*B*4
-// bytes, 3.5 MB at the flagship).
-// So the loop is latency-bound per thread: with one warp per block, 2048
-// curves occupy 64 warps on 64 SMs.
+// multiply-adds each, against about 6*nw*4 bytes of point traffic per
+// curve that stays in L2 (the file is 6*2*nw*B*4 bytes, 3.5 MB at the
+// flagship, 11.6 MB at M1277).
 //
-// Design: every thread walks the same tape entry (a uniform load, no
-// divergence) and keeps its curve's operands and s = (A+2)/4 in local
-// arrays; the tape length is a run-time value, so no NOP padding is needed.
-// Inputs are read before dst is written, so dst may alias any input.
-#include "arith.cuh"
+// Design (csrc/arith_lanes.cuh): a group of L lanes works on one curve,
+// each lane owning D = ceil(nw / L) digits of every value, its products'
+// columns and digits in registers; D is a template parameter, so nothing
+// is indexed at run time and nothing lives in local memory.  The values of
+// a step sit in the curve's slots of shared memory, and a step is a
+// program of paired products, sums and differences on them, so the kernel
+// holds one copy of the product.  The host (limbs/kernels.py:
+// tape_geometry) picks L from nw: L = 8 at nw = 36, so 2048 curves make
+// 512 warps in 128 blocks; L = 16 at nw = 118.  A block is
+// TPUECM_TAPE_BLOCK threads, 128/L curves.  Measured on the H100 (PERF.md,
+// tools/k1_probe), each warp is bound by its own rate of integer
+// multiply-adds, most of them REDC's quotient chain and its q*n terms,
+// which run in blocks of D columns.  The point file stays in device
+// memory.
+//
+// Every thread walks the same tape entry (a uniform load, no divergence);
+// the tape length is a run-time value, so no NOP padding is needed.  A lane
+// past the batch computes on the last curve and stores nothing, so every
+// lane reaches every shuffle and barrier.  Each lane reads and writes only
+// its own digits of its curve in the file, and reads the inputs before it
+// writes dst, so dst may alias any input.
+#include "arith_lanes.cuh"
 
-__global__ void __launch_bounds__(TPUECM_THREADS)
-tape_kernel(const int* __restrict__ tape, long long nsteps, int* pts,
-            const int* __restrict__ s_const, TPUECM_MOD_PARAMS, int B) {
+template <int D>
+__global__ void __launch_bounds__(TPUECM_TAPE_BLOCK, 1)
+tape_lanes_kernel(const int* __restrict__ tape, long long nsteps, int* pts,
+                  const int* __restrict__ s_const, TPUECM_MOD_PARAMS, int B,
+                  int L) {
     __shared__ Mod m;
+    extern __shared__ int smem[];
     load_mod(m, TPUECM_MOD_ARGS);
-    const int b = blockIdx.x * blockDim.x + threadIdx.x;
-    if (b >= B) return;
+    const Group g = make_group<D>(smem, L, m);
+    const int curve = blockIdx.x * (blockDim.x / L) + threadIdx.x / L;
+    const bool live = curve < B;
 
     const size_t sB = (size_t)B;
     const size_t coord = (size_t)nw * sB;     // X -> Z within a point
     const size_t slot = 2 * coord;            // point -> point
-    int* file = pts + b;
-    int s[TPUECM_NW_MAX];
-    load_row(s, s_const + b, sB, nw);
+    int* file = pts + (live ? curve : B - 1);
+    load_slot<D>(g.slot(SLOT_S), s_const + (live ? curve : B - 1), sB, g,
+                 nw);
 
-    int ax[TPUECM_NW_MAX], az[TPUECM_NW_MAX], bx[TPUECM_NW_MAX],
-        bz[TPUECM_NW_MAX], dx[TPUECM_NW_MAX], dz[TPUECM_NW_MAX],
-        ox[TPUECM_NW_MAX], oz[TPUECM_NW_MAX];
     for (long long k = 0; k < nsteps; ++k) {
         const int* e = tape + 5 * k;
         const int op = e[0], dst = e[1];
         const int* pa = file + e[2] * slot;
-        load_row(ax, pa, sB, nw);
-        load_row(az, pa + coord, sB, nw);
-        if (op == 0) {                        // DUP
-            xdbl(ox, oz, ax, az, s, m);
-        } else if (op == 1) {                 // ADD
+        load_slot<D>(g.slot(SLOT_X), pa, sB, g, nw);
+        load_slot<D>(g.slot(SLOT_Z), pa + coord, sB, g, nw);
+        if (op == 1) {                        // ADD: P2 and the difference
             const int* pb = file + e[3] * slot;
             const int* pd = file + e[4] * slot;
-            load_row(bx, pb, sB, nw);
-            load_row(bz, pb + coord, sB, nw);
-            load_row(dx, pd, sB, nw);
-            load_row(dz, pd + coord, sB, nw);
-            xadd(ox, oz, ax, az, bx, bz, dx, dz, m);
-        } else {                              // NOP: dst := pts[a]
-            copy_digits(ox, ax, nw);
-            copy_digits(oz, az, nw);
+            load_slot<D>(g.slot(SLOT_X2), pb, sB, g, nw);
+            load_slot<D>(g.slot(SLOT_Z2), pb + coord, sB, g, nw);
+            load_slot<D>(g.slot(SLOT_XD), pd, sB, g, nw);
+            load_slot<D>(g.slot(SLOT_ZD), pd + coord, sB, g, nw);
         }
-        store_row(file + dst * slot, ox, sB, nw);
-        store_row(file + dst * slot + coord, oz, sB, nw);
+        // one call site, so the kernel holds one copy of the product;
+        // NOP (dst := pts[a]) runs no step
+        run_steps<D>(op == 0 ? TPUECM_DUP : TPUECM_ADD,
+                     op == 0 ? TPUECM_DUP_STEPS
+                             : (op == 1 ? TPUECM_ADD_STEPS : 0), g);
+        if (live) {
+            store_slot<D>(file + dst * slot, g.slot(SLOT_X), sB, g, nw);
+            store_slot<D>(file + dst * slot + coord, g.slot(SLOT_Z), sB, g,
+                          nw);
+        }
     }
 }
 
+template <int D>
+static int launch_tape(const int* tape, long long nsteps, int* pts,
+                       const int* s_const, TPUECM_MOD_PARAMS, int B, int L,
+                       cudaStream_t stream) {
+    const int per_block = TPUECM_TAPE_BLOCK / L;
+    const int blocks = (B + per_block - 1) / per_block;
+    const size_t smem = lanes_smem_bytes(L, D);
+    // above 48 KB a block's dynamic shared memory must be allowed first
+    const cudaError_t rc = cudaFuncSetAttribute(
+        tape_lanes_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (rc != cudaSuccess) {
+        cudaGetLastError();
+        return (int)rc;
+    }
+    tape_lanes_kernel<D><<<blocks, TPUECM_TAPE_BLOCK, smem, stream>>>(
+        tape, nsteps, pts, s_const, TPUECM_MOD_ARGS, B, L);
+    return (int)cudaGetLastError();
+}
+
+// The instantiations, D = 2..8 digits a lane (limbs/kernels.py:TAPE_DIGITS).
+#define TPUECM_TAPE_DIGITS(X) X(2) X(3) X(4) X(5) X(6) X(7) X(8)
+
 extern "C" int tpuecm_tape(const int* tape, long long nsteps, int* pts,
                            const int* s_const, TPUECM_MOD_PARAMS, int B,
-                           void* stream) {
-    if (!mod_args_ok(nw, e, cl, w) || B < 1)
+                           int lanes, int digits, void* stream) {
+    if (!mod_args_ok(nw, e, cl, w) || B < 1 || !lanes_ok(lanes)
+        || lanes * digits < nw)
         return (int)cudaErrorInvalidValue;
-    const int blocks = (B + TPUECM_THREADS - 1) / TPUECM_THREADS;
-    tape_kernel<<<blocks, TPUECM_THREADS, 0, (cudaStream_t)stream>>>(tape, nsteps, pts, s_const, TPUECM_MOD_ARGS, B);
-    return (int)cudaGetLastError();
+    const cudaStream_t st = (cudaStream_t)stream;
+    switch (digits) {
+#define TPUECM_CASE(d)                                                       \
+    case d:                                                                  \
+        return launch_tape<d>(tape, nsteps, pts, s_const, TPUECM_MOD_ARGS,   \
+                              B, lanes, st);
+        TPUECM_TAPE_DIGITS(TPUECM_CASE)
+#undef TPUECM_CASE
+    }
+    return (int)cudaErrorInvalidValue;
+}
+
+// Resident blocks per SM of the instantiation for `digits` at `lanes`
+// lanes a curve (chip_smoke.py prints it beside K1's times); call after a
+// launch of that instantiation, which allows its shared memory.
+extern "C" int tpuecm_tape_occupancy(int lanes, int digits,
+                                     int* blocks_per_sm) {
+    if (!lanes_ok(lanes)) return (int)cudaErrorInvalidValue;
+    switch (digits) {
+#define TPUECM_CASE(d)                                                       \
+    case d:                                                                  \
+        return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(           \
+            blocks_per_sm, tape_lanes_kernel<d>, TPUECM_TAPE_BLOCK,          \
+            lanes_smem_bytes(lanes, d));
+        TPUECM_TAPE_DIGITS(TPUECM_CASE)
+#undef TPUECM_CASE
+    }
+    return (int)cudaErrorInvalidValue;
 }

@@ -25,7 +25,8 @@ import threading
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "tpu_ecm_torch")
-HEADERS = ("arith.cuh", "replay_tree.cuh", "rns_arith.cuh")
+HEADERS = ("arith.cuh", "arith_lanes.cuh", "replay_tree.cuh",
+           "rns_arith.cuh")
 SOURCES = ("tape.cu", "chain.cu", "batch_inverse.cu", "replay.cu",
            "replay_gather.cu", "replay_resident.cu", "ed_tape.cu",
            "rns_tape.cu", "rns_chain.cu", "rns_batch_inverse.cu",
@@ -49,7 +50,8 @@ _MOD = [_P, _P, _I, _I, _I, _I, _I, _I, _I]
 # argument lists of the extern "C" entry points (pointers and stream as
 # void*, so ctypes never truncates them to 32 bits)
 SIGNATURES = {
-    "tpuecm_tape": [_P, _L, _P, _P, *_MOD, _I, _P],
+    "tpuecm_tape": [_P, _L, _P, _P, *_MOD, _I, _I, _I, _P],
+    "tpuecm_tape_occupancy": [_I, _I, _IP],
     "tpuecm_chain": [_P, _P, _P, _P, _I, *_MOD, _I, _P],
     "tpuecm_prefix": [_P, _P, _P, _I, *_MOD, _I, _P],
     "tpuecm_apply_inverse": [_P, _P, _P, _P, _P, _I, *_MOD, _I, _P],

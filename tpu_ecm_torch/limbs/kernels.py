@@ -87,6 +87,14 @@ launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 # tape entries per stage-1 kernel launch (K1, K9): keeps every launch
 # short
 TAPE_SLICE = 1 << 16
+# K1's geometry (csrc/tape.cu): a group of `lanes` threads works on one
+# curve, each lane holding `digits` digits of every operand in registers.
+# The lane counts it takes, the digit counts it is instantiated for
+# (tape.cu's dispatch), and the threads of a block (TPUECM_TAPE_BLOCK of
+# csrc/arith_lanes.cuh)
+TAPE_LANES = (4, 8, 16, 32)
+TAPE_DIGITS = (2, 3, 4, 5, 6, 7, 8)
+TAPE_BLOCK = 128
 # entries per step of the gather-form replays (K6-K8, K14): a power of two
 # up to E_MAX, the bound of the kernels' partial-product stacks
 E_MAX = 16
@@ -187,10 +195,29 @@ def _done(name: str, rc: int) -> None:
     launches[name] += 1
 
 
+def tape_geometry(nw: int, b: int):
+    """(lanes, digits, curves_per_block, blocks) of K1 at nw digits and B
+    curves: the fewest lanes per curve (TAPE_LANES) that hold nw digits at
+    most TAPE_DIGITS[-1] digits a lane, digits = ceil(nw / lanes) (at
+    least TAPE_DIGITS[0]), TAPE_BLOCK threads a block."""
+    if not 2 <= nw <= build.NW_MAX:
+        raise ValueError(f"tape: no K1 instantiation covers nw={nw} "
+                         f"(2 <= nw <= {build.NW_MAX})")
+    if b < 1:
+        raise ValueError(f"tape: batch must be >= 1, got {b}")
+    for lanes in TAPE_LANES:
+        digits = max(-(-nw // lanes), TAPE_DIGITS[0])
+        if digits <= TAPE_DIGITS[-1]:
+            break
+    per_block = TAPE_BLOCK // lanes
+    return lanes, digits, per_block, -(-b // per_block)
+
+
 def tape(pts: torch.Tensor, tape_np: np.ndarray, s_const: torch.Tensor,
          ctx: DeviceCtx) -> torch.Tensor:
     """K1: replay a [T, 5] (op, dst, a, b, c) tape over the [6, 2, NW, B]
-    point file, in place; returns pts."""
+    point file, in place, at tape_geometry's lanes and digits per curve;
+    returns pts."""
     nw, b = ctx.p.nw, int(s_const.shape[-1])
     _check("tape", "pts", pts, (NUM_SLOTS, 2, nw, b), ctx)
     _check("tape", "s_const", s_const, (nw, b), ctx)
@@ -201,6 +228,7 @@ def tape(pts: torch.Tensor, tape_np: np.ndarray, s_const: torch.Tensor,
                          f"[0, {NUM_SLOTS})")
     if _on_cpu("tape", ctx):
         return run_tape(pts, t, s_const, ctx)
+    lanes, digits, _per_block, _blocks = tape_geometry(nw, b)
     if t.shape[0] == 0:
         return pts
     lib = build.library()
@@ -209,7 +237,7 @@ def tape(pts: torch.Tensor, tape_np: np.ndarray, s_const: torch.Tensor,
         steps = min(TAPE_SLICE, t.shape[0] - lo)
         _done("tape", lib.tpuecm_tape(
             dev[lo].data_ptr(), steps, pts.data_ptr(), s_const.data_ptr(),
-            *_mod(ctx), b, _stream()))
+            *_mod(ctx), b, lanes, digits, _stream()))
     return pts
 
 

@@ -29,8 +29,10 @@ result and its seconds; any failure raises and exits non-zero.
               256-op tape over three launches, the Pa group the memory
               rule picks, the job's Pb table and first replay calls),
               each timed by its compared launch, with the plain versions
-              run on the first 128 curves; digits equal for K1-K4 and
-              K6-K9, values mod n for K5; K8's slabs, slab height, shared
+              run on the first 128 curves; digits equal for K1-K9 (K5's
+              plain version at these depths runs in blocks of
+              kernels.PLAIN_REPLAY_BLOCK entries, a multiple of 4, so its
+              quadruples are the kernel's); K8's slabs, slab height, shared
               memory, ptxas report and ms per live entry beside K6's at
               both main-path depths, K6 on K8's own entries (digits equal
               to K8's), and at M1277 K8 with 6-row slabs without and with
@@ -40,11 +42,12 @@ result and its seconds; any failure raises and exits non-zero.
               (a 256-op tape over three launches, the Pa group the memory
               rule picks, the rns job's 963-row Pb table and first replay
               calls); residues equal, every one;
-              K1's line at both main-path depths gives its geometry
-              (lanes a curve, digits a lane, curves a block, blocks,
-              resident and launched warps per SM), its instantiation's
-              ptxas report (registers, stack frame, spills) and its share
-              of the bound (_tape_line);
+              K1's and K5's lines at both main-path depths give their
+              geometry (lanes a curve, digits a lane, curves a block,
+              blocks, resident and launched warps per SM), their
+              instantiation's ptxas report (registers, stack frame,
+              spills) and their share of the bound, K5's also its ms per
+              live entry beside the one-thread kernel's (_lanes_line);
               the plain versions run their single-plane products from
               CUDA graphs (_graphed_products); the replay kernels' bounds
               count a product per live entry, and their lines give the
@@ -180,6 +183,18 @@ RNS_REPLAY_JOB = dict(curves=1024, sigma=110, b1=2_000, b2=200_000)
 # and 3.35 TB/s of HBM3 (NVIDIA H100 SXM data sheet).
 IMAD_PER_S = 132 * 64 * 1.98e9
 HBM_BYTES_PER_S = 3.35e12
+# The lane-core kernels (csrc/arith_lanes.cuh): name -> (label, kernel
+# template, occupancy entry point)
+LANE_KERNELS = {
+    "tape": ("K1", "tape_lanes_kernel", "tpuecm_tape_occupancy"),
+    "replay": ("K5", "replay_lanes_kernel", "tpuecm_replay_occupancy"),
+}
+# K5 on the one-thread core (csrc/arith.cuh) before it moved to the lane
+# core, on this smoke's first replay call at each main-path depth: ms per
+# call and per live entry (PERF.md section 6, NVIDIA H100 80GB HBM3,
+# 700 W)
+K5_ONE_THREAD = {"flagship": (2591.990, 0.03955),
+                 "M1277": (10594.312, 0.21363)}
 
 
 def _ops(engine: str):
@@ -250,12 +265,6 @@ def _rand_planes(rng, ctx, shape):
     return a
 
 
-def _canon(plane, ctx):
-    from tpu_ecm_torch.limbs import layout
-    return [v % ctx.n_int
-            for v in layout.unpack_batch(plane.cpu().numpy(), ctx.p.w)]
-
-
 def _max_abs_err(got, want) -> int:
     """max |got - want| over stacks of planes, a block of leading rows at
     a time (a whole difference of two 12.5 GiB stacks would not fit)."""
@@ -282,8 +291,9 @@ def _timed(fn, reps: int):
 
 def _replay_plain(acc, pa_ext, pbx, idx, d):
     """The plain K5 over blocks of kernels.PLAIN_REPLAY_BLOCK live entries
-    (bounds its memory), acc carried across: the same product, in the same
-    order of quadruples."""
+    (bounds its memory), acc carried across: the block is a multiple of 4,
+    so the quadruples and the tail are the whole call's, and the digits the
+    kernel's."""
     import numpy as np
     from tpu_ecm_torch.limbs import kernels
     live = idx[1:1 + int(idx[0])]
@@ -442,9 +452,9 @@ def _ed_products(tape):
 
 def _kernel_cases(rng, ctx, b, depth=SHORT, plain_b=None, same=None):
     """(cases, slots): cases maps name -> (kernel call, plain call,
-    compare mod n?, bound) on one geometry: B curves and the stack sizes
-    of `depth`; K9 is included when depth["ed_ops"] is set.  The plain
-    calls run on the first plain_b curves (None: all B).  bound = (ms,
+    bound) on one geometry: B curves and the stack sizes of `depth`; K9
+    is included when depth["ed_ops"] is set.  The plain calls run on the
+    first plain_b curves (None: all B).  bound = (ms,
     "operations" | "bytes") of the kernel call's multiply-adds and bytes.
     slots maps each replay kernel to (live entries, entry slots) of its
     call: the replay kernels read depth["calls"] (the main path's first
@@ -504,17 +514,16 @@ def _kernel_cases(rng, ctx, b, depth=SHORT, plain_b=None, same=None):
         "tape": (lambda: _sliced_tape(kernels, kernels.tape, k["pts"], tape,
                                       k["sc"], d, depth["tape_slice"]),
                  lambda: ops.run_tape(p["pts"].clone(), tape, p["sc"], d),
-                 False,
                  _bound(b * _digit_macs(ctx, *_tape_products(tape)),
                         2 * _nbytes(k["pts"]) + _nbytes(k["sc"])
                         + tape.nbytes)),
         "chain": (lambda: kernels.chain(k["p1"], k["p2"], k["pd"], rows, d),
                   lambda: kernels.chain_plain(p["p1"], p["p2"], p["pd"],
-                                              rows, d), False,
+                                              rows, d),
                   _bound(b * rows * _digit_macs(ctx, 4, 2),
                          _nbytes(k["p1"], k["p2"], k["pd"]) + 2 * rows * row)),
         "prefix": (lambda: kernels.prefix(k["zs"], k["one"], d),
-                   lambda: kernels.prefix_plain(p["zs"], p["one"], d), False,
+                   lambda: kernels.prefix_plain(p["zs"], p["one"], d),
                    _bound(b * rows * _digit_macs(ctx, 1, 0),
                           _nbytes(k["zs"], k["one"]) + rows * row)),
         "apply_inverse": (
@@ -522,13 +531,13 @@ def _kernel_cases(rng, ctx, b, depth=SHORT, plain_b=None, same=None):
                                           k["tinv"], d),
             lambda: kernels.apply_inverse_plain(p["xs"], p["zs"], p["pres"],
                                                 p["tinv"], d),
-            False, _bound(b * rows * _digit_macs(ctx, 3, 0),
-                          _nbytes(k["xs"], k["zs"], k["pres"], k["tinv"])
-                          + rows * row)),
+            _bound(b * rows * _digit_macs(ctx, 3, 0),
+                   _nbytes(k["xs"], k["zs"], k["pres"], k["tinv"])
+                   + rows * row)),
         "replay": (lambda: kernels.replay(k["acc"], k["pa_ext"], k["pbx"],
                                           idx, d),
                    lambda: _replay_plain(p["acc"], p["pa_ext"], p["pbx"], idx,
-                                         d), True,
+                                         d),
                    _bound(macs["replay"],
                           _nbytes(k["acc"], k["pa_ext"], k["pbx"])
                           + idx.nbytes + row)),
@@ -539,20 +548,18 @@ def _kernel_cases(rng, ctx, b, depth=SHORT, plain_b=None, same=None):
                                           pairs, d, e=e),
             lambda: kernels.replay_gather_plain(p["acc"], p["pa_ext"],
                                                 p["pbx"], pairs, e, d),
-            False, _bound(macs["replay_gather"],
-                          _rows_read(pairs[:, 0], row)
-                          + _rows_read(pairs[:, 1], row) + pairs.nbytes
-                          + 2 * row)),
+            _bound(macs["replay_gather"],
+                   _rows_read(pairs[:, 0], row)
+                   + _rows_read(pairs[:, 1], row) + pairs.nbytes + 2 * row)),
         # as K6, with one Pa row per step and the one row for pb = 0
         "replay_parow": (
             lambda: kernels.replay_parow(k["acc"], k["pa_ext"], k["pbx"],
                                          steps, k["one"], d),
             lambda: kernels.replay_parow_plain(p["acc"], p["pa_ext"],
                                                p["pbx"], steps, p["one"], d),
-            False, _bound(macs["replay_parow"],
-                          _rows_read(steps[:, 0], row)
-                          + _rows_read(pb_live, row) + steps.nbytes
-                          + 3 * row)),
+            _bound(macs["replay_parow"],
+                   _rows_read(steps[:, 0], row)
+                   + _rows_read(pb_live, row) + steps.nbytes + 3 * row)),
         # as K6, with the Pb rows of every slab the call loads read once
         "replay_resident": (
             lambda: kernels.replay_resident(k["acc"], k["pa_ext"], k["pbx"],
@@ -561,11 +568,10 @@ def _kernel_cases(rng, ctx, b, depth=SHORT, plain_b=None, same=None):
             lambda: kernels.replay_resident_plain(
                 p["acc"], p["pa_ext"], p["pbx"], res.entries, res.slabs,
                 res.cap, e, d),
-            False, _bound(macs["replay_resident"],
-                          _rows_read(res.entries[:, 0], row)
-                          + _slab_rows_read(res, pb_rows) * row
-                          + res.entries.nbytes + res.slabs.nbytes
-                          + 2 * row)),
+            _bound(macs["replay_resident"],
+                   _rows_read(res.entries[:, 0], row)
+                   + _slab_rows_read(res, pb_rows) * row
+                   + res.entries.nbytes + res.slabs.nbytes + 2 * row)),
     }
     if same is not None:
         on_pbx = np.stack([res.entries[:, 0],
@@ -587,7 +593,6 @@ def _kernel_cases(rng, ctx, b, depth=SHORT, plain_b=None, same=None):
             lambda: _sliced_tape(kernels, kernels.ed_tape, k["eacc"], etape,
                                  k["table"], d, depth["tape_slice"]),
             lambda: edops.run_tape(p["eacc"].clone(), etape, p["table"], d),
-            False,
             _bound(b * _digit_macs(ctx, *_ed_products(etape)),
                    2 * _nbytes(k["eacc"]) + _nbytes(k["table"])
                    + etape.nbytes))
@@ -732,12 +737,8 @@ def _fold_datum(rng):
             f"{ms_r:.4f} ms per tape op")
 
 
-def _compare(name, label, got, want, ctx, mod_n):
-    if mod_n:
-        g, w = _canon(got, ctx), _canon(want, ctx)
-        err = max(abs(x - y) for x, y in zip(g, w))
-    else:
-        err = _max_abs_err(got, want)
+def _compare(name, label, got, want):
+    err = _max_abs_err(got, want)
     if err != 0:
         raise AssertionError(f"{name} at {label}: kernel and plain version "
                              f"differ (max abs err {err})")
@@ -874,16 +875,17 @@ def _ptxas_lines(kernel: str) -> list:
     return out
 
 
-def _tape_ptxas() -> dict:
-    """What nvcc -Xptxas -v reported for each K1 instantiation (digits a
-    lane -> registers, stack frame and spill bytes), from the build log."""
+def _lanes_ptxas(kernel: str) -> dict:
+    """What nvcc -Xptxas -v reported for each instantiation of a lane-core
+    kernel template (digits a lane -> registers, stack frame and spill
+    bytes), from the build log."""
     from tpu_ecm_torch.limbs import build
     with open(build.library_path()[:-3] + ".log") as f:
         log = f.read().splitlines()
     out, digits = {}, None
     for line in log:
-        hit = re.search(r"Compiling entry function '_Z\d+tape_lanes_kernel"
-                        r"ILi(\d+)EE", line)
+        hit = re.search(rf"Compiling entry function '_Z\d+{kernel}ILi(\d+)EE",
+                        line)
         if hit:
             digits = int(hit.group(1))
             out[digits] = {}
@@ -904,28 +906,31 @@ def _tape_ptxas() -> dict:
     return out
 
 
-def _tape_line(label, r, nw, b) -> str:
-    """K1's geometry at nw digits and B curves (lanes a curve, curves a
-    block, blocks, resident warps per SM the card allows and warps per SM
-    the launch gives), its instantiation's ptxas report and its share of
-    the bound, added to its record r."""
+def _lanes_line(name, label, r, nw, b) -> str:
+    """A lane-core kernel's (K1's, K5's) geometry at nw digits and B curves
+    (lanes a curve, curves a block, blocks, resident warps per SM the card
+    allows and warps per SM the launch gives), its instantiation's ptxas
+    report and its share of the bound, added to its record r; K5's line
+    also gives its ms per live entry beside the one-thread kernel's."""
     import ctypes
     import torch
     from tpu_ecm_torch.limbs import build, kernels
+    k, kernel, occupancy = LANE_KERNELS[name]
     lanes, digits, per_block, blocks = kernels.tape_geometry(nw, b)
     per_sm = ctypes.c_int()
-    if build.library().tpuecm_tape_occupancy(lanes, digits,
-                                             ctypes.byref(per_sm)) != 0:
-        raise RuntimeError("K1: occupancy query refused")
+    if getattr(build.library(), occupancy)(lanes, digits,
+                                           ctypes.byref(per_sm)) != 0:
+        raise RuntimeError(f"{k}: occupancy query refused")
     warps = kernels.TAPE_BLOCK // 32
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     r.update(geometry=dict(
         lanes=lanes, digits=digits, curves_per_block=per_block,
         blocks=blocks, resident_warps_per_sm=per_sm.value * warps,
         launch_warps_per_sm=blocks * warps / sms),
-        ptxas=_tape_ptxas()[digits], share_of_bound=r["bound_ms"] / r["ms"])
+        ptxas=_lanes_ptxas(kernel)[digits],
+        share_of_bound=r["bound_ms"] / r["ms"])
     g, x = r["geometry"], r["ptxas"]
-    return (f"K1 at {label} (nw={nw}, B={b}): {g['lanes']} lanes a curve, "
+    line = (f"{k} at {label} (nw={nw}, B={b}): {g['lanes']} lanes a curve, "
             f"{g['digits']} digits a lane, {g['curves_per_block']} curves a "
             f"block, {g['blocks']} blocks, {g['resident_warps_per_sm']} "
             f"resident warps per SM allowed, {g['launch_warps_per_sm']:.2f} "
@@ -934,6 +939,12 @@ def _tape_line(label, r, nw, b) -> str:
             f"{x.get('spill_store_bytes')}/{x.get('spill_load_bytes')} "
             f"bytes spill stores/loads; {r['ms']:.3f} ms against the bound "
             f"{r['bound_ms']:.4f}: {100 * r['share_of_bound']:.2f}% of it")
+    if name == "replay":
+        old_ms, old_per = K5_ONE_THREAD[label]
+        line += (f"; {r['entries']} live entries, {r['ms_per_entry']:.6f} ms "
+                 f"per live entry (the one-thread kernel: {old_per:.5f} on "
+                 f"the same call, {old_ms:.3f} ms; {old_ms / r['ms']:.2f}x)")
+    return line
 
 
 def phase_kernels(record):
@@ -961,22 +972,21 @@ def phase_kernels(record):
         same = {}
         cases, slots = _kernel_cases(rng, ctx, b, depth, plain_b, same)
         shown = {k: v for k, v in depth.items() if k != "calls"}
-        for name, (kern, plain, mod_n, bound) in cases.items():
+        for name, (kern, plain, bound) in cases.items():
             # at M1277 the compared launch is the timed one: each runs for
             # seconds at these depths (the smoke's time limit)
             got, ms = _timed(kern, 1)
             if name in same and label in ("flagship", "M1277"):
                 # K6 on the same entries: the same digits, and its time
                 k6, k6_ms = _timed(same[name], 1)
-                _compare("replay_gather on K8's entries", label, got, k6,
-                         ctx, False)
+                _compare("replay_gather on K8's entries", label, got, k6)
                 same[name] = k6_ms / slots[name][0]
                 del k6
             with _graphed_products():
                 want, plain_ms = _timed(plain, 1)
             if plain_b is not None:
                 got = got[..., :plain_b]
-            err = _compare(name, label, got, want, ctx, mod_n)
+            err = _compare(name, label, got, want)
             worst[name] = max(worst.get(name, 0), err)
             del got, want
             if label == "flagship":
@@ -988,9 +998,10 @@ def phase_kernels(record):
                     _record(ms, plain_ms, bound, err, slots.get(name)),
                     plain_curves=plain_b, depth=shown)
         if label in ("flagship", "M1277"):
-            k1 = record["tape"] if label == "flagship" else \
-                record["tape"]["fold"]
-            print("  " + _tape_line(label, k1, nw, b), flush=True)
+            for name in LANE_KERNELS:
+                r = record[name] if label == "flagship" else \
+                    record[name]["fold"]
+                print("  " + _lanes_line(name, label, r, nw, b), flush=True)
             print("  " + _resident_line(label, record, depth, nw,
                                         same["replay_resident"]),
                   flush=True)
@@ -1013,7 +1024,7 @@ def phase_kernels(record):
             got = kern()
             with _graphed_products():
                 want, plain_ms = _timed(plain, 1)
-            err = _compare(name, label, got, want, ctx, False)
+            err = _compare(name, label, got, want)
             worst[name] = max(worst.get(name, 0), err)
             del got, want
             if label == "row21":

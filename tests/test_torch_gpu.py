@@ -1,8 +1,8 @@
 """Tests that need an NVIDIA GPU (marker `cuda`; they skip without one):
 the fifteen CUDA kernels against their plain PyTorch versions (the digit
-kernels in REDC and fold modes; K1 also at ragged batches and at every
-instantiation's edge nw, and a refused launch), the golden sweep and the reference's t35
-acceptance sweep through the port, and the RNS engine's, the Mersenne
+kernels in REDC and fold modes; K1 and K5 also at ragged batches and at
+every instantiation's edge nw, and a refused launch), the golden sweep
+and the reference's t35 acceptance sweep through the port, and the RNS engine's, the Mersenne
 fold's, the Edwards curves' and the stage-2 replay modes' finds through
 the driver on the card.
 
@@ -57,10 +57,10 @@ def _run_cfg(tmp_path, **kw):
 @pytest.mark.parametrize("modulus,b", [("N64", 128), ("N416", 2048),
                                        ("M127", 128), ("M1277", 2048)])
 def test_kernels_match_plain(cuda, modulus, b):
-    """K1-K4 and K6-K9 digit for digit, K5 mod n, against the plain
-    versions run on the same card tensors (chip_smoke.py's cases; K8 with
-    slabs of 8 rows): REDC at N64 and N416, the fold at M127 (with K9) and
-    M1277 (K1-K8, short stacks)."""
+    """K1-K9 digit for digit against the plain versions run on the same
+    card tensors (chip_smoke.py's cases; K8 with slabs of 8 rows): REDC at
+    N64 and N416, the fold at M127 (with K9) and M1277 (K1-K8, short
+    stacks)."""
     import numpy as np
 
     import chip_smoke
@@ -77,13 +77,10 @@ def test_kernels_match_plain(cuda, modulus, b):
     cases, _slots = chip_smoke._kernel_cases(rng, ctx, b, depth)
     assert ("ed_tape" in cases) == (modulus != "M1277")
     kernels.reset_launches()
-    for name, (kern, plain, mod_n, _bound) in cases.items():
+    for name, (kern, plain, _bound) in cases.items():
         got, want = kern(), plain()
         torch.cuda.synchronize()
-        if mod_n:
-            assert chip_smoke._canon(got, ctx) == chip_smoke._canon(want, ctx)
-        else:
-            assert torch.equal(got, want), name
+        assert torch.equal(got, want), name
         assert kernels.launches[name] >= 1, name
 
 
@@ -184,6 +181,79 @@ def test_tape_refused_launch_raises(cuda, monkeypatch):
     with pytest.raises(RuntimeError, match="launch failed"):
         kernels.tape(pts, np.asarray([[0, 0, 0, 0, 0]], np.int32), sc, d)
     assert kernels.launches["tape"] == 0
+
+
+def _k5_against_plain(ctx, b: int, entries: int, seed: int):
+    """K5 on a random replay block (chip_smoke._replay_idx: v-sorted live
+    entries over a 9-row Pa group and 13 Pb rows, 5 live pads, 3 entries
+    past the count) against kernels.replay_plain on the same card
+    tensors, digit for digit."""
+    import numpy as np
+
+    import chip_smoke
+    from tpu_ecm_torch.limbs import kernels, layout, torch_ops
+    d = torch_ops.device_ctx(ctx, "cuda")
+    rng = np.random.default_rng(seed)
+    nw, rows, pb_rows = ctx.p.nw, 9, 13
+    r = lambda *shape: chip_smoke._rand_planes(rng, ctx, shape + (nw, b))
+    one = torch.from_numpy(layout.broadcast_int(ctx.r_mod_n, ctx.p.w, nw,
+                                                b)).cuda()
+    acc, pa_ext, pbx = r(), torch.cat([r(rows), one[None]]), r(pb_rows)
+    pbx[0] = 0
+    idx = chip_smoke._replay_idx(rng, rows, pb_rows, entries)
+    want = kernels.replay_plain(acc, pa_ext, pbx, idx, d)
+    kernels.reset_launches()
+    got = kernels.replay(acc, pa_ext, pbx, idx, d)
+    torch.cuda.synchronize()
+    assert kernels.launches["replay"] == 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("fold", [False, True], ids=["redc", "fold"])
+@pytest.mark.parametrize("b", [1, 33, 100])
+def test_replay_ragged_batches(cuda, fold, b):
+    """K5 at batches that leave the last block part empty (B = 1, 33, 100),
+    at the flagship's N416 (REDC, 8 lanes a curve) and at M1277 (the fold,
+    16 lanes), live counts of every residue mod 4, against its plain
+    version digit for digit."""
+    import chip_smoke
+    from tpu_ecm_torch import params
+    ctx = (params.make_monty(chip_smoke.M1277, mersenne=(1277, 1)) if fold
+           else params.make_monty(chip_smoke.N416))
+    for entries in (40, 41, 42, 43):
+        _k5_against_plain(ctx, b, entries, b + entries)
+
+
+@pytest.mark.parametrize("nw,fold", [
+    (nw, fold) for nw in TAPE_EDGE_NW for fold in (False, True)
+    if nw > 2 or not fold])
+def test_replay_nw_edges(cuda, nw, fold):
+    """K5 at the edges of its instantiations (limbs/kernels.py:
+    tape_geometry, shared with K1) in both modes, at B = 5, against its
+    plain version."""
+    _k5_against_plain(_ctx_at_nw(nw, fold), 5, 24 + nw % 4, nw)
+
+
+def test_replay_refused_launch_raises(cuda, monkeypatch):
+    """A geometry that no instantiation of K5 takes (9 digits a lane) is
+    refused by the C entry point, the wrapper raises, and no launch is
+    counted."""
+    import numpy as np
+
+    import chip_smoke
+    from tpu_ecm_torch import params
+    from tpu_ecm_torch.limbs import kernels, torch_ops
+    ctx = params.make_monty(chip_smoke.N416)
+    d = torch_ops.device_ctx(ctx, "cuda")
+    acc = torch.zeros((ctx.p.nw, 32), dtype=torch.int32, device=cuda)
+    tab = torch.zeros((2, ctx.p.nw, 32), dtype=torch.int32, device=cuda)
+    monkeypatch.setattr(kernels, "tape_geometry",
+                        lambda nw, b: (4, 9, 32, 1))
+    kernels.reset_launches()
+    with pytest.raises(RuntimeError, match="launch failed"):
+        kernels.replay(acc, tab, tab, np.asarray([1, 1 << 16 | 1],
+                                                 np.int32), d)
+    assert kernels.launches["replay"] == 0
 
 
 @pytest.mark.parametrize("modulus,b", [("N256", 128), ("row21", 1024)])

@@ -1,13 +1,17 @@
 """Run the lane core of tpu_ecm_torch/csrc/arith_lanes.cuh (K1's
-arithmetic) on the CPU and hold it against its plain version.
+arithmetic) and K5's kernel body (csrc/replay.cu) on the CPU and hold them
+against their plain versions.
 
 The CUDA source is built by g++ against cuda_runtime.h beside this file,
 which runs every CUDA thread as a std::thread and shuffles through a
 per-warp buffer between barriers (see its header).  lanes_check.cpp's
 entry points run a product step per curve (a*b, a*a, or a*b written over
-a's slot, each paired with b*b) and the DUP and ADD programs; they are
-compared digit for digit with limbs/torch_ops.mulmod / sqrmod and
-curve/ops.xdbl / xadd on CPU tensors.  From the repository root:
+a's slot, each paired with b*b) and the DUP and ADD programs, and
+lanes_replay runs K5 on one call; they are compared digit for digit with
+limbs/torch_ops.mulmod / sqrmod, curve/ops.xdbl / xadd and
+limbs/kernels.replay_plain on CPU tensors.  K5's cp.async copies land at
+once and, in a second run, at their wait (cuda_pipeline_primitives.h).
+From the repository root:
 
     python tools/lane_shim/check.py              # -O2 build
     python tools/lane_shim/check.py --sanitize   # ASan + UBSan build
@@ -35,13 +39,15 @@ import torch  # noqa: E402
 
 from tpu_ecm_torch import params  # noqa: E402
 from tpu_ecm_torch.curve import ops as curve_ops  # noqa: E402
-from tpu_ecm_torch.limbs import build, kernels, torch_ops  # noqa: E402
+from tpu_ecm_torch.limbs import build, kernels, layout, torch_ops  # noqa: E402
 
 BUILD_DIR = os.path.join(REPO, "build", "lane_shim")
 SOURCES = (os.path.join(HERE, "cuda_runtime.h"),
            os.path.join(HERE, "lanes_check.cpp"),
+           os.path.join(HERE, "cuda_pipeline_primitives.h"),
            os.path.join(build.CSRC, "arith.cuh"),
-           os.path.join(build.CSRC, "arith_lanes.cuh"))
+           os.path.join(build.CSRC, "arith_lanes.cuh"),
+           os.path.join(build.CSRC, "replay.cu"))
 SANITIZE = ("-O1", "-g", "-fsanitize=address,undefined")
 
 
@@ -72,7 +78,10 @@ def load(path: str) -> ctypes.CDLL:
                               I]
     lib.lanes_point.argtypes = [P, P, P, P, P, I, I, I, I, I, I, I, I, I, I,
                                 I]
+    lib.lanes_replay.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, I, I,
+                                 I, I, I, I]
     lib.lanes_mul.restype = lib.lanes_point.restype = I
+    lib.lanes_replay.restype = I
     return lib
 
 
@@ -135,6 +144,59 @@ def compare(lib, ctx, b: int, lanes=None, seed: int = 0) -> list:
             for what, ok in res]
 
 
+def replay_call(ctx, b: int, count: int, seed: int = 0):
+    """A K5 call's inputs on CPU tensors: acc, pa_ext (G = 5 rows and the
+    one), pbx (7 rows, row 0 zero) and idx [count, e...] whose live entries
+    are v-sorted Pa runs that change inside quadruples (pa = i*G // n) with
+    random Pb rows, the last two pads G << 16 | 0 (count >= 3), followed by
+    three entries past count that must not be read."""
+    d = torch_ops.device_ctx(ctx, "cpu")
+    rng = np.random.default_rng(seed)
+    g, pb_rows = 5, 7
+    acc, *rows = _values(ctx, d, rng, 1 + g + pb_rows, b)
+    one = torch.from_numpy(layout.broadcast_int(ctx.r_mod_n, ctx.p.w,
+                                                ctx.p.nw, b))
+    pa_ext = torch.stack(rows[:g] + [one]).contiguous()
+    pbx = torch.stack(rows[g:]).contiguous()
+    pbx[0] = 0
+    pads = 2 if count >= 3 else 0
+    n = count - pads
+    pa = np.arange(n) * g // max(n, 1)
+    pb = rng.integers(0, pb_rows, n)
+    ent = np.concatenate([(pa << 16) | pb, np.full(pads, g << 16),
+                          (rng.integers(0, g, 3) << 16)
+                          | rng.integers(1, pb_rows, 3)])
+    idx = np.concatenate([[count], ent]).astype(np.int32)
+    return d, acc, pa_ext, pbx, idx
+
+
+def compare_replay(lib, ctx, b: int, count: int, lanes=None,
+                   seed: int = 0) -> list:
+    """(what, equal) of K5's kernel body on a replay_call of `count` live
+    entries at B curves against kernels.replay_plain, its Pb copies landing
+    at once and at their wait, at tape_geometry's lanes or at `lanes`."""
+    nw = ctx.p.nw
+    if lanes is None:
+        lanes, digits, _, _ = kernels.tape_geometry(nw, b)
+    else:
+        digits = max(2, -(-nw // lanes))
+    d, acc, pa_ext, pbx, idx = replay_call(ctx, b, count, seed)
+    want = kernels.replay_plain(acc, pa_ext, pbx, idx, d)
+    dev = torch.from_numpy(idx)
+    res = []
+    for late in (0, 1):
+        got = torch.full_like(acc, -7)
+        if lib.lanes_replay(acc.data_ptr(), got.data_ptr(),
+                            pa_ext.data_ptr(), pbx.data_ptr(),
+                            dev.data_ptr(), *_mod(d), b, lanes, digits,
+                            late):
+            raise ValueError(f"no instantiation for D={digits}")
+        res.append((f"nw={nw} L={lanes} D={digits} B={b} K5 count={count}"
+                    f" copies {('at once', 'at their wait')[late]}",
+                    torch.equal(got, want)))
+    return res
+
+
 N416 = (205688069665150755269371147819668813122841983204197482918578443
         * 411376139330301510538742295639337626245683966408394965837157771)
 # (modulus, mersenne, force_w, B, lanes): REDC with norm_inputs on and
@@ -149,6 +211,17 @@ CASES = (
     ((1 << 301) + 987654321, (301, -987654321), 9, 6, None),
     ((1 << 1277) - 1, (1277, 1), None, 3, None),
 )
+# K5's cases (modulus, mersenne, force_w, B, lanes): REDC at the flagship's
+# nw = 36 (two blocks, the second part empty) and with norm_inputs off
+# (nw = 43), the fold at M127 (nw = 10) and M1277 (nw = 118), and c = -1
+# at 8 lanes a curve; each at the live counts REPLAY_COUNTS
+REPLAY_CASES = (
+    (N416, None, None, 20, None), (N416, None, 10, 5, None),
+    ((1 << 127) - 1, (127, 1), None, 9, None),
+    ((1 << 1277) - 1, (1277, 1), None, 3, None),
+    ((1 << 201) + 1, (201, -1), None, 10, 8),
+)
+REPLAY_COUNTS = (0, 3, 8, 9, 10, 11)
 
 
 def main() -> int:
@@ -172,6 +245,12 @@ def main() -> int:
         for what, ok in compare(lib, ctx, b, lanes):
             print(f"{what}: {'equal' if ok else 'DIFFER'}", flush=True)
             bad += not ok
+    for n, mers, fw, b, lanes in REPLAY_CASES:
+        ctx = params.make_monty(n, mersenne=mers, force_w=fw)
+        for count in REPLAY_COUNTS:
+            for what, ok in compare_replay(lib, ctx, b, count, lanes):
+                print(f"{what}: {'equal' if ok else 'DIFFER'}", flush=True)
+                bad += not ok
     return 1 if bad else 0
 
 

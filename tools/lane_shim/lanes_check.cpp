@@ -4,11 +4,14 @@
 //   lanes_mul:   out = a*b (op 0), a*a (op 1), or a*b written over a's slot
 //                (op 2), paired in one step with out2 = b*b;
 //   lanes_point: the DUP (add = 0) or ADD (add = 1) program on
-//                in = [x, z, x2, z2, xd, zd] with s, into out = [x, z].
+//                in = [x, z, x2, z2, xd, zd] with s, into out = [x, z];
+//   lanes_replay: K5's kernel body (csrc/replay.cu) on one call, its Pb
+//                copies landing at once (late = 0) or at their wait (1).
 // Each returns 0, or 1 for a digit count with no instantiation.
 #include <cuda_runtime.h>
 
 #include "arith_lanes.cuh"
+#include "replay.cu"
 
 namespace {
 
@@ -58,14 +61,21 @@ void point_body(const int* in, int* out, const int* s, TPUECM_MOD_PARAMS,
     }
 }
 
+template <int D>
+void replay_body(const int* acc_in, int* acc_out, const int* pa_ext,
+                 const int* pbx, const int* idx, TPUECM_MOD_PARAMS, int B,
+                 int L) {
+    __shared__ Mod m;
+    replay_lanes<D>(m, smem_words, acc_in, acc_out, pa_ext, pbx, idx,
+                    TPUECM_MOD_ARGS, B, L);
+}
+
 int blocks_for(int B, int L) {
     const int per = TPUECM_TAPE_BLOCK / L;
     return (B + per - 1) / per;
 }
 
 }  // namespace
-
-#define LANES_DIGITS(X) X(2) X(3) X(4) X(5) X(6) X(7) X(8)
 
 extern "C" int lanes_mul(const int* a, const int* b, int* out, int* out2,
                          TPUECM_MOD_PARAMS, int B, int L, int D, int op) {
@@ -76,7 +86,7 @@ extern "C" int lanes_mul(const int* a, const int* b, int* out, int* out2,
             mul_body<d>(a, b, out, out2, TPUECM_MOD_ARGS, B, L, op);         \
         });                                                                  \
         return 0;
-        LANES_DIGITS(LANES_CASE)
+        TPUECM_LANE_DIGITS(LANES_CASE)
 #undef LANES_CASE
     }
     return 1;
@@ -91,7 +101,26 @@ extern "C" int lanes_point(const int* in, int* out, const int* s,
             point_body<d>(in, out, s, TPUECM_MOD_ARGS, B, L, add);           \
         });                                                                  \
         return 0;
-        LANES_DIGITS(LANES_CASE)
+        TPUECM_LANE_DIGITS(LANES_CASE)
+#undef LANES_CASE
+    }
+    return 1;
+}
+
+extern "C" int lanes_replay(const int* acc_in, int* acc_out,
+                            const int* pa_ext, const int* pbx,
+                            const int* idx, TPUECM_MOD_PARAMS, int B, int L,
+                            int D, int late) {
+    emu_copy_late = late != 0;
+    switch (D) {
+#define LANES_CASE(d)                                                        \
+    case d:                                                                  \
+        emu_launch(blocks_for(B, L), TPUECM_TAPE_BLOCK, [&] {                \
+            replay_body<d>(acc_in, acc_out, pa_ext, pbx, idx,                \
+                           TPUECM_MOD_ARGS, B, L);                           \
+        });                                                                  \
+        return 0;
+        TPUECM_LANE_DIGITS(LANES_CASE)
 #undef LANES_CASE
     }
     return 1;

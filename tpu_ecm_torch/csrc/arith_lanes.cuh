@@ -93,6 +93,10 @@ __host__ inline bool lanes_ok(int L) {
     return L == 4 || L == 8 || L == 16 || L == 32;
 }
 
+// X(D) for each digit count a lane that the lane-core kernels are
+// instantiated for, D = 2..8 (limbs/kernels.py:TAPE_DIGITS).
+#define TPUECM_LANE_DIGITS(X) X(2) X(3) X(4) X(5) X(6) X(7) X(8)
+
 // One lane's view of its curve: its index in the group, the curve's
 // buffers, and the modulus' scalars copied into registers (read from the
 // shared Mod, they would be loaded again after every shuffle and barrier,
@@ -572,3 +576,35 @@ __device__ __forceinline__ void run_steps(const int* prog, int steps,
         }
     }
 }
+
+#ifdef __CUDACC__
+// Launches an instantiation of a lane-core kernel over B curves at L lanes
+// a curve (TPUECM_TAPE_BLOCK / L curves a block) with lanes_smem_bytes(L,
+// D) of dynamic shared memory, which it allows first (above 48 KB a
+// block's must be); returns the refusal or cudaGetLastError().
+template <int D, typename... P, typename... A>
+__host__ inline int launch_lanes(void (*kernel)(P...), int L, int B,
+                                 cudaStream_t stream, A... args) {
+    const int per_block = TPUECM_TAPE_BLOCK / L;
+    const int blocks = (B + per_block - 1) / per_block;
+    const size_t smem = lanes_smem_bytes(L, D);
+    const cudaError_t rc = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (rc != cudaSuccess) {
+        cudaGetLastError();
+        return (int)rc;
+    }
+    kernel<<<blocks, TPUECM_TAPE_BLOCK, smem, stream>>>(args...);
+    return (int)cudaGetLastError();
+}
+
+// Resident blocks per SM of an instantiation of a lane-core kernel at L
+// lanes a curve; call after a launch of it, which allows its shared
+// memory.
+template <int D, typename... P>
+__host__ inline int lanes_occupancy(void (*kernel)(P...), int L,
+                                    int* blocks_per_sm) {
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks_per_sm, kernel, TPUECM_TAPE_BLOCK, lanes_smem_bytes(L, D));
+}
+#endif

@@ -80,60 +80,35 @@ tape_lanes_kernel(const int* __restrict__ tape, long long nsteps, int* pts,
     }
 }
 
-template <int D>
-static int launch_tape(const int* tape, long long nsteps, int* pts,
-                       const int* s_const, TPUECM_MOD_PARAMS, int B, int L,
-                       cudaStream_t stream) {
-    const int per_block = TPUECM_TAPE_BLOCK / L;
-    const int blocks = (B + per_block - 1) / per_block;
-    const size_t smem = lanes_smem_bytes(L, D);
-    // above 48 KB a block's dynamic shared memory must be allowed first
-    const cudaError_t rc = cudaFuncSetAttribute(
-        tape_lanes_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (rc != cudaSuccess) {
-        cudaGetLastError();
-        return (int)rc;
-    }
-    tape_lanes_kernel<D><<<blocks, TPUECM_TAPE_BLOCK, smem, stream>>>(
-        tape, nsteps, pts, s_const, TPUECM_MOD_ARGS, B, L);
-    return (int)cudaGetLastError();
-}
-
-// The instantiations, D = 2..8 digits a lane (limbs/kernels.py:TAPE_DIGITS).
-#define TPUECM_TAPE_DIGITS(X) X(2) X(3) X(4) X(5) X(6) X(7) X(8)
-
 extern "C" int tpuecm_tape(const int* tape, long long nsteps, int* pts,
                            const int* s_const, TPUECM_MOD_PARAMS, int B,
                            int lanes, int digits, void* stream) {
     if (!mod_args_ok(nw, e, cl, w) || B < 1 || !lanes_ok(lanes)
         || lanes * digits < nw)
         return (int)cudaErrorInvalidValue;
-    const cudaStream_t st = (cudaStream_t)stream;
     switch (digits) {
 #define TPUECM_CASE(d)                                                       \
     case d:                                                                  \
-        return launch_tape<d>(tape, nsteps, pts, s_const, TPUECM_MOD_ARGS,   \
-                              B, lanes, st);
-        TPUECM_TAPE_DIGITS(TPUECM_CASE)
+        return launch_lanes<d>(tape_lanes_kernel<d>, lanes, B,               \
+                               (cudaStream_t)stream, tape, nsteps, pts,      \
+                               s_const, TPUECM_MOD_ARGS, B, lanes);
+        TPUECM_LANE_DIGITS(TPUECM_CASE)
 #undef TPUECM_CASE
     }
     return (int)cudaErrorInvalidValue;
 }
 
 // Resident blocks per SM of the instantiation for `digits` at `lanes`
-// lanes a curve (chip_smoke.py prints it beside K1's times); call after a
-// launch of that instantiation, which allows its shared memory.
+// lanes a curve (chip_smoke.py prints it beside K1's times).
 extern "C" int tpuecm_tape_occupancy(int lanes, int digits,
                                      int* blocks_per_sm) {
     if (!lanes_ok(lanes)) return (int)cudaErrorInvalidValue;
     switch (digits) {
 #define TPUECM_CASE(d)                                                       \
     case d:                                                                  \
-        return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(           \
-            blocks_per_sm, tape_lanes_kernel<d>, TPUECM_TAPE_BLOCK,          \
-            lanes_smem_bytes(lanes, d));
-        TPUECM_TAPE_DIGITS(TPUECM_CASE)
+        return lanes_occupancy<d>(tape_lanes_kernel<d>, lanes,              \
+                                  blocks_per_sm);
+        TPUECM_LANE_DIGITS(TPUECM_CASE)
 #undef TPUECM_CASE
     }
     return (int)cudaErrorInvalidValue;

@@ -55,7 +55,8 @@ SIGNATURES = {
     "tpuecm_chain": [_P, _P, _P, _P, _I, *_MOD, _I, _P],
     "tpuecm_prefix": [_P, _P, _P, _I, *_MOD, _I, _P],
     "tpuecm_apply_inverse": [_P, _P, _P, _P, _P, _I, *_MOD, _I, _P],
-    "tpuecm_replay": [_P, _P, _P, _P, _P, *_MOD, _I, _P],
+    "tpuecm_replay": [_P, _P, _P, _P, _P, *_MOD, _I, _I, _I, _P],
+    "tpuecm_replay_occupancy": [_I, _I, _IP],
     "tpuecm_replay_gather": [_P, _P, _P, _P, _P, _I, _I, *_MOD, _I, _P],
     "tpuecm_replay_parow": [_P, _P, _P, _P, _P, _P, _I, _I, *_MOD, _I, _P],
     "tpuecm_replay_resident": [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I,

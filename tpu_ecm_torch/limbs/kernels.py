@@ -2,7 +2,9 @@
 the registry of every kernel of the port (the RNS engine's six wrappers
 are in limbs/rns_kernels.py and count their launches here too).  The digit
 kernels take both reductions of csrc/arith.cuh from one build: REDC for a
-generic n, the fold for a special form 2^e - c (ctx.is_mersenne).
+generic n, the fold for a special form 2^e - c (ctx.is_mersenne).  K1 and
+K5 run on its lane twin csrc/arith_lanes.cuh, several lanes per curve
+(tape_geometry); K2-K4 and K6-K9 one thread per curve.
 
 Each wrapper checks device, dtype, shape and contiguity, then routes on
 where its tensors lie: on the CPU it runs the kernel's plain PyTorch
@@ -87,11 +89,12 @@ launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 # tape entries per stage-1 kernel launch (K1, K9): keeps every launch
 # short
 TAPE_SLICE = 1 << 16
-# K1's geometry (csrc/tape.cu): a group of `lanes` threads works on one
-# curve, each lane holding `digits` digits of every operand in registers.
-# The lane counts it takes, the digit counts it is instantiated for
-# (tape.cu's dispatch), and the threads of a block (TPUECM_TAPE_BLOCK of
-# csrc/arith_lanes.cuh)
+# The geometry of the lane-core kernels K1 and K5 (csrc/tape.cu,
+# csrc/replay.cu on csrc/arith_lanes.cuh): a group of `lanes` threads works
+# on one curve, each lane holding `digits` digits of every operand in
+# registers.  The lane counts they take, the digit counts they are
+# instantiated for (the dispatch of each), and the threads of a block
+# (TPUECM_TAPE_BLOCK of csrc/arith_lanes.cuh)
 TAPE_LANES = (4, 8, 16, 32)
 TAPE_DIGITS = (2, 3, 4, 5, 6, 7, 8)
 TAPE_BLOCK = 128
@@ -196,15 +199,16 @@ def _done(name: str, rc: int) -> None:
 
 
 def tape_geometry(nw: int, b: int):
-    """(lanes, digits, curves_per_block, blocks) of K1 at nw digits and B
-    curves: the fewest lanes per curve (TAPE_LANES) that hold nw digits at
-    most TAPE_DIGITS[-1] digits a lane, digits = ceil(nw / lanes) (at
-    least TAPE_DIGITS[0]), TAPE_BLOCK threads a block."""
+    """(lanes, digits, curves_per_block, blocks) of the lane-core kernels
+    (K1, K5) at nw digits and B curves: the fewest lanes per curve
+    (TAPE_LANES) that hold nw digits at most TAPE_DIGITS[-1] digits a lane,
+    digits = ceil(nw / lanes) (at least TAPE_DIGITS[0]), TAPE_BLOCK threads
+    a block."""
     if not 2 <= nw <= build.NW_MAX:
-        raise ValueError(f"tape: no K1 instantiation covers nw={nw} "
-                         f"(2 <= nw <= {build.NW_MAX})")
+        raise ValueError(f"no lane-core (K1, K5) instantiation covers "
+                         f"nw={nw} (2 <= nw <= {build.NW_MAX})")
     if b < 1:
-        raise ValueError(f"tape: batch must be >= 1, got {b}")
+        raise ValueError(f"lane core (K1, K5): batch must be >= 1, got {b}")
     for lanes in TAPE_LANES:
         digits = max(-(-nw // lanes), TAPE_DIGITS[0])
         if digits <= TAPE_DIGITS[-1]:
@@ -329,8 +333,9 @@ def apply_inverse(xs: torch.Tensor, zs: torch.Tensor, pres: torch.Tensor,
 def replay(acc: torch.Tensor, pa_ext: torch.Tensor, pbx: torch.Tensor,
            idx: np.ndarray, ctx: DeviceCtx) -> torch.Tensor:
     """K5: acc * prod over the idx[0] live entries e = pa << 16 | pb of
-    (pa_ext[pa] - pbx[pb]); idx is host int32 [1 + T].  Returns a new
-    [NW, B] plane, equal mod n to the plain version."""
+    (pa_ext[pa] - pbx[pb]); idx is host int32 [1 + T].  The kernel runs at
+    tape_geometry's lanes and digits per curve.  Returns a new [NW, B]
+    plane, digit for digit the plain version's."""
     nw, b = ctx.p.nw, int(acc.shape[-1])
     pa_rows, pb_rows = int(pa_ext.shape[0]), int(pbx.shape[0])
     _check("replay", "acc", acc, (nw, b), ctx)
@@ -345,11 +350,12 @@ def replay(acc: torch.Tensor, pa_ext: torch.Tensor, pbx: torch.Tensor,
         raise ValueError("replay: entry row outside pa_ext / pbx")
     if _on_cpu("replay", ctx):
         return replay_plain(acc, pa_ext, pbx, idx, ctx)
+    lanes, digits, _per_block, _blocks = tape_geometry(nw, b)
     out = torch.empty_like(acc)
     dev = torch.from_numpy(idx).to(acc.device)
     _done("replay", build.library().tpuecm_replay(
         acc.data_ptr(), out.data_ptr(), pa_ext.data_ptr(), pbx.data_ptr(),
-        dev.data_ptr(), *_mod(ctx), b, _stream()))
+        dev.data_ptr(), *_mod(ctx), b, lanes, digits, _stream()))
     return out
 
 

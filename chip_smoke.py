@@ -24,12 +24,12 @@ result and its seconds; any failure raises and exits non-zero.
               partitioned by slabs of the rows a block's shared memory
               holds on this card; a 256-op Edwards tape);
               the same nine in fold mode at M127 = 2^127-1/B=128 on short
-              stacks, and K1-K8 in fold mode at M1277 = 2^1277-1 (w=11,
-              nw=118)/B=2048 at the mersenne job's depths (the same
-              256-op tape over three launches, the Pa group the memory
-              rule picks, the job's Pb table and first replay calls),
-              each timed by its compared launch, with the plain versions
-              run on the first 128 curves; digits equal for K1-K9 (K5's
+              stacks, and at M1277 = 2^1277-1 (w=11, nw=118)/B=2048 at
+              the mersenne job's depths (the same 256-op tapes over three
+              launches, the Pa group the memory rule picks, the job's Pb
+              table and first replay calls), each timed by its compared
+              launch, with the plain versions run on the first 128
+              curves; digits equal for K1-K9 (K5's
               plain version at these depths runs in blocks of
               kernels.PLAIN_REPLAY_BLOCK entries, a multiple of 4, so its
               quadruples are the kernel's); K8's slabs, slab height, shared
@@ -42,12 +42,13 @@ result and its seconds; any failure raises and exits non-zero.
               (a 256-op tape over three launches, the Pa group the memory
               rule picks, the rns job's 963-row Pb table and first replay
               calls); residues equal, every one;
-              K1's and K5's lines at both main-path depths give their
-              geometry (lanes a curve, digits a lane, curves a block,
-              blocks, resident and launched warps per SM), their
+              K1's, K5's and K9's lines at both main-path depths give
+              their geometry (lanes a curve, digits a lane, curves a
+              block, blocks, resident and launched warps per SM), their
               instantiation's ptxas report (registers, stack frame,
               spills) and their share of the bound, K5's also its ms per
-              live entry beside the one-thread kernel's (_lanes_line);
+              live entry and K9's its ms beside the one-thread kernel's
+              (_lanes_line);
               the plain versions run their single-plane products from
               CUDA graphs (_graphed_products); the replay kernels' bounds
               count a product per live entry, and their lines give the
@@ -188,6 +189,7 @@ HBM_BYTES_PER_S = 3.35e12
 LANE_KERNELS = {
     "tape": ("K1", "tape_lanes_kernel", "tpuecm_tape_occupancy"),
     "replay": ("K5", "replay_lanes_kernel", "tpuecm_replay_occupancy"),
+    "ed_tape": ("K9", "ed_tape_lanes_kernel", "tpuecm_ed_tape_occupancy"),
 }
 # K5 on the one-thread core (csrc/arith.cuh) before it moved to the lane
 # core, on this smoke's first replay call at each main-path depth: ms per
@@ -195,6 +197,11 @@ LANE_KERNELS = {
 # 700 W)
 K5_ONE_THREAD = {"flagship": (2591.990, 0.03955),
                  "M1277": (10594.312, 0.21363)}
+# K9 on the one-thread core before it moved to the lane core: ms per
+# 256-op Edwards tape over three launches at each main-path depth (the
+# flagship's from this smoke's phase 2, M1277's from tools/ed_tape_time.py;
+# PERF.md section 6, NVIDIA H100 80GB HBM3, 700 W)
+K9_ONE_THREAD = {"flagship": 66.910, "M1277": 344.119}
 
 
 def _ops(engine: str):
@@ -443,11 +450,11 @@ def _tape_products(tape):
 
 def _ed_products(tape):
     """(products, squares) of a K9 tape: DBL 3M+4S, DBLT 4M+4S, ADD and
-    SUB 7M, NOP none."""
+    SUB 6M (A, B, C, X3, Y3, Z3), NOP none."""
     ops = tape[:, 0]
     dbl, dblt = int((ops == 0).sum()), int((ops == 1).sum())
     adds = int(((ops == 2) | (ops == 3)).sum())
-    return 3 * dbl + 4 * dblt + 7 * adds, 4 * (dbl + dblt)
+    return 3 * dbl + 4 * dblt + 6 * adds, 4 * (dbl + dblt)
 
 
 def _kernel_cases(rng, ctx, b, depth=SHORT, plain_b=None, same=None):
@@ -907,11 +914,12 @@ def _lanes_ptxas(kernel: str) -> dict:
 
 
 def _lanes_line(name, label, r, nw, b) -> str:
-    """A lane-core kernel's (K1's, K5's) geometry at nw digits and B curves
-    (lanes a curve, curves a block, blocks, resident warps per SM the card
-    allows and warps per SM the launch gives), its instantiation's ptxas
-    report and its share of the bound, added to its record r; K5's line
-    also gives its ms per live entry beside the one-thread kernel's."""
+    """A lane-core kernel's (K1's, K5's, K9's) geometry at nw digits and B
+    curves (lanes a curve, curves a block, blocks, resident warps per SM
+    the card allows and warps per SM the launch gives), its
+    instantiation's ptxas report and its share of the bound, added to its
+    record r; K5's line also gives its ms per live entry, and K9's its ms,
+    beside the one-thread kernel's."""
     import ctypes
     import torch
     from tpu_ecm_torch.limbs import build, kernels
@@ -944,12 +952,16 @@ def _lanes_line(name, label, r, nw, b) -> str:
         line += (f"; {r['entries']} live entries, {r['ms_per_entry']:.6f} ms "
                  f"per live entry (the one-thread kernel: {old_per:.5f} on "
                  f"the same call, {old_ms:.3f} ms; {old_ms / r['ms']:.2f}x)")
+    if name == "ed_tape":
+        old_ms = K9_ONE_THREAD[label]
+        line += (f"; the one-thread kernel: {old_ms:.3f} ms on a 256-op "
+                 f"tape ({old_ms / r['ms']:.2f}x)")
     return line
 
 
 def phase_kernels(record):
     """Fills record[name] with the main-path timing of every kernel (and
-    record[name]["fold"] with K1-K7's at M1277, the mersenne job's
+    record[name]["fold"] with K1-K9's at M1277, the mersenne job's
     depths)."""
     import numpy as np
     import torch
@@ -966,8 +978,8 @@ def phase_kernels(record):
         depth, plain_b = {
             "flagship": (main_path_depth(nw, nw, b, FLAGSHIP, ed_ops=256,
                                          cap=cap), None),
-            "M1277": (main_path_depth(nw, nw, b, MERSENNE_JOB, cap=cap),
-                      PLAIN_CURVES),
+            "M1277": (main_path_depth(nw, nw, b, MERSENNE_JOB, ed_ops=256,
+                                      cap=cap), PLAIN_CURVES),
         }.get(label, (SHORT, None))
         same = {}
         cases, slots = _kernel_cases(rng, ctx, b, depth, plain_b, same)
@@ -1051,8 +1063,8 @@ def phase_kernels(record):
     torch.cuda.empty_cache()
     return ("K1-K9 equal their plain versions at N64/B=128 (short "
             "stacks), 416-bit/B=2048 (main-path depths) and, in fold mode, "
-            "M127/B=128; K1-K8 in fold mode at M1277/B=2048 (the mersenne "
-            f"job's depths, plain on {PLAIN_CURVES} curves); K10-K15 "
+            "M127/B=128 and M1277/B=2048 (the mersenne job's depths, "
+            f"plain on {PLAIN_CURVES} curves); K10-K15 "
             "at N256/B=128 (short stacks) and row 21/B=1024 (main-path "
             "depths); " + cross + "; " + fold)
 

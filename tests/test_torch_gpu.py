@@ -1,7 +1,7 @@
 """Tests that need an NVIDIA GPU (marker `cuda`; they skip without one):
 the fifteen CUDA kernels against their plain PyTorch versions (the digit
-kernels in REDC and fold modes; K1 and K5 also at ragged batches and at
-every instantiation's edge nw, and a refused launch), the golden sweep
+kernels in REDC and fold modes; K1, K5 and K9 also at ragged batches and
+at every instantiation's edge nw, and a refused launch), the golden sweep
 and the reference's t35 acceptance sweep through the port, and the RNS engine's, the Mersenne
 fold's, the Edwards curves' and the stage-2 replay modes' finds through
 the driver on the card.
@@ -58,9 +58,8 @@ def _run_cfg(tmp_path, **kw):
                                        ("M127", 128), ("M1277", 2048)])
 def test_kernels_match_plain(cuda, modulus, b):
     """K1-K9 digit for digit against the plain versions run on the same
-    card tensors (chip_smoke.py's cases; K8 with slabs of 8 rows): REDC at
-    N64 and N416, the fold at M127 (with K9) and M1277 (K1-K8, short
-    stacks)."""
+    card tensors (chip_smoke.py's cases, short stacks; K8 with slabs of 8
+    rows): REDC at N64 and N416, the fold at M127 and M1277."""
     import numpy as np
 
     import chip_smoke
@@ -71,11 +70,8 @@ def test_kernels_match_plain(cuda, modulus, b):
     mers = (n.bit_length(), 1) if modulus.startswith("M") else None
     ctx = params.make_monty(n, mersenne=mers)
     rng = np.random.default_rng(7)
-    depth = chip_smoke.SHORT
-    if modulus == "M1277":
-        depth = dict(depth, ed_ops=None)
-    cases, _slots = chip_smoke._kernel_cases(rng, ctx, b, depth)
-    assert ("ed_tape" in cases) == (modulus != "M1277")
+    cases, _slots = chip_smoke._kernel_cases(rng, ctx, b, chip_smoke.SHORT)
+    assert "ed_tape" in cases
     kernels.reset_launches()
     for name, (kern, plain, _bound) in cases.items():
         got, want = kern(), plain()
@@ -254,6 +250,80 @@ def test_replay_refused_launch_raises(cuda, monkeypatch):
         kernels.replay(acc, tab, tab, np.asarray([1, 1 << 16 | 1],
                                                  np.int32), d)
     assert kernels.launches["replay"] == 0
+
+
+def _k9_against_plain(ctx, b: int, ops: int, seed: int):
+    """K9 over the first `ops` entries of the B1=1000 Edwards stage-1 tape
+    with an add of table row 0, a subtraction of row Tp - 1 (each after a
+    DBLT) and a NOP appended, against curve.edops.run_tape on the same
+    card tensors, digit for digit."""
+    import numpy as np
+
+    import chip_smoke
+    from tpu_ecm_torch.curve import edops, edwards
+    from tpu_ecm_torch.limbs import kernels, torch_ops
+    from tpu_ecm_torch.primes import primes_range
+    tp = 1 << (edwards.DEFAULT_W - 2)
+    tape = edwards.stage1_tape(primes_range(0, 1000), 1000)[0][:ops]
+    tape = np.concatenate([tape, [[edwards.ED_DBLT, 0], [edwards.ED_ADD, 0],
+                                  [edwards.ED_DBLT, 0],
+                                  [edwards.ED_SUB, tp - 1],
+                                  [edwards.ED_NOP, 1]]]).astype(np.int32)
+    d = torch_ops.device_ctx(ctx, "cuda")
+    rng = np.random.default_rng(seed)
+    nw = ctx.p.nw
+    acc = chip_smoke._rand_planes(rng, ctx, (4, nw, b))
+    table = chip_smoke._rand_planes(rng, ctx, (tp, 3, nw, b))
+    want = edops.run_tape(acc.clone(), tape, table, d)
+    kernels.reset_launches()
+    got = kernels.ed_tape(acc.clone(), tape, table, d)
+    torch.cuda.synchronize()
+    assert kernels.launches["ed_tape"] == 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("fold", [False, True], ids=["redc", "fold"])
+@pytest.mark.parametrize("b", [1, 33, 100])
+def test_ed_tape_ragged_batches(cuda, fold, b):
+    """K9 at batches that leave the last block part empty (B = 1, 33, 100),
+    at the flagship's N416 (REDC, 8 lanes a curve) and at M1277 (the fold,
+    16 lanes), against its plain version digit for digit."""
+    import chip_smoke
+    from tpu_ecm_torch import params
+    ctx = (params.make_monty(chip_smoke.M1277, mersenne=(1277, 1)) if fold
+           else params.make_monty(chip_smoke.N416))
+    _k9_against_plain(ctx, b, 24, b)
+
+
+@pytest.mark.parametrize("nw,fold", [
+    (nw, fold) for nw in TAPE_EDGE_NW for fold in (False, True)
+    if nw > 2 or not fold])
+def test_ed_tape_nw_edges(cuda, nw, fold):
+    """K9 at the edges of its instantiations (limbs/kernels.py:
+    tape_geometry, shared with K1 and K5) in both modes, at B = 5, against
+    its plain version."""
+    _k9_against_plain(_ctx_at_nw(nw, fold), 5, 12, nw)
+
+
+def test_ed_tape_refused_launch_raises(cuda, monkeypatch):
+    """A geometry that no instantiation of K9 takes (9 digits a lane) is
+    refused by the C entry point, the wrapper raises, and no launch is
+    counted."""
+    import numpy as np
+
+    import chip_smoke
+    from tpu_ecm_torch import params
+    from tpu_ecm_torch.limbs import kernels, torch_ops
+    ctx = params.make_monty(chip_smoke.N416)
+    d = torch_ops.device_ctx(ctx, "cuda")
+    acc = torch.zeros((4, ctx.p.nw, 32), dtype=torch.int32, device=cuda)
+    tab = torch.zeros((16, 3, ctx.p.nw, 32), dtype=torch.int32, device=cuda)
+    monkeypatch.setattr(kernels, "tape_geometry",
+                        lambda nw, b: (4, 9, 32, 1))
+    kernels.reset_launches()
+    with pytest.raises(RuntimeError, match="launch failed"):
+        kernels.ed_tape(acc, np.asarray([[0, 0]], np.int32), tab, d)
+    assert kernels.launches["ed_tape"] == 0
 
 
 @pytest.mark.parametrize("modulus,b", [("N256", 128), ("row21", 1024)])

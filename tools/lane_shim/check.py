@@ -1,15 +1,16 @@
 """Run the lane core of tpu_ecm_torch/csrc/arith_lanes.cuh (K1's
-arithmetic) and K5's kernel body (csrc/replay.cu) on the CPU and hold them
-against their plain versions.
+arithmetic) and the kernel bodies of K5 (csrc/replay.cu) and K9
+(csrc/ed_tape.cu) on the CPU and hold them against their plain versions.
 
 The CUDA source is built by g++ against cuda_runtime.h beside this file,
 which runs every CUDA thread as a std::thread and shuffles through a
 per-warp buffer between barriers (see its header).  lanes_check.cpp's
 entry points run a product step per curve (a*b, a*a, or a*b written over
-a's slot, each paired with b*b) and the DUP and ADD programs, and
-lanes_replay runs K5 on one call; they are compared digit for digit with
-limbs/torch_ops.mulmod / sqrmod, curve/ops.xdbl / xadd and
-limbs/kernels.replay_plain on CPU tensors.  K5's cp.async copies land at
+a's slot, each paired with b*b) and the DUP and ADD programs,
+lanes_replay runs K5 on one call and lanes_ed_tape K9 on one Edwards tape;
+they are compared digit for digit with limbs/torch_ops.mulmod / sqrmod,
+curve/ops.xdbl / xadd, limbs/kernels.replay_plain and curve/edops.run_tape
+on CPU tensors.  K5's cp.async copies land at
 once and, in a second run, at their wait (cuda_pipeline_primitives.h).
 From the repository root:
 
@@ -38,6 +39,7 @@ sys.path.insert(0, REPO)
 import torch  # noqa: E402
 
 from tpu_ecm_torch import params  # noqa: E402
+from tpu_ecm_torch.curve import edops, edwards  # noqa: E402
 from tpu_ecm_torch.curve import ops as curve_ops  # noqa: E402
 from tpu_ecm_torch.limbs import build, kernels, layout, torch_ops  # noqa: E402
 
@@ -47,7 +49,8 @@ SOURCES = (os.path.join(HERE, "cuda_runtime.h"),
            os.path.join(HERE, "cuda_pipeline_primitives.h"),
            os.path.join(build.CSRC, "arith.cuh"),
            os.path.join(build.CSRC, "arith_lanes.cuh"),
-           os.path.join(build.CSRC, "replay.cu"))
+           os.path.join(build.CSRC, "replay.cu"),
+           os.path.join(build.CSRC, "ed_tape.cu"))
 SANITIZE = ("-O1", "-g", "-fsanitize=address,undefined")
 
 
@@ -80,8 +83,10 @@ def load(path: str) -> ctypes.CDLL:
                                 I]
     lib.lanes_replay.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, I, I,
                                  I, I, I, I]
+    lib.lanes_ed_tape.argtypes = [P, ctypes.c_longlong, P, P, P, P, I, I, I,
+                                  I, I, I, I, I, I, I]
     lib.lanes_mul.restype = lib.lanes_point.restype = I
-    lib.lanes_replay.restype = I
+    lib.lanes_replay.restype = lib.lanes_ed_tape.restype = I
     return lib
 
 
@@ -197,6 +202,70 @@ def compare_replay(lib, ctx, b: int, count: int, lanes=None,
     return res
 
 
+def ed_tape_ops(rng, ops: int, tp: int) -> np.ndarray:
+    """A [ops, 2] Edwards tape (ops >= 8) holding every opcode (ED_DBL,
+    ED_DBLT, ED_ADD, ED_SUB, ED_NOP) in random order, its adds and
+    subtractions reading table rows 0 and tp - 1 and random rows between;
+    the args of the other ops are random too (the kernel must not read
+    them)."""
+    op = rng.integers(edwards.ED_DBL, edwards.ED_NOP + 1, ops)
+    op[:8] = rng.permutation([edwards.ED_DBL, edwards.ED_DBLT, edwards.ED_ADD,
+                              edwards.ED_SUB, edwards.ED_NOP, edwards.ED_ADD,
+                              edwards.ED_SUB, edwards.ED_DBL])
+    arg = rng.integers(0, tp, ops)
+    adds = np.flatnonzero((op == edwards.ED_ADD) | (op == edwards.ED_SUB))
+    arg[adds[0]], arg[adds[-1]] = 0, tp - 1
+    return np.stack([op, arg], 1).astype(np.int32)
+
+
+def ed_state(ctx, b: int, tp: int, seed: int = 0):
+    """Random K9 inputs on CPU tensors: an accumulator [4, NW, B] of
+    products (as every op leaves it) and a window table [tp, 3, NW, B] of
+    reduced values (as the host packs it)."""
+    d = torch_ops.device_ctx(ctx, "cpu")
+    rng = np.random.default_rng(seed)
+    p = ctx.p
+    k = (p.nbits - 1) // p.w
+
+    def reduced(*shape):
+        a = np.zeros(shape + (p.nw, b), np.int32)
+        a[..., :k, :] = rng.integers(0, 1 << p.w, shape + (k, b))
+        return torch.from_numpy(a)
+
+    acc = torch_ops.mulmod(reduced(4), reduced(4), d, pre=True).contiguous()
+    return d, acc, reduced(tp, 3)
+
+
+def run_ed_tape(lib, d, acc, tape, table, lanes, digits) -> torch.Tensor:
+    """K9's kernel body over a copy of acc; returns the copy."""
+    got = acc.clone()
+    t = torch.from_numpy(np.ascontiguousarray(tape, dtype=np.int32))
+    if lib.lanes_ed_tape(t.data_ptr(), t.shape[0], got.data_ptr(),
+                         table.data_ptr(), *_mod(d), int(acc.shape[-1]),
+                         lanes, digits):
+        raise ValueError(f"no instantiation for D={digits}")
+    return got
+
+
+def compare_ed_tape(lib, ctx, b: int, ops: int, lanes=None,
+                    seed: int = 0) -> list:
+    """(what, equal) of K9's kernel body on an ed_tape_ops tape of `ops`
+    ops over ed_state at B curves against curve/edops.run_tape, at
+    tape_geometry's lanes or at `lanes`."""
+    nw = ctx.p.nw
+    if lanes is None:
+        lanes, digits, _, _ = kernels.tape_geometry(nw, b)
+    else:
+        digits = max(2, -(-nw // lanes))
+    tp = 1 << (edwards.DEFAULT_W - 2)
+    d, acc, table = ed_state(ctx, b, tp, seed)
+    tape = ed_tape_ops(np.random.default_rng(seed + 1), ops, tp)
+    want = edops.run_tape(acc.clone(), tape, table, d)
+    got = run_ed_tape(lib, d, acc, tape, table, lanes, digits)
+    return [(f"nw={nw} L={lanes} D={digits} B={b} K9 ops={ops}",
+             torch.equal(got, want))]
+
+
 N416 = (205688069665150755269371147819668813122841983204197482918578443
         * 411376139330301510538742295639337626245683966408394965837157771)
 # (modulus, mersenne, force_w, B, lanes): REDC with norm_inputs on and
@@ -222,6 +291,18 @@ REPLAY_CASES = (
     ((1 << 201) + 1, (201, -1), None, 10, 8),
 )
 REPLAY_COUNTS = (0, 3, 8, 9, 10, 11)
+# K9's cases (modulus, mersenne, force_w, B, lanes, ops): REDC at the
+# flagship's nw = 36 with norm_inputs on and off (w = 10, nw = 43), the
+# fold at M127, at a pseudo-Mersenne 2^200 - c of three digits of c and at
+# M1277 (nw = 118, 16 lanes of 8 digits), and c = -1 at 4 lanes a curve;
+# every B leaves its last block part empty
+ED_CASES = (
+    (N416, None, None, 20, None, 24), (N416, None, 10, 9, None, 24),
+    ((1 << 127) - 1, (127, 1), None, 37, None, 24),
+    ((1 << 200) - 1234567890123, (200, 1234567890123), None, 10, None, 24),
+    ((1 << 1277) - 1, (1277, 1), None, 3, None, 10),
+    ((1 << 201) + 1, (201, -1), None, 33, 4, 16),
+)
 
 
 def main() -> int:
@@ -243,6 +324,11 @@ def main() -> int:
     for n, mers, fw, b, lanes in CASES:
         ctx = params.make_monty(n, mersenne=mers, force_w=fw)
         for what, ok in compare(lib, ctx, b, lanes):
+            print(f"{what}: {'equal' if ok else 'DIFFER'}", flush=True)
+            bad += not ok
+    for n, mers, fw, b, lanes, ops in ED_CASES:
+        ctx = params.make_monty(n, mersenne=mers, force_w=fw)
+        for what, ok in compare_ed_tape(lib, ctx, b, ops, lanes):
             print(f"{what}: {'equal' if ok else 'DIFFER'}", flush=True)
             bad += not ok
     for n, mers, fw, b, lanes in REPLAY_CASES:

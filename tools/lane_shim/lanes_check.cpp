@@ -6,11 +6,14 @@
 //   lanes_point: the DUP (add = 0) or ADD (add = 1) program on
 //                in = [x, z, x2, z2, xd, zd] with s, into out = [x, z];
 //   lanes_replay: K5's kernel body (csrc/replay.cu) on one call, its Pb
-//                copies landing at once (late = 0) or at their wait (1).
+//                copies landing at once (late = 0) or at their wait (1);
+//   lanes_ed_tape: K9's kernel body (csrc/ed_tape.cu) on one tape, over
+//                acc [4, NW, B] in place with the table [Tp, 3, NW, B].
 // Each returns 0, or 1 for a digit count with no instantiation.
 #include <cuda_runtime.h>
 
 #include "arith_lanes.cuh"
+#include "ed_tape.cu"
 #include "replay.cu"
 
 namespace {
@@ -70,6 +73,14 @@ void replay_body(const int* acc_in, int* acc_out, const int* pa_ext,
                     TPUECM_MOD_ARGS, B, L);
 }
 
+template <int D>
+void ed_tape_body(const int* tape, long long nsteps, int* acc,
+                  const int* table, TPUECM_MOD_PARAMS, int B, int L) {
+    __shared__ Mod m;
+    ed_tape_lanes<D>(m, smem_words, tape, nsteps, acc, table,
+                     TPUECM_MOD_ARGS, B, L);
+}
+
 int blocks_for(int B, int L) {
     const int per = TPUECM_TAPE_BLOCK / L;
     return (B + per - 1) / per;
@@ -118,6 +129,23 @@ extern "C" int lanes_replay(const int* acc_in, int* acc_out,
         emu_launch(blocks_for(B, L), TPUECM_TAPE_BLOCK, [&] {                \
             replay_body<d>(acc_in, acc_out, pa_ext, pbx, idx,                \
                            TPUECM_MOD_ARGS, B, L);                           \
+        });                                                                  \
+        return 0;
+        TPUECM_LANE_DIGITS(LANES_CASE)
+#undef LANES_CASE
+    }
+    return 1;
+}
+
+extern "C" int lanes_ed_tape(const int* tape, long long nsteps, int* acc,
+                             const int* table, TPUECM_MOD_PARAMS, int B,
+                             int L, int D) {
+    switch (D) {
+#define LANES_CASE(d)                                                        \
+    case d:                                                                  \
+        emu_launch(blocks_for(B, L), TPUECM_TAPE_BLOCK, [&] {                \
+            ed_tape_body<d>(tape, nsteps, acc, table, TPUECM_MOD_ARGS, B,    \
+                            L);                                              \
         });                                                                  \
         return 0;
         TPUECM_LANE_DIGITS(LANES_CASE)

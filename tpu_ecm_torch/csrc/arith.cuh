@@ -113,10 +113,6 @@ __device__ __forceinline__ void sub_digits(int* o, const int* a, const int* b,
     for (int j = 0; j < nw; ++j) o[j] = (int)((uint32_t)a[j] - (uint32_t)b[j]);
 }
 
-// o = -x digit by digit (the Edwards formulas' H = -(A+B), C = -C)
-__device__ __forceinline__ void neg_digits(int* o, const int* x, int nw) {
-    for (int j = 0; j < nw; ++j) o[j] = (int)(0u - (uint32_t)x[j]);
-}
 
 // One lazy pass over `rows` digits in place: x_j := (x_j mod 2^w) +
 // (x_{j-1} >> w), the top digit kept unsplit (jnp_ops._lazy_pass).  Walking

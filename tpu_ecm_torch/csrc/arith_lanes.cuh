@@ -246,6 +246,16 @@ __device__ __forceinline__ void addsub_slots(int* dst, const int* a,
     for (int j = 0; j < D; ++j) dst[g.l * D + j] = x[j];
 }
 
+// dst = -a on this lane's digits (0u - x: the Edwards formulas' H = -(A+B)
+// and C = -C), with no lazy pass after it; dst may be a.
+template <int D>
+__device__ __forceinline__ void neg_slots(int* dst, const int* a,
+                                          const Group& g) {
+#pragma unroll
+    for (int j = 0; j < D; ++j)
+        dst[g.l * D + j] = (int)(0u - (uint32_t)a[g.l * D + j]);
+}
+
 // The columns c = l + k*L (k < 2D) of a[p] * b[p] (slots): for each r < L
 // and i, q <= D, a[i*L + r] (a broadcast within the group) times
 // b[l - r + q*L] lands in column (i + q)*L + l.  b's index runs from
@@ -514,15 +524,21 @@ __device__ __forceinline__ void mul_slots(int* const (&dst)[P],
 
 // A point operation as a program of steps on the slots, so that a kernel
 // holds one copy of the product.  A step is an ADD or SUB (d = a + b or
-// a - b, then norm_inputs mode's pass) or a MUL of TPUECM_PAIR products
-// (d = a*b and d2 = a2*b2), packed as kind | d << 4 | a << 8 | b << 12 |
-// d2 << 16 | a2 << 20 | b2 << 24.
-enum { STEP_ADD, STEP_SUB, STEP_MUL };
+// a - b, then norm_inputs mode's pass), a MUL of TPUECM_PAIR products
+// (d = a*b and d2 = a2*b2) or a NEG (d = 0 - a on every digit, no pass:
+// the Edwards formulas' negations, run only by runners that ask for it),
+// packed as kind | d << 4 | a << 8 | b << 12 | d2 << 16 | a2 << 20 |
+// b2 << 24 (slot numbers; TPUECM_STEP and TPUECM_MUL2 name the slots).
+enum { STEP_ADD, STEP_SUB, STEP_MUL, STEP_NEG };
+#define TPUECM_PACK(kind, d, a, b) \
+    ((kind) | (d) << 4 | (a) << 8 | (b) << 12)
+#define TPUECM_PACK2(d, a, b, d2, a2, b2) \
+    (TPUECM_PACK(STEP_MUL, d, a, b) | (d2) << 16 | (a2) << 20 | (b2) << 24)
 #define TPUECM_STEP(kind, d, a, b) \
-    ((kind) | (SLOT_##d) << 4 | (SLOT_##a) << 8 | (SLOT_##b) << 12)
+    TPUECM_PACK(kind, SLOT_##d, SLOT_##a, SLOT_##b)
 #define TPUECM_MUL2(d, a, b, d2, a2, b2)                                     \
-    (TPUECM_STEP(STEP_MUL, d, a, b) | (SLOT_##d2) << 16                      \
-     | (SLOT_##a2) << 20 | (SLOT_##b2) << 24)
+    TPUECM_PACK2(SLOT_##d, SLOT_##a, SLOT_##b, SLOT_##d2, SLOT_##a2,         \
+                 SLOT_##b2)
 
 // Duplicate (xdbl of arith.cuh, curve.ops.xdbl) of (X, Z) into (X, Z);
 // S = (A+2)/4: sp = X+Z, dm = X-Z, V = dm^2, U = sp^2, X2 = U*V,
@@ -555,8 +571,9 @@ __device__ const int TPUECM_ADD[] = {
 #define TPUECM_DUP_STEPS 7
 #define TPUECM_ADD_STEPS 9
 
-// Runs `steps` steps of a program on this curve's slots.
-template <int D>
+// Runs `steps` steps of a program on this curve's slots; NEG steps only
+// where NEG is set (K9), so the other runners keep their two kinds.
+template <int D, bool NEG = false>
 __device__ __forceinline__ void run_steps(const int* prog, int steps,
                                           const Group& g) {
 #pragma unroll 1
@@ -570,6 +587,8 @@ __device__ __forceinline__ void run_steps(const int* prog, int steps,
             const int* const b[TPUECM_PAIR] = {g.slot((st >> 12) & 15),
                                                g.slot((st >> 24) & 15)};
             mul_slots<D, TPUECM_PAIR>(dst, a, b, g);
+        } else if (NEG && kind == STEP_NEG) {
+            neg_slots<D>(g.slot((st >> 4) & 15), g.slot((st >> 8) & 15), g);
         } else {
             addsub_slots<D>(g.slot((st >> 4) & 15), g.slot((st >> 8) & 15),
                             g.slot((st >> 12) & 15), kind == STEP_SUB, g);

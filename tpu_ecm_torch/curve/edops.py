@@ -14,7 +14,7 @@ Formulas (Hisil-Wong-Carter-Dawson 2008, a=-1):
   mixed ADD (Z2=1, cached):
        A=(Y1-X1)k0 B=(Y1+X1)k1 C=T1*k2 D=2Z1
        E=B-A H=B+A F=D-C G=D+C
-       X3=EF Y3=GH Z3=FG                    -> 7M (T3 is never needed: wNAF
+       X3=EF Y3=GH Z3=FG                    -> 6M (T3 is never needed: wNAF
        tapes separate adds by >= w-1 doublings, and only adds read T)
   negated ADD (digit < 0): swap k0/k1, negate C; no extra products.
 """

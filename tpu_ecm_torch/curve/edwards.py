@@ -5,7 +5,7 @@ This is a capability the reference does not have — its stage 1 is Montgomery
 x-only PRAC (~8.7 weighted muls/bit, reference ecm.c:565-884,1806-1854).
 Extended-coordinate a=-1 twisted Edwards arithmetic (Hisil-Wong-Carter-Dawson
 2008 formulas) with a width-w signed sliding window costs
-  DBL = 3M+4S (+1M for T before an add), mixed ADD = 7M
+  DBL = 3M+4S (+1M for T before an add), mixed ADD = 6M
 for ~1/(w+1) adds/bit: ~25% fewer weighted muls per exponent bit.  The same
 host-plans-tape / device-replays-scan architecture as the PRAC path applies:
 the whole of stage 1 is ONE scalar s = prod p^k (p^k < B1) and its wNAF

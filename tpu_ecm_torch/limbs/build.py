@@ -63,7 +63,8 @@ SIGNATURES = {
                                *_MOD, _I, _P],
     "tpuecm_replay_resident_smem": [_IP, _IP],
     "tpuecm_replay_resident_carveout": [_I],
-    "tpuecm_ed_tape": [_P, _L, _P, _P, *_MOD, _I, _P],
+    "tpuecm_ed_tape": [_P, _L, _P, _P, *_MOD, _I, _I, _I, _P],
+    "tpuecm_ed_tape_occupancy": [_I, _I, _IP],
     "tpuecm_rns_tape": [_P, _L, _P, _P, _P, _P, _I, _I, _P],
     "tpuecm_rns_chain": [_P, _P, _P, _P, _I, _P, _P, _I, _I, _P],
     "tpuecm_rns_prefix": [_P, _P, _P, _I, _P, _P, _I, _I, _P],

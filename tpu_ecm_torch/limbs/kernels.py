@@ -2,9 +2,9 @@
 the registry of every kernel of the port (the RNS engine's six wrappers
 are in limbs/rns_kernels.py and count their launches here too).  The digit
 kernels take both reductions of csrc/arith.cuh from one build: REDC for a
-generic n, the fold for a special form 2^e - c (ctx.is_mersenne).  K1 and
-K5 run on its lane twin csrc/arith_lanes.cuh, several lanes per curve
-(tape_geometry); K2-K4 and K6-K9 one thread per curve.
+generic n, the fold for a special form 2^e - c (ctx.is_mersenne).  K1, K5
+and K9 run on its lane twin csrc/arith_lanes.cuh, several lanes per curve
+(tape_geometry); K2-K4 and K6-K8 one thread per curve.
 
 Each wrapper checks device, dtype, shape and contiguity, then routes on
 where its tensors lie: on the CPU it runs the kernel's plain PyTorch
@@ -89,8 +89,8 @@ launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 # tape entries per stage-1 kernel launch (K1, K9): keeps every launch
 # short
 TAPE_SLICE = 1 << 16
-# The geometry of the lane-core kernels K1 and K5 (csrc/tape.cu,
-# csrc/replay.cu on csrc/arith_lanes.cuh): a group of `lanes` threads works
+# The geometry of the lane-core kernels K1, K5 and K9 (csrc/tape.cu,
+# csrc/replay.cu, csrc/ed_tape.cu on csrc/arith_lanes.cuh): a group of `lanes` threads works
 # on one curve, each lane holding `digits` digits of every operand in
 # registers.  The lane counts they take, the digit counts they are
 # instantiated for (the dispatch of each), and the threads of a block
@@ -200,15 +200,16 @@ def _done(name: str, rc: int) -> None:
 
 def tape_geometry(nw: int, b: int):
     """(lanes, digits, curves_per_block, blocks) of the lane-core kernels
-    (K1, K5) at nw digits and B curves: the fewest lanes per curve
+    (K1, K5, K9) at nw digits and B curves: the fewest lanes per curve
     (TAPE_LANES) that hold nw digits at most TAPE_DIGITS[-1] digits a lane,
     digits = ceil(nw / lanes) (at least TAPE_DIGITS[0]), TAPE_BLOCK threads
     a block."""
     if not 2 <= nw <= build.NW_MAX:
-        raise ValueError(f"no lane-core (K1, K5) instantiation covers "
+        raise ValueError(f"no lane-core (K1, K5, K9) instantiation covers "
                          f"nw={nw} (2 <= nw <= {build.NW_MAX})")
     if b < 1:
-        raise ValueError(f"lane core (K1, K5): batch must be >= 1, got {b}")
+        raise ValueError(f"lane core (K1, K5, K9): batch must be >= 1, "
+                         f"got {b}")
     for lanes in TAPE_LANES:
         digits = max(-(-nw // lanes), TAPE_DIGITS[0])
         if digits <= TAPE_DIGITS[-1]:
@@ -248,8 +249,8 @@ def tape(pts: torch.Tensor, tape_np: np.ndarray, s_const: torch.Tensor,
 def ed_tape(acc: torch.Tensor, tape_np: np.ndarray, table: torch.Tensor,
             ctx: DeviceCtx) -> torch.Tensor:
     """K9: replay a [T, 2] (op, arg) Edwards wNAF tape over the [4, NW, B]
-    accumulator, in place, with the [Tp, 3, NW, B] cached window table;
-    returns acc."""
+    accumulator, in place, with the [Tp, 3, NW, B] cached window table, at
+    tape_geometry's lanes and digits per curve; returns acc."""
     nw, b = ctx.p.nw, int(acc.shape[-1])
     tp = int(table.shape[0])
     _check("ed_tape", "acc", acc, (4, nw, b), ctx)
@@ -262,6 +263,7 @@ def ed_tape(acc: torch.Tensor, tape_np: np.ndarray, table: torch.Tensor,
                          f"outside [0, {tp})")
     if _on_cpu("ed_tape", ctx):
         return edops.run_tape(acc, t, table, ctx)
+    lanes, digits, _per_block, _blocks = tape_geometry(nw, b)
     if t.shape[0] == 0:
         return acc
     lib = build.library()
@@ -270,7 +272,7 @@ def ed_tape(acc: torch.Tensor, tape_np: np.ndarray, table: torch.Tensor,
         steps = min(TAPE_SLICE, t.shape[0] - lo)
         _done("ed_tape", lib.tpuecm_ed_tape(
             dev[lo].data_ptr(), steps, acc.data_ptr(), table.data_ptr(),
-            *_mod(ctx), b, _stream()))
+            *_mod(ctx), b, lanes, digits, _stream()))
     return acc
 
 

@@ -42,13 +42,13 @@ result and its seconds; any failure raises and exits non-zero.
               (a 256-op tape over three launches, the Pa group the memory
               rule picks, the rns job's 963-row Pb table and first replay
               calls); residues equal, every one;
-              K1's, K5's and K9's lines at both main-path depths give
-              their geometry (lanes a curve, digits a lane, curves a
-              block, blocks, resident and launched warps per SM), their
-              instantiation's ptxas report (registers, stack frame,
-              spills) and their share of the bound, K5's also its ms per
-              live entry and K9's its ms beside the one-thread kernel's
-              (_lanes_line);
+              the lane-core kernels' (K1's, K2's, K5's and K9's) lines at
+              both main-path depths give their geometry (lanes a curve,
+              digits a lane, curves a block, blocks, resident and
+              launched warps per SM), their instantiation's ptxas report
+              (registers, stack frame, spills) and their share of the
+              bound, K5's also its ms per live entry, and K2's and K9's
+              their ms beside the one-thread kernel's (_lanes_line);
               the plain versions run their single-plane products from
               CUDA graphs (_graphed_products); the replay kernels' bounds
               count a product per live entry, and their lines give the
@@ -188,6 +188,7 @@ HBM_BYTES_PER_S = 3.35e12
 # template, occupancy entry point)
 LANE_KERNELS = {
     "tape": ("K1", "tape_lanes_kernel", "tpuecm_tape_occupancy"),
+    "chain": ("K2", "chain_lanes_kernel", "tpuecm_chain_occupancy"),
     "replay": ("K5", "replay_lanes_kernel", "tpuecm_replay_occupancy"),
     "ed_tape": ("K9", "ed_tape_lanes_kernel", "tpuecm_ed_tape_occupancy"),
 }
@@ -202,6 +203,10 @@ K5_ONE_THREAD = {"flagship": (2591.990, 0.03955),
 # flagship's from this smoke's phase 2, M1277's from tools/ed_tape_time.py;
 # PERF.md section 6, NVIDIA H100 80GB HBM3, 700 W)
 K9_ONE_THREAD = {"flagship": 66.910, "M1277": 344.119}
+# K2 on the one-thread core before it moved to the lane core: ms per
+# 4,096-row chain group at each main-path depth (this smoke's phase 2;
+# PERF.md section 6, NVIDIA H100 80GB HBM3, 700 W)
+K2_ONE_THREAD = {"flagship": 900.502, "M1277": 5082.399}
 
 
 def _ops(engine: str):
@@ -913,13 +918,13 @@ def _lanes_ptxas(kernel: str) -> dict:
     return out
 
 
-def _lanes_line(name, label, r, nw, b) -> str:
-    """A lane-core kernel's (K1's, K5's, K9's) geometry at nw digits and B
-    curves (lanes a curve, curves a block, blocks, resident warps per SM
-    the card allows and warps per SM the launch gives), its
+def _lanes_line(name, label, r, nw, b, rows) -> str:
+    """A lane-core kernel's (K1's, K2's, K5's, K9's) geometry at nw digits
+    and B curves (lanes a curve, curves a block, blocks, resident warps per
+    SM the card allows and warps per SM the launch gives), its
     instantiation's ptxas report and its share of the bound, added to its
-    record r; K5's line also gives its ms per live entry, and K9's its ms,
-    beside the one-thread kernel's."""
+    record r; K5's line also gives its ms per live entry, and K2's (on
+    `rows` rows) and K9's their ms, beside the one-thread kernel's."""
     import ctypes
     import torch
     from tpu_ecm_torch.limbs import build, kernels
@@ -956,6 +961,11 @@ def _lanes_line(name, label, r, nw, b) -> str:
         old_ms = K9_ONE_THREAD[label]
         line += (f"; the one-thread kernel: {old_ms:.3f} ms on a 256-op "
                  f"tape ({old_ms / r['ms']:.2f}x)")
+    if name == "chain":
+        old_ms = K2_ONE_THREAD[label]
+        line += (f"; {rows} rows, the one-thread kernel: {old_ms:.3f} ms "
+                 f"per 4,096-row group "
+                 f"({old_ms * rows / 4096 / r['ms']:.2f}x per row)")
     return line
 
 
@@ -1013,7 +1023,8 @@ def phase_kernels(record):
             for name in LANE_KERNELS:
                 r = record[name] if label == "flagship" else \
                     record[name]["fold"]
-                print("  " + _lanes_line(name, label, r, nw, b), flush=True)
+                print("  " + _lanes_line(name, label, r, nw, b,
+                                         depth["rows"]), flush=True)
             print("  " + _resident_line(label, record, depth, nw,
                                         same["replay_resident"]),
                   flush=True)

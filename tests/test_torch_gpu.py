@@ -1,7 +1,7 @@
 """Tests that need an NVIDIA GPU (marker `cuda`; they skip without one):
 the fifteen CUDA kernels against their plain PyTorch versions (the digit
-kernels in REDC and fold modes; K1, K5 and K9 also at ragged batches and
-at every instantiation's edge nw, and a refused launch), the golden sweep
+kernels in REDC and fold modes; K1, K2, K5 and K9 also at ragged batches
+and at every instantiation's edge nw, and a refused launch), the golden sweep
 and the reference's t35 acceptance sweep through the port, and the RNS engine's, the Mersenne
 fold's, the Edwards curves' and the stage-2 replay modes' finds through
 the driver on the card.
@@ -324,6 +324,69 @@ def test_ed_tape_refused_launch_raises(cuda, monkeypatch):
     with pytest.raises(RuntimeError, match="launch failed"):
         kernels.ed_tape(acc, np.asarray([[0, 0]], np.int32), tab, d)
     assert kernels.launches["ed_tape"] == 0
+
+
+def _k2_against_plain(ctx, b: int, count: int, seed: int):
+    """K2 chaining `count` rows from random points p1, p2 with difference
+    pd against kernels.chain_plain on the same card tensors, digit for
+    digit."""
+    import numpy as np
+
+    import chip_smoke
+    from tpu_ecm_torch.limbs import kernels, torch_ops
+    d = torch_ops.device_ctx(ctx, "cuda")
+    rng = np.random.default_rng(seed)
+    p1, p2, pd = (chip_smoke._rand_planes(rng, ctx, (2, ctx.p.nw, b))
+                  for _ in range(3))
+    want = kernels.chain_plain(p1, p2, pd, count, d)
+    kernels.reset_launches()
+    got = kernels.chain(p1, p2, pd, count, d)
+    torch.cuda.synchronize()
+    assert kernels.launches["chain"] == 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("fold", [False, True], ids=["redc", "fold"])
+@pytest.mark.parametrize("b", [1, 33, 100])
+def test_chain_ragged_batches(cuda, fold, b):
+    """K2 at batches that leave the last block part empty (B = 1, 33, 100),
+    at the flagship's N416 (REDC, 8 lanes a curve) and at M1277 (the fold,
+    16 lanes), with 1, 2 and 3 rows, against its plain version digit for
+    digit."""
+    import chip_smoke
+    from tpu_ecm_torch import params
+    ctx = (params.make_monty(chip_smoke.M1277, mersenne=(1277, 1)) if fold
+           else params.make_monty(chip_smoke.N416))
+    for count in (1, 2, 3):
+        _k2_against_plain(ctx, b, count, b + count)
+
+
+@pytest.mark.parametrize("nw,fold", [
+    (nw, fold) for nw in TAPE_EDGE_NW for fold in (False, True)
+    if nw > 2 or not fold])
+def test_chain_nw_edges(cuda, nw, fold):
+    """K2 at the edges of its instantiations (limbs/kernels.py:
+    tape_geometry, shared with K1, K5 and K9) in both modes, at B = 5, 6
+    or 7 rows (the last on either program), against its plain version."""
+    _k2_against_plain(_ctx_at_nw(nw, fold), 5, 6 + nw % 2, nw)
+
+
+def test_chain_refused_launch_raises(cuda, monkeypatch):
+    """A geometry that no instantiation of K2 takes (9 digits a lane) is
+    refused by the C entry point, the wrapper raises, and no launch is
+    counted."""
+    import chip_smoke
+    from tpu_ecm_torch import params
+    from tpu_ecm_torch.limbs import kernels, torch_ops
+    ctx = params.make_monty(chip_smoke.N416)
+    d = torch_ops.device_ctx(ctx, "cuda")
+    pt = torch.zeros((2, ctx.p.nw, 32), dtype=torch.int32, device=cuda)
+    monkeypatch.setattr(kernels, "tape_geometry",
+                        lambda nw, b: (4, 9, 32, 1))
+    kernels.reset_launches()
+    with pytest.raises(RuntimeError, match="launch failed"):
+        kernels.chain(pt, pt, pt, 2, d)
+    assert kernels.launches["chain"] == 0
 
 
 @pytest.mark.parametrize("modulus,b", [("N256", 128), ("row21", 1024)])

@@ -1,16 +1,18 @@
 """Run the lane core of tpu_ecm_torch/csrc/arith_lanes.cuh (K1's
-arithmetic) and the kernel bodies of K5 (csrc/replay.cu) and K9
-(csrc/ed_tape.cu) on the CPU and hold them against their plain versions.
+arithmetic) and the kernel bodies of K2 (csrc/chain.cu), K5
+(csrc/replay.cu) and K9 (csrc/ed_tape.cu) on the CPU and hold them against
+their plain versions.
 
 The CUDA source is built by g++ against cuda_runtime.h beside this file,
 which runs every CUDA thread as a std::thread and shuffles through a
 per-warp buffer between barriers (see its header).  lanes_check.cpp's
 entry points run a product step per curve (a*b, a*a, or a*b written over
 a's slot, each paired with b*b) and the DUP and ADD programs,
-lanes_replay runs K5 on one call and lanes_ed_tape K9 on one Edwards tape;
-they are compared digit for digit with limbs/torch_ops.mulmod / sqrmod,
-curve/ops.xdbl / xadd, limbs/kernels.replay_plain and curve/edops.run_tape
-on CPU tensors.  K5's cp.async copies land at
+lanes_replay runs K5 on one call, lanes_ed_tape K9 on one Edwards tape
+and lanes_chain K2 on one chain; they are compared digit for digit with
+limbs/torch_ops.mulmod / sqrmod, curve/ops.xdbl / xadd,
+limbs/kernels.replay_plain, curve/edops.run_tape and
+limbs/kernels.chain_plain on CPU tensors.  K5's cp.async copies land at
 once and, in a second run, at their wait (cuda_pipeline_primitives.h).
 From the repository root:
 
@@ -50,7 +52,8 @@ SOURCES = (os.path.join(HERE, "cuda_runtime.h"),
            os.path.join(build.CSRC, "arith.cuh"),
            os.path.join(build.CSRC, "arith_lanes.cuh"),
            os.path.join(build.CSRC, "replay.cu"),
-           os.path.join(build.CSRC, "ed_tape.cu"))
+           os.path.join(build.CSRC, "ed_tape.cu"),
+           os.path.join(build.CSRC, "chain.cu"))
 SANITIZE = ("-O1", "-g", "-fsanitize=address,undefined")
 
 
@@ -85,8 +88,11 @@ def load(path: str) -> ctypes.CDLL:
                                  I, I, I, I]
     lib.lanes_ed_tape.argtypes = [P, ctypes.c_longlong, P, P, P, P, I, I, I,
                                   I, I, I, I, I, I, I]
+    lib.lanes_chain.argtypes = [P, P, P, P, I, P, P, I, I, I, I, I, I, I, I,
+                                I, I]
     lib.lanes_mul.restype = lib.lanes_point.restype = I
     lib.lanes_replay.restype = lib.lanes_ed_tape.restype = I
+    lib.lanes_chain.restype = I
     return lib
 
 
@@ -266,6 +272,44 @@ def compare_ed_tape(lib, ctx, b: int, ops: int, lanes=None,
              torch.equal(got, want))]
 
 
+def chain_points(ctx, b: int, seed: int = 0):
+    """Random K2 inputs on CPU tensors: p1, p2 and pd [2, NW, B], each
+    coordinate a reduced value through one product and a difference (as
+    the chain's own rows leave them)."""
+    d = torch_ops.device_ctx(ctx, "cpu")
+    vals = _values(ctx, d, np.random.default_rng(seed), 6, b)
+    return d, *(torch.stack(vals[i:i + 2]).contiguous() for i in (0, 2, 4))
+
+
+def run_chain(lib, d, p1, p2, pd, count: int, lanes: int,
+              digits: int) -> torch.Tensor:
+    """K2's kernel body: `count` chain rows [count, 2, NW, B] from (p1, p2)
+    with difference pd, into an output filled with -7 first."""
+    out = torch.full((count,) + tuple(p1.shape), -7, dtype=torch.int32)
+    if lib.lanes_chain(p1.data_ptr(), p2.data_ptr(), pd.data_ptr(),
+                       out.data_ptr(), count, *_mod(d), int(p1.shape[-1]),
+                       lanes, digits):
+        raise ValueError(f"no instantiation for D={digits}")
+    return out
+
+
+def compare_chain(lib, ctx, b: int, count: int, lanes=None,
+                  seed: int = 0) -> list:
+    """(what, equal) of K2's kernel body on chain_points at B curves,
+    `count` rows, against kernels.chain_plain, at tape_geometry's lanes or
+    at `lanes`."""
+    nw = ctx.p.nw
+    if lanes is None:
+        lanes, digits, _, _ = kernels.tape_geometry(nw, b)
+    else:
+        digits = max(2, -(-nw // lanes))
+    d, p1, p2, pd = chain_points(ctx, b, seed)
+    want = kernels.chain_plain(p1, p2, pd, count, d)
+    got = run_chain(lib, d, p1, p2, pd, count, lanes, digits)
+    return [(f"nw={nw} L={lanes} D={digits} B={b} K2 count={count}",
+             torch.equal(got, want))]
+
+
 N416 = (205688069665150755269371147819668813122841983204197482918578443
         * 411376139330301510538742295639337626245683966408394965837157771)
 # (modulus, mersenne, force_w, B, lanes): REDC with norm_inputs on and
@@ -305,6 +349,21 @@ ED_CASES = (
 )
 
 
+# K2's cases (modulus, mersenne, force_w, B, lanes, count): REDC at the
+# flagship's nw = 36 with norm_inputs on and off (w = 10, nw = 43), the
+# fold at M127, at a pseudo-Mersenne 2^200 - c of three digits of c and at
+# M1277 (nw = 118, 16 lanes of 8 digits), and c = -1 at 4 lanes a curve;
+# counts 1, 2, 3 and even and odd counts past 3, so the last row falls on
+# either program; every B leaves its last block part empty
+CHAIN_CASES = (
+    (N416, None, None, 20, None, 8), (N416, None, 10, 9, None, 3),
+    ((1 << 127) - 1, (127, 1), None, 37, None, 2),
+    ((1 << 200) - 1234567890123, (200, 1234567890123), None, 10, None, 1),
+    ((1 << 1277) - 1, (1277, 1), None, 3, None, 4),
+    ((1 << 201) + 1, (201, -1), None, 33, 4, 5),
+)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sanitize", action="store_true",
@@ -329,6 +388,11 @@ def main() -> int:
     for n, mers, fw, b, lanes, ops in ED_CASES:
         ctx = params.make_monty(n, mersenne=mers, force_w=fw)
         for what, ok in compare_ed_tape(lib, ctx, b, ops, lanes):
+            print(f"{what}: {'equal' if ok else 'DIFFER'}", flush=True)
+            bad += not ok
+    for n, mers, fw, b, lanes, count in CHAIN_CASES:
+        ctx = params.make_monty(n, mersenne=mers, force_w=fw)
+        for what, ok in compare_chain(lib, ctx, b, count, lanes):
             print(f"{what}: {'equal' if ok else 'DIFFER'}", flush=True)
             bad += not ok
     for n, mers, fw, b, lanes in REPLAY_CASES:

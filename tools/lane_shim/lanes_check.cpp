@@ -8,11 +8,14 @@
 //   lanes_replay: K5's kernel body (csrc/replay.cu) on one call, its Pb
 //                copies landing at once (late = 0) or at their wait (1);
 //   lanes_ed_tape: K9's kernel body (csrc/ed_tape.cu) on one tape, over
-//                acc [4, NW, B] in place with the table [Tp, 3, NW, B].
+//                acc [4, NW, B] in place with the table [Tp, 3, NW, B];
+//   lanes_chain: K2's kernel body (csrc/chain.cu), count rows from the
+//                points p1, p2, pd [2, NW, B] into out [count, 2, NW, B].
 // Each returns 0, or 1 for a digit count with no instantiation.
 #include <cuda_runtime.h>
 
 #include "arith_lanes.cuh"
+#include "chain.cu"
 #include "ed_tape.cu"
 #include "replay.cu"
 
@@ -81,6 +84,14 @@ void ed_tape_body(const int* tape, long long nsteps, int* acc,
                      TPUECM_MOD_ARGS, B, L);
 }
 
+template <int D>
+void chain_body(const int* p1, const int* p2, const int* pd, int* out,
+                int count, TPUECM_MOD_PARAMS, int B, int L) {
+    __shared__ Mod m;
+    chain_lanes<D>(m, smem_words, p1, p2, pd, out, count, TPUECM_MOD_ARGS, B,
+                   L);
+}
+
 int blocks_for(int B, int L) {
     const int per = TPUECM_TAPE_BLOCK / L;
     return (B + per - 1) / per;
@@ -146,6 +157,22 @@ extern "C" int lanes_ed_tape(const int* tape, long long nsteps, int* acc,
         emu_launch(blocks_for(B, L), TPUECM_TAPE_BLOCK, [&] {                \
             ed_tape_body<d>(tape, nsteps, acc, table, TPUECM_MOD_ARGS, B,    \
                             L);                                              \
+        });                                                                  \
+        return 0;
+        TPUECM_LANE_DIGITS(LANES_CASE)
+#undef LANES_CASE
+    }
+    return 1;
+}
+
+extern "C" int lanes_chain(const int* p1, const int* p2, const int* pd,
+                           int* out, int count, TPUECM_MOD_PARAMS, int B,
+                           int L, int D) {
+    switch (D) {
+#define LANES_CASE(d)                                                        \
+    case d:                                                                  \
+        emu_launch(blocks_for(B, L), TPUECM_TAPE_BLOCK, [&] {                \
+            chain_body<d>(p1, p2, pd, out, count, TPUECM_MOD_ARGS, B, L);    \
         });                                                                  \
         return 0;
         TPUECM_LANE_DIGITS(LANES_CASE)

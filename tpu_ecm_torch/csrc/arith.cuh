@@ -103,17 +103,6 @@ __device__ __forceinline__ void copy_digits(int* o, const int* x, int nw) {
     for (int j = 0; j < nw; ++j) o[j] = x[j];
 }
 
-__device__ __forceinline__ void add_digits(int* o, const int* a, const int* b,
-                                           int nw) {
-    for (int j = 0; j < nw; ++j) o[j] = (int)((uint32_t)a[j] + (uint32_t)b[j]);
-}
-
-__device__ __forceinline__ void sub_digits(int* o, const int* a, const int* b,
-                                           int nw) {
-    for (int j = 0; j < nw; ++j) o[j] = (int)((uint32_t)a[j] - (uint32_t)b[j]);
-}
-
-
 // One lazy pass over `rows` digits in place: x_j := (x_j mod 2^w) +
 // (x_{j-1} >> w), the top digit kept unsplit (jnp_ops._lazy_pass).  Walking
 // down from the top reads every x_{j-1} before it is rewritten.
@@ -258,54 +247,4 @@ __device__ inline void sqrmod(int* out, const int* a, const Mod& m,
         return;
     }
     reduce_cols(out, a, nullptr, m);
-}
-
-// Duplicate (pallas_ops._tape_kernel xdbl / curve.ops.xdbl); s = (A+2)/4.
-// Outputs must not alias inputs.
-__device__ inline void xdbl(int* xo, int* zo, const int* x, const int* z,
-                            const int* s, const Mod& m) {
-    int sp[TPUECM_NW_MAX], dm[TPUECM_NW_MAX], u[TPUECM_NW_MAX],
-        v[TPUECM_NW_MAX];
-    const int nw = m.nw;
-    add_digits(sp, x, z, nw);
-    norm1(sp, m);
-    sub_digits(dm, x, z, nw);
-    norm1(dm, m);
-    sqrmod(v, dm, m);
-    sqrmod(u, sp, m);
-    mulmod(xo, u, v, m);
-    sub_digits(dm, u, v, nw);        // dm := W = U - V
-    norm1(dm, m);
-    mulmod(sp, dm, s, m);            // sp := s*W
-    add_digits(sp, sp, v, nw);
-    norm1(sp, m);
-    mulmod(zo, sp, dm, m);
-}
-
-// Differential add P1 + P2 with difference D (curve.ops.xadd).  Outputs
-// must not alias inputs.
-__device__ inline void xadd(int* xo, int* zo, const int* x1, const int* z1,
-                            const int* x2, const int* z2, const int* xd,
-                            const int* zd, const Mod& m) {
-    int s1[TPUECM_NW_MAX], d1[TPUECM_NW_MAX], s2[TPUECM_NW_MAX],
-        d2[TPUECM_NW_MAX];
-    const int nw = m.nw;
-    add_digits(s1, x1, z1, nw);
-    norm1(s1, m);
-    sub_digits(d1, x1, z1, nw);
-    norm1(d1, m);
-    add_digits(s2, x2, z2, nw);
-    norm1(s2, m);
-    sub_digits(d2, x2, z2, nw);
-    norm1(d2, m);
-    mulmod(d1, d1, s2, m);           // d1 := U
-    mulmod(s1, s1, d2, m);           // s1 := V
-    add_digits(s2, d1, s1, nw);
-    norm1(s2, m);
-    sub_digits(d2, d1, s1, nw);
-    norm1(d2, m);
-    sqrmod(s2, s2, m);
-    sqrmod(d2, d2, m);
-    mulmod(xo, s2, zd, m);
-    mulmod(zo, d2, xd, m);
 }

@@ -540,7 +540,7 @@ enum { STEP_ADD, STEP_SUB, STEP_MUL, STEP_NEG };
     TPUECM_PACK2(SLOT_##d, SLOT_##a, SLOT_##b, SLOT_##d2, SLOT_##a2,         \
                  SLOT_##b2)
 
-// Duplicate (xdbl of arith.cuh, curve.ops.xdbl) of (X, Z) into (X, Z);
+// Duplicate (curve.ops.xdbl, pallas_ops._point_ops) of (X, Z) into (X, Z);
 // S = (A+2)/4: sp = X+Z, dm = X-Z, V = dm^2, U = sp^2, X2 = U*V,
 // W = U - V, Z2 = (s*W + V)*W.  The last product's partner is spent (T2,
 // V, is dead by then).
@@ -554,7 +554,7 @@ __device__ const int TPUECM_DUP[] = {
     TPUECM_MUL2(Z, T0, T1, T2, T0, T1),           // Z2
 };
 
-// Differential add (xadd of arith.cuh, curve.ops.xadd) of (X, Z) and
+// Differential add (curve.ops.xadd, pallas_ops._point_ops) of (X, Z) and
 // (X2, Z2) with difference (XD, ZD) into (X, Z): U = (X-Z)(X2+Z2),
 // V = (X+Z)(X2-Z2), X+ = ZD*(U+V)^2, Z+ = XD*(U-V)^2.
 __device__ const int TPUECM_ADD[] = {

@@ -52,7 +52,8 @@ _MOD = [_P, _P, _I, _I, _I, _I, _I, _I, _I]
 SIGNATURES = {
     "tpuecm_tape": [_P, _L, _P, _P, *_MOD, _I, _I, _I, _P],
     "tpuecm_tape_occupancy": [_I, _I, _IP],
-    "tpuecm_chain": [_P, _P, _P, _P, _I, *_MOD, _I, _P],
+    "tpuecm_chain": [_P, _P, _P, _P, _I, *_MOD, _I, _I, _I, _P],
+    "tpuecm_chain_occupancy": [_I, _I, _IP],
     "tpuecm_prefix": [_P, _P, _P, _I, *_MOD, _I, _P],
     "tpuecm_apply_inverse": [_P, _P, _P, _P, _P, _I, *_MOD, _I, _P],
     "tpuecm_replay": [_P, _P, _P, _P, _P, *_MOD, _I, _I, _I, _P],

@@ -2,9 +2,9 @@
 the registry of every kernel of the port (the RNS engine's six wrappers
 are in limbs/rns_kernels.py and count their launches here too).  The digit
 kernels take both reductions of csrc/arith.cuh from one build: REDC for a
-generic n, the fold for a special form 2^e - c (ctx.is_mersenne).  K1, K5
-and K9 run on its lane twin csrc/arith_lanes.cuh, several lanes per curve
-(tape_geometry); K2-K4 and K6-K8 one thread per curve.
+generic n, the fold for a special form 2^e - c (ctx.is_mersenne).  K1, K2,
+K5 and K9 run on its lane twin csrc/arith_lanes.cuh, several lanes per
+curve (tape_geometry); K3, K4 and K6-K8 one thread per curve.
 
 Each wrapper checks device, dtype, shape and contiguity, then routes on
 where its tensors lie: on the CPU it runs the kernel's plain PyTorch
@@ -89,12 +89,12 @@ launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 # tape entries per stage-1 kernel launch (K1, K9): keeps every launch
 # short
 TAPE_SLICE = 1 << 16
-# The geometry of the lane-core kernels K1, K5 and K9 (csrc/tape.cu,
-# csrc/replay.cu, csrc/ed_tape.cu on csrc/arith_lanes.cuh): a group of `lanes` threads works
-# on one curve, each lane holding `digits` digits of every operand in
-# registers.  The lane counts they take, the digit counts they are
-# instantiated for (the dispatch of each), and the threads of a block
-# (TPUECM_TAPE_BLOCK of csrc/arith_lanes.cuh)
+# The geometry of the lane-core kernels K1, K2, K5 and K9 (csrc/tape.cu,
+# csrc/chain.cu, csrc/replay.cu, csrc/ed_tape.cu on csrc/arith_lanes.cuh):
+# a group of `lanes` threads works on one curve, each lane holding
+# `digits` digits of every operand in registers.  The lane counts they
+# take, the digit counts they are instantiated for (the dispatch of each),
+# and the threads of a block (TPUECM_TAPE_BLOCK of csrc/arith_lanes.cuh)
 TAPE_LANES = (4, 8, 16, 32)
 TAPE_DIGITS = (2, 3, 4, 5, 6, 7, 8)
 TAPE_BLOCK = 128
@@ -200,16 +200,16 @@ def _done(name: str, rc: int) -> None:
 
 def tape_geometry(nw: int, b: int):
     """(lanes, digits, curves_per_block, blocks) of the lane-core kernels
-    (K1, K5, K9) at nw digits and B curves: the fewest lanes per curve
+    (K1, K2, K5, K9) at nw digits and B curves: the fewest lanes per curve
     (TAPE_LANES) that hold nw digits at most TAPE_DIGITS[-1] digits a lane,
     digits = ceil(nw / lanes) (at least TAPE_DIGITS[0]), TAPE_BLOCK threads
     a block."""
     if not 2 <= nw <= build.NW_MAX:
-        raise ValueError(f"no lane-core (K1, K5, K9) instantiation covers "
-                         f"nw={nw} (2 <= nw <= {build.NW_MAX})")
+        raise ValueError(f"no lane-core (K1, K2, K5, K9) instantiation "
+                         f"covers nw={nw} (2 <= nw <= {build.NW_MAX})")
     if b < 1:
-        raise ValueError(f"lane core (K1, K5, K9): batch must be >= 1, "
-                         f"got {b}")
+        raise ValueError(f"lane core (K1, K2, K5, K9): batch must be "
+                         f">= 1, got {b}")
     for lanes in TAPE_LANES:
         digits = max(-(-nw // lanes), TAPE_DIGITS[0])
         if digits <= TAPE_DIGITS[-1]:
@@ -279,7 +279,8 @@ def ed_tape(acc: torch.Tensor, tape_np: np.ndarray, table: torch.Tensor,
 def chain(p1: torch.Tensor, p2: torch.Tensor, pd: torch.Tensor, count: int,
           ctx: DeviceCtx) -> torch.Tensor:
     """K2: out[i] = out[i-1] + pd (difference out[i-2]) for i < count, from
-    (out[-1], out[-2]) = (p1, p2); points [2, NW, B] -> [count, 2, NW, B]."""
+    (out[-1], out[-2]) = (p1, p2); points [2, NW, B] -> [count, 2, NW, B],
+    at tape_geometry's lanes and digits per curve."""
     nw, b = ctx.p.nw, int(p1.shape[-1])
     for what, t in (("p1", p1), ("p2", p2), ("pd", pd)):
         _check("chain", what, t, (2, nw, b), ctx)
@@ -287,10 +288,11 @@ def chain(p1: torch.Tensor, p2: torch.Tensor, pd: torch.Tensor, count: int,
         raise ValueError(f"chain: count must be >= 1, got {count}")
     if _on_cpu("chain", ctx):
         return chain_plain(p1, p2, pd, count, ctx)
+    lanes, digits, _per_block, _blocks = tape_geometry(nw, b)
     out = torch.empty((count, 2, nw, b), dtype=torch.int32, device=p1.device)
     _done("chain", build.library().tpuecm_chain(
         p1.data_ptr(), p2.data_ptr(), pd.data_ptr(), out.data_ptr(), count,
-        *_mod(ctx), b, _stream()))
+        *_mod(ctx), b, lanes, digits, _stream()))
     return out
 
 

@@ -42,12 +42,12 @@ result and its seconds; any failure raises and exits non-zero.
               (a 256-op tape over three launches, the Pa group the memory
               rule picks, the rns job's 963-row Pb table and first replay
               calls); residues equal, every one;
-              the lane-core kernels' (K1's, K2's, K5's and K9's) lines at
-              both main-path depths give their geometry (lanes a curve,
-              digits a lane, curves a block, blocks, resident and
-              launched warps per SM), their instantiation's ptxas report
-              (registers, stack frame, spills) and their share of the
-              bound, K5's also its ms per live entry, and K2's and K9's
+              the lane-core kernels' (K1-K5's and K9's) lines at both
+              main-path depths give their geometry (lanes a curve, digits
+              a lane, curves a block, blocks, resident and launched warps
+              per SM), their instantiation's ptxas report (registers,
+              stack frame, spills) and their share of the bound, K5's
+              also its ms per live entry, and K2's, K3's, K4's and K9's
               their ms beside the one-thread kernel's (_lanes_line);
               the plain versions run their single-plane products from
               CUDA graphs (_graphed_products); the replay kernels' bounds
@@ -189,6 +189,9 @@ HBM_BYTES_PER_S = 3.35e12
 LANE_KERNELS = {
     "tape": ("K1", "tape_lanes_kernel", "tpuecm_tape_occupancy"),
     "chain": ("K2", "chain_lanes_kernel", "tpuecm_chain_occupancy"),
+    "prefix": ("K3", "prefix_lanes_kernel", "tpuecm_prefix_occupancy"),
+    "apply_inverse": ("K4", "apply_inverse_lanes_kernel",
+                      "tpuecm_apply_inverse_occupancy"),
     "replay": ("K5", "replay_lanes_kernel", "tpuecm_replay_occupancy"),
     "ed_tape": ("K9", "ed_tape_lanes_kernel", "tpuecm_ed_tape_occupancy"),
 }
@@ -207,6 +210,11 @@ K9_ONE_THREAD = {"flagship": 66.910, "M1277": 344.119}
 # 4,096-row chain group at each main-path depth (this smoke's phase 2;
 # PERF.md section 6, NVIDIA H100 80GB HBM3, 700 W)
 K2_ONE_THREAD = {"flagship": 900.502, "M1277": 5082.399}
+# K3 and K4 on the one-thread core before they moved to the lane core: ms
+# per 4,096-row group at each main-path depth (this smoke's phase 2;
+# PERF.md section 6, NVIDIA H100 80GB HBM3, 700 W)
+K3_ONE_THREAD = {"flagship": 168.918, "M1277": 839.021}
+K4_ONE_THREAD = {"flagship": 477.301, "M1277": 2562.009}
 
 
 def _ops(engine: str):
@@ -919,12 +927,13 @@ def _lanes_ptxas(kernel: str) -> dict:
 
 
 def _lanes_line(name, label, r, nw, b, rows) -> str:
-    """A lane-core kernel's (K1's, K2's, K5's, K9's) geometry at nw digits
-    and B curves (lanes a curve, curves a block, blocks, resident warps per
-    SM the card allows and warps per SM the launch gives), its
+    """A lane-core kernel's (K1-K5's, K9's) geometry at nw digits and B
+    curves (lanes a curve, curves a block, blocks, resident warps per SM
+    the card allows and warps per SM the launch gives), its
     instantiation's ptxas report and its share of the bound, added to its
-    record r; K5's line also gives its ms per live entry, and K2's (on
-    `rows` rows) and K9's their ms, beside the one-thread kernel's."""
+    record r; K5's line also gives its ms per live entry, and K2's, K3's
+    and K4's (on `rows` rows) and K9's their ms, beside the one-thread
+    kernel's."""
     import ctypes
     import torch
     from tpu_ecm_torch.limbs import build, kernels
@@ -961,8 +970,9 @@ def _lanes_line(name, label, r, nw, b, rows) -> str:
         old_ms = K9_ONE_THREAD[label]
         line += (f"; the one-thread kernel: {old_ms:.3f} ms on a 256-op "
                  f"tape ({old_ms / r['ms']:.2f}x)")
-    if name == "chain":
-        old_ms = K2_ONE_THREAD[label]
+    if name in ("chain", "prefix", "apply_inverse"):
+        old_ms = {"chain": K2_ONE_THREAD, "prefix": K3_ONE_THREAD,
+                  "apply_inverse": K4_ONE_THREAD}[name][label]
         line += (f"; {rows} rows, the one-thread kernel: {old_ms:.3f} ms "
                  f"per 4,096-row group "
                  f"({old_ms * rows / 4096 / r['ms']:.2f}x per row)")

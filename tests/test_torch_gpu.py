@@ -1,6 +1,6 @@
 """Tests that need an NVIDIA GPU (marker `cuda`; they skip without one):
 the fifteen CUDA kernels against their plain PyTorch versions (the digit
-kernels in REDC and fold modes; K1, K2, K5 and K9 also at ragged batches
+kernels in REDC and fold modes; K1-K5 and K9 also at ragged batches
 and at every instantiation's edge nw, and a refused launch), the golden sweep
 and the reference's t35 acceptance sweep through the port, and the RNS engine's, the Mersenne
 fold's, the Edwards curves' and the stage-2 replay modes' finds through
@@ -387,6 +387,83 @@ def test_chain_refused_launch_raises(cuda, monkeypatch):
     with pytest.raises(RuntimeError, match="launch failed"):
         kernels.chain(pt, pt, pt, 2, d)
     assert kernels.launches["chain"] == 0
+
+
+def _k3k4_against_plain(ctx, b: int, count: int, seed: int):
+    """K3 on a random stack zs of `count` rows from the one, and K4 on
+    random xs and zs with pres its prefixes and a random total_inv, each
+    against kernels.prefix_plain and apply_inverse_plain on the same card
+    tensors, digit for digit."""
+    import numpy as np
+
+    import chip_smoke
+    from tpu_ecm_torch.limbs import kernels, layout, torch_ops
+    d = torch_ops.device_ctx(ctx, "cuda")
+    rng = np.random.default_rng(seed)
+    nw = ctx.p.nw
+    xs, zs = (chip_smoke._rand_planes(rng, ctx, (count, nw, b))
+              for _ in range(2))
+    tinv = chip_smoke._rand_planes(rng, ctx, (nw, b))
+    one = torch.from_numpy(layout.broadcast_int(ctx.r_mod_n, ctx.p.w, nw,
+                                                b)).cuda()
+    want3 = kernels.prefix_plain(zs, one, d)
+    pres = torch.cat([one[None], want3[:-1]]).contiguous()
+    want4 = kernels.apply_inverse_plain(xs, zs, pres, tinv, d)
+    kernels.reset_launches()
+    got3 = kernels.prefix(zs, one, d)
+    got4 = kernels.apply_inverse(xs, zs, pres, tinv, d)
+    torch.cuda.synchronize()
+    assert kernels.launches["prefix"] == 1
+    assert kernels.launches["apply_inverse"] == 1
+    assert torch.equal(got3, want3)
+    assert torch.equal(got4, want4)
+
+
+@pytest.mark.parametrize("fold", [False, True], ids=["redc", "fold"])
+@pytest.mark.parametrize("b", [1, 33, 100])
+def test_batch_inverse_ragged_batches(cuda, fold, b):
+    """K3 and K4 at batches that leave the last block part empty (B = 1,
+    33, 100), at the flagship's N416 (REDC, 8 lanes a curve) and at M1277
+    (the fold, 16 lanes), with 1 to 5 rows (K4's last row on either parity
+    of its step pairs), against their plain versions digit for digit."""
+    import chip_smoke
+    from tpu_ecm_torch import params
+    ctx = (params.make_monty(chip_smoke.M1277, mersenne=(1277, 1)) if fold
+           else params.make_monty(chip_smoke.N416))
+    for count in range(1, 6):
+        _k3k4_against_plain(ctx, b, count, b + count)
+
+
+@pytest.mark.parametrize("nw,fold", [
+    (nw, fold) for nw in TAPE_EDGE_NW for fold in (False, True)
+    if nw > 2 or not fold])
+def test_batch_inverse_nw_edges(cuda, nw, fold):
+    """K3 and K4 at the edges of their instantiations (limbs/kernels.py:
+    tape_geometry, shared with K1, K2, K5 and K9) in both modes, at B = 5,
+    6 or 7 rows, against their plain versions."""
+    _k3k4_against_plain(_ctx_at_nw(nw, fold), 5, 6 + nw % 2, nw)
+
+
+@pytest.mark.parametrize("name", ["prefix", "apply_inverse"])
+def test_batch_inverse_refused_launch_raises(cuda, monkeypatch, name):
+    """A geometry that no instantiation of K3 or K4 takes (9 digits a
+    lane) is refused by the C entry point, the wrapper raises, and no
+    launch is counted."""
+    import chip_smoke
+    from tpu_ecm_torch import params
+    from tpu_ecm_torch.limbs import kernels, torch_ops
+    ctx = params.make_monty(chip_smoke.N416)
+    d = torch_ops.device_ctx(ctx, "cuda")
+    pl = torch.zeros((2, ctx.p.nw, 32), dtype=torch.int32, device=cuda)
+    monkeypatch.setattr(kernels, "tape_geometry",
+                        lambda nw, b: (4, 9, 32, 1))
+    kernels.reset_launches()
+    with pytest.raises(RuntimeError, match="launch failed"):
+        if name == "prefix":
+            kernels.prefix(pl, pl[0], d)
+        else:
+            kernels.apply_inverse(pl, pl, pl, pl[0], d)
+    assert kernels.launches[name] == 0
 
 
 @pytest.mark.parametrize("modulus,b", [("N256", 128), ("row21", 1024)])

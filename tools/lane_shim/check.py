@@ -1,19 +1,21 @@
 """Run the lane core of tpu_ecm_torch/csrc/arith_lanes.cuh (K1's
-arithmetic) and the kernel bodies of K2 (csrc/chain.cu), K5
-(csrc/replay.cu) and K9 (csrc/ed_tape.cu) on the CPU and hold them against
-their plain versions.
+arithmetic) and the kernel bodies of K2 (csrc/chain.cu), K3 and K4
+(csrc/batch_inverse.cu), K5 (csrc/replay.cu) and K9 (csrc/ed_tape.cu) on
+the CPU and hold them against their plain versions.
 
 The CUDA source is built by g++ against cuda_runtime.h beside this file,
 which runs every CUDA thread as a std::thread and shuffles through a
 per-warp buffer between barriers (see its header).  lanes_check.cpp's
 entry points run a product step per curve (a*b, a*a, or a*b written over
 a's slot, each paired with b*b) and the DUP and ADD programs,
-lanes_replay runs K5 on one call, lanes_ed_tape K9 on one Edwards tape
-and lanes_chain K2 on one chain; they are compared digit for digit with
-limbs/torch_ops.mulmod / sqrmod, curve/ops.xdbl / xadd,
-limbs/kernels.replay_plain, curve/edops.run_tape and
-limbs/kernels.chain_plain on CPU tensors.  K5's cp.async copies land at
-once and, in a second run, at their wait (cuda_pipeline_primitives.h).
+lanes_replay runs K5 on one call, lanes_ed_tape K9 on one Edwards tape,
+lanes_chain K2 on one chain, lanes_prefix K3 and lanes_apply_inverse K4
+on one stack; they are compared digit for digit with limbs/torch_ops.mulmod /
+sqrmod, curve/ops.xdbl / xadd, limbs/kernels.replay_plain,
+curve/edops.run_tape, limbs/kernels.chain_plain, prefix_plain and
+apply_inverse_plain on CPU tensors.  K3's, K4's and K5's cp.async copies
+land at once and, in a second run, at their wait
+(cuda_pipeline_primitives.h).
 From the repository root:
 
     python tools/lane_shim/check.py              # -O2 build
@@ -53,7 +55,8 @@ SOURCES = (os.path.join(HERE, "cuda_runtime.h"),
            os.path.join(build.CSRC, "arith_lanes.cuh"),
            os.path.join(build.CSRC, "replay.cu"),
            os.path.join(build.CSRC, "ed_tape.cu"),
-           os.path.join(build.CSRC, "chain.cu"))
+           os.path.join(build.CSRC, "chain.cu"),
+           os.path.join(build.CSRC, "batch_inverse.cu"))
 SANITIZE = ("-O1", "-g", "-fsanitize=address,undefined")
 
 
@@ -92,7 +95,12 @@ def load(path: str) -> ctypes.CDLL:
                                 I, I]
     lib.lanes_mul.restype = lib.lanes_point.restype = I
     lib.lanes_replay.restype = lib.lanes_ed_tape.restype = I
-    lib.lanes_chain.restype = I
+    lib.lanes_prefix.argtypes = [P, P, P, I, P, P, I, I, I, I, I, I, I, I,
+                                 I, I, I]
+    lib.lanes_apply_inverse.argtypes = [P, P, P, P, P, I, P, P, I, I, I, I,
+                                        I, I, I, I, I, I, I]
+    lib.lanes_chain.restype = lib.lanes_prefix.restype = I
+    lib.lanes_apply_inverse.restype = I
     return lib
 
 
@@ -310,6 +318,71 @@ def compare_chain(lib, ctx, b: int, count: int, lanes=None,
              torch.equal(got, want))]
 
 
+def batch_stack(ctx, b: int, count: int, seed: int = 0):
+    """Random K3 and K4 inputs on CPU tensors: xs and zs [count, NW, B]
+    (reduced values through one product and a difference, as the chain's
+    rows leave them), one (R mod n in REDC mode, 1 in the fold), pres[i] =
+    one * zs[0..i-1] and total_inv, a value as the host packs it."""
+    d = torch_ops.device_ctx(ctx, "cpu")
+    vals = _values(ctx, d, np.random.default_rng(seed), 2 * count + 1, b)
+    xs = torch.stack(vals[:count]).contiguous()
+    zs = torch.stack(vals[count:2 * count]).contiguous()
+    one = torch.from_numpy(layout.broadcast_int(ctx.r_mod_n, ctx.p.w,
+                                                ctx.p.nw, b))
+    pre = kernels.prefix_plain(zs, one, d)
+    pres = torch.cat([one[None], pre[:-1]]).contiguous()
+    return d, xs, zs, one, pres, vals[-1]
+
+
+def run_prefix(lib, d, zs, one, lanes: int, digits: int,
+               late: int) -> torch.Tensor:
+    """K3's kernel body, into an output filled with -7 first."""
+    out = torch.full_like(zs, -7)
+    if lib.lanes_prefix(zs.data_ptr(), one.data_ptr(), out.data_ptr(),
+                        int(zs.shape[0]), *_mod(d), int(zs.shape[-1]), lanes,
+                        digits, late):
+        raise ValueError(f"no instantiation for D={digits}")
+    return out
+
+
+def run_apply_inverse(lib, d, xs, zs, pres, total_inv, lanes: int,
+                      digits: int, late: int) -> torch.Tensor:
+    """K4's kernel body, into an output filled with -7 first."""
+    out = torch.full_like(xs, -7)
+    if lib.lanes_apply_inverse(xs.data_ptr(), zs.data_ptr(), pres.data_ptr(),
+                               total_inv.data_ptr(), out.data_ptr(),
+                               int(xs.shape[0]), *_mod(d),
+                               int(xs.shape[-1]), lanes, digits, late):
+        raise ValueError(f"no instantiation for D={digits}")
+    return out
+
+
+def compare_batch_inverse(lib, ctx, b: int, count: int, lanes=None,
+                          seed: int = 0) -> list:
+    """(what, equal) of K3's and K4's kernel bodies on batch_stack at B curves, `count` rows,
+    against kernels.prefix_plain and apply_inverse_plain, their cp.async
+    copies landing at once and at their wait, at tape_geometry's lanes or
+    at `lanes`."""
+    nw = ctx.p.nw
+    if lanes is None:
+        lanes, digits, _, _ = kernels.tape_geometry(nw, b)
+    else:
+        digits = max(2, -(-nw // lanes))
+    d, xs, zs, one, pres, tinv = batch_stack(ctx, b, count, seed)
+    want3 = kernels.prefix_plain(zs, one, d)
+    want4 = kernels.apply_inverse_plain(xs, zs, pres, tinv, d)
+    head = f"nw={nw} L={lanes} D={digits} B={b} count={count}"
+    res = []
+    for late in (0, 1):
+        when = ("at once", "at their wait")[late]
+        got = run_prefix(lib, d, zs, one, lanes, digits, late)
+        res.append((f"{head} K3, copies {when}", torch.equal(got, want3)))
+        got = run_apply_inverse(lib, d, xs, zs, pres, tinv, lanes, digits,
+                                late)
+        res.append((f"{head} K4, copies {when}", torch.equal(got, want4)))
+    return res
+
+
 N416 = (205688069665150755269371147819668813122841983204197482918578443
         * 411376139330301510538742295639337626245683966408394965837157771)
 # (modulus, mersenne, force_w, B, lanes): REDC with norm_inputs on and
@@ -364,6 +437,22 @@ CHAIN_CASES = (
 )
 
 
+# K3's and K4's cases (modulus, mersenne, force_w, B, lanes): REDC at the
+# flagship's nw = 36 with norm_inputs on and off (w = 10, nw = 43), the
+# fold at M127, at a pseudo-Mersenne 2^200 - c of three digits of c and at
+# M1277 (nw = 118, 16 lanes of 8 digits), and c = -1 at 4 lanes a curve;
+# each at the counts BATCH_COUNTS (K4's last row on either parity of its
+# step pairs); every B leaves its last block part empty
+BATCH_CASES = (
+    (N416, None, None, 20, None), (N416, None, 10, 9, None),
+    ((1 << 127) - 1, (127, 1), None, 37, None),
+    ((1 << 200) - 1234567890123, (200, 1234567890123), None, 10, None),
+    ((1 << 1277) - 1, (1277, 1), None, 3, None),
+    ((1 << 201) + 1, (201, -1), None, 33, 4),
+)
+BATCH_COUNTS = (1, 2, 3, 4, 5, 8)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sanitize", action="store_true",
@@ -395,6 +484,12 @@ def main() -> int:
         for what, ok in compare_chain(lib, ctx, b, count, lanes):
             print(f"{what}: {'equal' if ok else 'DIFFER'}", flush=True)
             bad += not ok
+    for n, mers, fw, b, lanes in BATCH_CASES:
+        ctx = params.make_monty(n, mersenne=mers, force_w=fw)
+        for count in BATCH_COUNTS:
+            for what, ok in compare_batch_inverse(lib, ctx, b, count, lanes):
+                print(f"{what}: {'equal' if ok else 'DIFFER'}", flush=True)
+                bad += not ok
     for n, mers, fw, b, lanes in REPLAY_CASES:
         ctx = params.make_monty(n, mersenne=mers, force_w=fw)
         for count in REPLAY_COUNTS:

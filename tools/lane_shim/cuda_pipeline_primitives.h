@@ -1,6 +1,7 @@
 // A CPU stand-in for the cp.async primitives of the CUDA toolkit's
-// cuda_pipeline_primitives.h that tpu_ecm_torch/csrc/replay.cu uses (see
-// cuda_runtime.h beside this file).
+// cuda_pipeline_primitives.h that tpu_ecm_torch/csrc/arith_lanes.cuh's
+// copy_slot_async uses (K3, K4 and K5; see cuda_runtime.h beside this
+// file).
 //
 // A copy lands either at once (emu_copy_late false) or at the
 // __pipeline_wait_prior that covers its group (true): the two ends of the

@@ -10,11 +10,18 @@
 //   lanes_ed_tape: K9's kernel body (csrc/ed_tape.cu) on one tape, over
 //                acc [4, NW, B] in place with the table [Tp, 3, NW, B];
 //   lanes_chain: K2's kernel body (csrc/chain.cu), count rows from the
-//                points p1, p2, pd [2, NW, B] into out [count, 2, NW, B].
+//                points p1, p2, pd [2, NW, B] into out [count, 2, NW, B];
+//   lanes_prefix: K3's kernel body (csrc/batch_inverse.cu), zs [count, NW,
+//                B] and one [NW, B] into out [count, NW, B];
+//   lanes_apply_inverse: K4's kernel body (csrc/batch_inverse.cu), xs, zs,
+//                pres [count, NW, B] and total_inv [NW, B] into out.
+//   K3's and K4's cp.async copies land at once (late = 0) or at their
+//   wait (1), as K5's.
 // Each returns 0, or 1 for a digit count with no instantiation.
 #include <cuda_runtime.h>
 
 #include "arith_lanes.cuh"
+#include "batch_inverse.cu"
 #include "chain.cu"
 #include "ed_tape.cu"
 #include "replay.cu"
@@ -92,41 +99,50 @@ void chain_body(const int* p1, const int* p2, const int* pd, int* out,
                    L);
 }
 
-int blocks_for(int B, int L) {
-    const int per = TPUECM_TAPE_BLOCK / L;
-    return (B + per - 1) / per;
+template <int D>
+void prefix_body(const int* zs, const int* one, int* out, int count,
+                 TPUECM_MOD_PARAMS, int B, int L) {
+    __shared__ Mod m;
+    prefix_lanes<D>(m, smem_words, zs, one, out, count, TPUECM_MOD_ARGS, B,
+                    L);
+}
+
+template <int D>
+void apply_inverse_body(const int* xs, const int* zs, const int* pres,
+                        const int* total_inv, int* out, int count,
+                        TPUECM_MOD_PARAMS, int B, int L) {
+    __shared__ Mod m;
+    apply_inverse_lanes<D>(m, smem_words, xs, zs, pres, total_inv, out,
+                           count, TPUECM_MOD_ARGS, B, L);
+}
+
+// body(std::integral_constant<int, D>()) on every thread of the blocks
+// that B curves at L lanes a curve take; 1 for a D with no instantiation.
+template <typename F>
+int run_lanes(int B, int L, int D, F&& body) {
+    return with_lane_digits(D, [&](auto d) {
+        const int per = TPUECM_TAPE_BLOCK / L;
+        emu_launch((B + per - 1) / per, TPUECM_TAPE_BLOCK, [&] { body(d); });
+        return 0;
+    });
 }
 
 }  // namespace
 
 extern "C" int lanes_mul(const int* a, const int* b, int* out, int* out2,
                          TPUECM_MOD_PARAMS, int B, int L, int D, int op) {
-    switch (D) {
-#define LANES_CASE(d)                                                        \
-    case d:                                                                  \
-        emu_launch(blocks_for(B, L), TPUECM_TAPE_BLOCK, [&] {                \
-            mul_body<d>(a, b, out, out2, TPUECM_MOD_ARGS, B, L, op);         \
-        });                                                                  \
-        return 0;
-        TPUECM_LANE_DIGITS(LANES_CASE)
-#undef LANES_CASE
-    }
-    return 1;
+    return run_lanes(B, L, D, [&](auto d) {
+        mul_body<decltype(d)::value>(a, b, out, out2, TPUECM_MOD_ARGS, B, L,
+                                     op);
+    });
 }
 
 extern "C" int lanes_point(const int* in, int* out, const int* s,
                            TPUECM_MOD_PARAMS, int B, int L, int D, int add) {
-    switch (D) {
-#define LANES_CASE(d)                                                        \
-    case d:                                                                  \
-        emu_launch(blocks_for(B, L), TPUECM_TAPE_BLOCK, [&] {                \
-            point_body<d>(in, out, s, TPUECM_MOD_ARGS, B, L, add);           \
-        });                                                                  \
-        return 0;
-        TPUECM_LANE_DIGITS(LANES_CASE)
-#undef LANES_CASE
-    }
-    return 1;
+    return run_lanes(B, L, D, [&](auto d) {
+        point_body<decltype(d)::value>(in, out, s, TPUECM_MOD_ARGS, B, L,
+                                       add);
+    });
 }
 
 extern "C" int lanes_replay(const int* acc_in, int* acc_out,
@@ -134,49 +150,47 @@ extern "C" int lanes_replay(const int* acc_in, int* acc_out,
                             const int* idx, TPUECM_MOD_PARAMS, int B, int L,
                             int D, int late) {
     emu_copy_late = late != 0;
-    switch (D) {
-#define LANES_CASE(d)                                                        \
-    case d:                                                                  \
-        emu_launch(blocks_for(B, L), TPUECM_TAPE_BLOCK, [&] {                \
-            replay_body<d>(acc_in, acc_out, pa_ext, pbx, idx,                \
-                           TPUECM_MOD_ARGS, B, L);                           \
-        });                                                                  \
-        return 0;
-        TPUECM_LANE_DIGITS(LANES_CASE)
-#undef LANES_CASE
-    }
-    return 1;
+    return run_lanes(B, L, D, [&](auto d) {
+        replay_body<decltype(d)::value>(acc_in, acc_out, pa_ext, pbx, idx,
+                                        TPUECM_MOD_ARGS, B, L);
+    });
 }
 
 extern "C" int lanes_ed_tape(const int* tape, long long nsteps, int* acc,
                              const int* table, TPUECM_MOD_PARAMS, int B,
                              int L, int D) {
-    switch (D) {
-#define LANES_CASE(d)                                                        \
-    case d:                                                                  \
-        emu_launch(blocks_for(B, L), TPUECM_TAPE_BLOCK, [&] {                \
-            ed_tape_body<d>(tape, nsteps, acc, table, TPUECM_MOD_ARGS, B,    \
-                            L);                                              \
-        });                                                                  \
-        return 0;
-        TPUECM_LANE_DIGITS(LANES_CASE)
-#undef LANES_CASE
-    }
-    return 1;
+    return run_lanes(B, L, D, [&](auto d) {
+        ed_tape_body<decltype(d)::value>(tape, nsteps, acc, table,
+                                         TPUECM_MOD_ARGS, B, L);
+    });
 }
 
 extern "C" int lanes_chain(const int* p1, const int* p2, const int* pd,
                            int* out, int count, TPUECM_MOD_PARAMS, int B,
                            int L, int D) {
-    switch (D) {
-#define LANES_CASE(d)                                                        \
-    case d:                                                                  \
-        emu_launch(blocks_for(B, L), TPUECM_TAPE_BLOCK, [&] {                \
-            chain_body<d>(p1, p2, pd, out, count, TPUECM_MOD_ARGS, B, L);    \
-        });                                                                  \
-        return 0;
-        TPUECM_LANE_DIGITS(LANES_CASE)
-#undef LANES_CASE
-    }
-    return 1;
+    return run_lanes(B, L, D, [&](auto d) {
+        chain_body<decltype(d)::value>(p1, p2, pd, out, count,
+                                       TPUECM_MOD_ARGS, B, L);
+    });
+}
+
+extern "C" int lanes_prefix(const int* zs, const int* one, int* out,
+                            int count, TPUECM_MOD_PARAMS, int B, int L, int D,
+                            int late) {
+    emu_copy_late = late != 0;
+    return run_lanes(B, L, D, [&](auto d) {
+        prefix_body<decltype(d)::value>(zs, one, out, count, TPUECM_MOD_ARGS,
+                                        B, L);
+    });
+}
+
+extern "C" int lanes_apply_inverse(const int* xs, const int* zs,
+                                   const int* pres, const int* total_inv,
+                                   int* out, int count, TPUECM_MOD_PARAMS,
+                                   int B, int L, int D, int late) {
+    emu_copy_late = late != 0;
+    return run_lanes(B, L, D, [&](auto d) {
+        apply_inverse_body<decltype(d)::value>(xs, zs, pres, total_inv, out,
+                                               count, TPUECM_MOD_ARGS, B, L);
+    });
 }

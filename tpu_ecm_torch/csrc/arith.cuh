@@ -1,6 +1,7 @@
-// Modular digit arithmetic for one curve per thread: the CUDA twin of
-// tpu_ecm/limbs/pallas_ops.py:_make_arith (and of limbs/torch_ops.py, its
-// plain version in this package).
+// Modular digit arithmetic for one curve per thread (the gather-form
+// replays K6-K8): the CUDA twin of tpu_ecm/limbs/pallas_ops.py:_make_arith
+// (and of limbs/torch_ops.py, its plain version in this package).  Its
+// Mod, load_mod and mod_args_ok also serve the lane core arith_lanes.cuh.
 //
 // A value is nw signed base-2^w digits (int32).  In device memory every
 // plane is [NW, B] with the curve axis B last, so digit j of consecutive
@@ -8,9 +9,9 @@
 // Inside a thread a value is a local array of nw digits.  Functions here
 // are inline so every .cu that includes the header may define them.
 //
-// mulmod / sqrmod form the product columns by schoolbook (the Pallas
+// mulmod forms the product columns by schoolbook (the Pallas
 // schoolbook, Karatsuba and blocked-CIOS schedules give identical digits,
-// pallas_ops.py:171-176, 321-328) and reduce them in one of two modes, one
+// pallas_ops.py:171-176, 321-328) and reduces them in one of two modes, one
 // build serving both (Mod.e selects at run time):
 //
 //  * REDC (e == 0), a generic odd n: digit-serial Montgomery reduction, then
@@ -123,26 +124,17 @@ __device__ __forceinline__ void norm1(int* x, const Mod& m) {
     if (m.norm) lazy_pass(x, m);
 }
 
-// Column c of a*b (b == nullptr: of a*a, by the symmetric half product;
-// the same integer, hence the same digits).
+// Column c of a*b.
 __device__ __forceinline__ uint32_t col_ab(const int* a, const int* b, int c,
                                            int nw) {
     const int lo = c - nw + 1 > 0 ? c - nw + 1 : 0;
     const int hi = c < nw - 1 ? c : nw - 1;
     uint32_t t = 0;
-    if (b != nullptr) {
-        for (int i = lo; i <= hi; ++i)
-            t += (uint32_t)a[i] * (uint32_t)b[c - i];
-        return t;
-    }
-    for (int i = lo; 2 * i < c; ++i) t += (uint32_t)a[i] * (uint32_t)a[c - i];
-    t += t;
-    if ((c & 1) == 0 && c / 2 <= hi)
-        t += (uint32_t)a[c / 2] * (uint32_t)a[c / 2];
+    for (int i = lo; i <= hi; ++i) t += (uint32_t)a[i] * (uint32_t)b[c - i];
     return t;
 }
 
-// REDC: out = a*b/R (b == nullptr: a*a/R) on pre-safe operands.  out may
+// REDC: out = a*b/R on pre-safe operands.  out may
 // alias a or b: output digit c-nw is written after column c, and no later
 // column reads an operand digit below c-nw+1.
 __device__ inline void mont_cols(int* out, const int* a, const int* b,
@@ -195,7 +187,7 @@ __device__ inline void fold_rows(int* t, int rows, int out_rows,
     }
 }
 
-// Fold: out = a*b mod 2^e - c (b == nullptr: a*a) on pre-safe operands,
+// Fold: out = a*b mod 2^e - c on pre-safe operands,
 // from all 2*nw product columns held in the thread.  out may alias a or b:
 // it is written after every column is formed.
 __device__ inline void fold_cols(int* out, const int* a, const int* b,
@@ -213,38 +205,13 @@ __device__ inline void fold_cols(int* out, const int* a, const int* b,
     copy_digits(out, t, m.nw);
 }
 
-__device__ __forceinline__ void reduce_cols(int* out, const int* a,
-                                            const int* b, const Mod& m) {
+// Modular product (a*b/R or a*b mod 2^e - c) of pre-safe operands: every
+// caller (K6-K8) multiplies products and differences that took
+// norm_inputs' pass, so no entry pass is taken here.
+__device__ inline void mulmod(int* out, const int* a, const int* b,
+                              const Mod& m) {
     if (m.e)
         fold_cols(out, a, b, m);
     else
         mont_cols(out, a, b, m);
-}
-
-// Modular product (a*b/R or a*b mod 2^e - c); pre=false applies the
-// norm_inputs entry pass to copies of the operands first.
-__device__ inline void mulmod(int* out, const int* a, const int* b,
-                              const Mod& m, bool pre = true) {
-    if (m.norm && !pre) {
-        int ta[TPUECM_NW_MAX], tb[TPUECM_NW_MAX];
-        copy_digits(ta, a, m.nw);
-        copy_digits(tb, b, m.nw);
-        lazy_pass(ta, m);
-        lazy_pass(tb, m);
-        reduce_cols(out, ta, tb, m);
-        return;
-    }
-    reduce_cols(out, a, b, m);
-}
-
-__device__ inline void sqrmod(int* out, const int* a, const Mod& m,
-                              bool pre = true) {
-    if (m.norm && !pre) {
-        int ta[TPUECM_NW_MAX];
-        copy_digits(ta, a, m.nw);
-        lazy_pass(ta, m);
-        reduce_cols(out, ta, nullptr, m);
-        return;
-    }
-    reduce_cols(out, a, nullptr, m);
 }

@@ -44,6 +44,10 @@
 // nothing (the caller's rule).
 #pragma once
 
+#include <cuda_pipeline_primitives.h>
+
+#include <type_traits>
+
 #include "arith.cuh"
 
 #define TPUECM_TAPE_BLOCK 128   // threads a block: 4 warps
@@ -96,6 +100,28 @@ __host__ inline bool lanes_ok(int L) {
 // X(D) for each digit count a lane that the lane-core kernels are
 // instantiated for, D = 2..8 (limbs/kernels.py:TAPE_DIGITS).
 #define TPUECM_LANE_DIGITS(X) X(2) X(3) X(4) X(5) X(6) X(7) X(8)
+
+// f(std::integral_constant<int, D>()) for D = digits, one of
+// TPUECM_LANE_DIGITS, else cudaErrorInvalidValue: the one dispatch over D
+// of every lane-core launcher and occupancy entry point.
+template <typename F>
+__host__ inline int with_lane_digits(int digits, F&& f) {
+    switch (digits) {
+#define TPUECM_CASE(d)                                                       \
+    case d:                                                                  \
+        return f(std::integral_constant<int, d>());
+        TPUECM_LANE_DIGITS(TPUECM_CASE)
+#undef TPUECM_CASE
+    }
+    return (int)cudaErrorInvalidValue;
+}
+
+// The checks every lane-core launcher makes: the modulus' arguments, a
+// batch, and L lanes of D digits that cover nw.
+__host__ inline bool lanes_args_ok(int nw, int e, int cl, int w, int B,
+                                   int L, int D) {
+    return mod_args_ok(nw, e, cl, w) && B >= 1 && lanes_ok(L) && L * D >= nw;
+}
 
 // One lane's view of its curve: its index in the group, the curve's
 // buffers, and the modulus' scalars copied into registers (read from the
@@ -161,6 +187,21 @@ __device__ __forceinline__ void load_slot(int* slot, const int* plane,
     for (int j = 0; j < D; ++j) {
         const int row = g.l * D + j;
         slot[row] = row < nw ? plane[(size_t)row * B] : 0;
+    }
+}
+
+// cp.async this lane's digits of a plane [NW, B] (curve column applied)
+// into a slot, into the caller's open group; its digits at and above nw
+// stay as they are (zero).
+template <int D>
+__device__ __forceinline__ void copy_slot_async(int* slot, const int* plane,
+                                                size_t B, const Group& g) {
+#pragma unroll
+    for (int j = 0; j < D; ++j) {
+        const int row = g.l * D + j;
+        if (row < g.nw)
+            __pipeline_memcpy_async(slot + row, plane + (size_t)row * B,
+                                    sizeof(int));
     }
 }
 
@@ -626,4 +667,16 @@ __host__ inline int lanes_occupancy(void (*kernel)(P...), int L,
     return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         blocks_per_sm, kernel, TPUECM_TAPE_BLOCK, lanes_smem_bytes(L, D));
 }
+
+// Defines extern "C" int name(int lanes, int digits, int* blocks_per_sm):
+// resident blocks per SM of kernel<digits> at `lanes` lanes a curve
+// (chip_smoke.py prints them beside the kernel's times).
+#define TPUECM_LANES_OCCUPANCY(name, kernel)                                 \
+    extern "C" int name(int lanes, int digits, int* blocks_per_sm) {         \
+        if (!lanes_ok(lanes)) return (int)cudaErrorInvalidValue;             \
+        return with_lane_digits(digits, [&](auto d) {                        \
+            constexpr int D = decltype(d)::value;                            \
+            return lanes_occupancy<D>(kernel<D>, lanes, blocks_per_sm);      \
+        });                                                                  \
+    }
 #endif

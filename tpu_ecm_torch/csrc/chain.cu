@@ -100,34 +100,15 @@ chain_lanes_kernel(const int* __restrict__ p1, const int* __restrict__ p2,
 extern "C" int tpuecm_chain(const int* p1, const int* p2, const int* pd,
                             int* out, int count, TPUECM_MOD_PARAMS, int B,
                             int lanes, int digits, void* stream) {
-    if (!mod_args_ok(nw, e, cl, w) || B < 1 || count < 1 || !lanes_ok(lanes)
-        || lanes * digits < nw)
+    if (!lanes_args_ok(nw, e, cl, w, B, lanes, digits) || count < 1)
         return (int)cudaErrorInvalidValue;
-    switch (digits) {
-#define TPUECM_CASE(d)                                                       \
-    case d:                                                                  \
-        return launch_lanes<d>(chain_lanes_kernel<d>, lanes, B,              \
-                               (cudaStream_t)stream, p1, p2, pd, out, count, \
+    return with_lane_digits(digits, [&](auto d) {
+        constexpr int D = decltype(d)::value;
+        return launch_lanes<D>(chain_lanes_kernel<D>, lanes, B,
+                               (cudaStream_t)stream, p1, p2, pd, out, count,
                                TPUECM_MOD_ARGS, B, lanes);
-        TPUECM_LANE_DIGITS(TPUECM_CASE)
-#undef TPUECM_CASE
-    }
-    return (int)cudaErrorInvalidValue;
+    });
 }
 
-// Resident blocks per SM of the instantiation for `digits` at `lanes`
-// lanes a curve (chip_smoke.py prints it beside K2's times).
-extern "C" int tpuecm_chain_occupancy(int lanes, int digits,
-                                      int* blocks_per_sm) {
-    if (!lanes_ok(lanes)) return (int)cudaErrorInvalidValue;
-    switch (digits) {
-#define TPUECM_CASE(d)                                                       \
-    case d:                                                                  \
-        return lanes_occupancy<d>(chain_lanes_kernel<d>, lanes,             \
-                                  blocks_per_sm);
-        TPUECM_LANE_DIGITS(TPUECM_CASE)
-#undef TPUECM_CASE
-    }
-    return (int)cudaErrorInvalidValue;
-}
+TPUECM_LANES_OCCUPANCY(tpuecm_chain_occupancy, chain_lanes_kernel)
 #endif

@@ -35,8 +35,6 @@
 // copied into spare slots with cp.async while the current products run.
 // A lane past the batch computes on the last curve and stores nothing, so
 // every lane reaches every shuffle and barrier.
-#include <cuda_pipeline_primitives.h>
-
 #include "arith_lanes.cuh"
 
 // K5's values in the lane core's slots: acc, m_{t-1}, the current Pa row,
@@ -55,17 +53,9 @@ template <int D>
 __device__ __forceinline__ void prefetch_pb(const int* ent, int k,
                                             const int* pbx, size_t row,
                                             size_t sB, const Group& g) {
-    for (int i = 0; i < k; ++i) {
-        const int* pb = pbx + ((uint32_t)ent[i] & 0xFFFFu) * row;
-        int* slot = g.slot(K5_PB0 + i);
-#pragma unroll
-        for (int j = 0; j < D; ++j) {
-            const int r = g.l * D + j;
-            if (r < g.nw)
-                __pipeline_memcpy_async(slot + r, pb + (size_t)r * sB,
-                                        sizeof(int));
-        }
-    }
+    for (int i = 0; i < k; ++i)
+        copy_slot_async<D>(g.slot(K5_PB0 + i),
+                           pbx + ((uint32_t)ent[i] & 0xFFFFu) * row, sB, g);
     __pipeline_commit();
 }
 
@@ -162,34 +152,15 @@ extern "C" int tpuecm_replay(const int* acc_in, int* acc_out,
                              const int* pa_ext, const int* pbx,
                              const int* idx, TPUECM_MOD_PARAMS, int B,
                              int lanes, int digits, void* stream) {
-    if (!mod_args_ok(nw, e, cl, w) || B < 1 || !lanes_ok(lanes)
-        || lanes * digits < nw)
+    if (!lanes_args_ok(nw, e, cl, w, B, lanes, digits))
         return (int)cudaErrorInvalidValue;
-    switch (digits) {
-#define TPUECM_CASE(d)                                                       \
-    case d:                                                                  \
-        return launch_lanes<d>(replay_lanes_kernel<d>, lanes, B,             \
-                               (cudaStream_t)stream, acc_in, acc_out,        \
-                               pa_ext, pbx, idx, TPUECM_MOD_ARGS, B, lanes);
-        TPUECM_LANE_DIGITS(TPUECM_CASE)
-#undef TPUECM_CASE
-    }
-    return (int)cudaErrorInvalidValue;
+    return with_lane_digits(digits, [&](auto d) {
+        constexpr int D = decltype(d)::value;
+        return launch_lanes<D>(replay_lanes_kernel<D>, lanes, B,
+                               (cudaStream_t)stream, acc_in, acc_out, pa_ext,
+                               pbx, idx, TPUECM_MOD_ARGS, B, lanes);
+    });
 }
 
-// Resident blocks per SM of the instantiation for `digits` at `lanes`
-// lanes a curve (chip_smoke.py prints it beside K5's times).
-extern "C" int tpuecm_replay_occupancy(int lanes, int digits,
-                                       int* blocks_per_sm) {
-    if (!lanes_ok(lanes)) return (int)cudaErrorInvalidValue;
-    switch (digits) {
-#define TPUECM_CASE(d)                                                       \
-    case d:                                                                  \
-        return lanes_occupancy<d>(replay_lanes_kernel<d>, lanes,            \
-                                  blocks_per_sm);
-        TPUECM_LANE_DIGITS(TPUECM_CASE)
-#undef TPUECM_CASE
-    }
-    return (int)cudaErrorInvalidValue;
-}
+TPUECM_LANES_OCCUPANCY(tpuecm_replay_occupancy, replay_lanes_kernel)
 #endif

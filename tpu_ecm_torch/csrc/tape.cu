@@ -83,33 +83,14 @@ tape_lanes_kernel(const int* __restrict__ tape, long long nsteps, int* pts,
 extern "C" int tpuecm_tape(const int* tape, long long nsteps, int* pts,
                            const int* s_const, TPUECM_MOD_PARAMS, int B,
                            int lanes, int digits, void* stream) {
-    if (!mod_args_ok(nw, e, cl, w) || B < 1 || !lanes_ok(lanes)
-        || lanes * digits < nw)
+    if (!lanes_args_ok(nw, e, cl, w, B, lanes, digits))
         return (int)cudaErrorInvalidValue;
-    switch (digits) {
-#define TPUECM_CASE(d)                                                       \
-    case d:                                                                  \
-        return launch_lanes<d>(tape_lanes_kernel<d>, lanes, B,               \
-                               (cudaStream_t)stream, tape, nsteps, pts,      \
+    return with_lane_digits(digits, [&](auto d) {
+        constexpr int D = decltype(d)::value;
+        return launch_lanes<D>(tape_lanes_kernel<D>, lanes, B,
+                               (cudaStream_t)stream, tape, nsteps, pts,
                                s_const, TPUECM_MOD_ARGS, B, lanes);
-        TPUECM_LANE_DIGITS(TPUECM_CASE)
-#undef TPUECM_CASE
-    }
-    return (int)cudaErrorInvalidValue;
+    });
 }
 
-// Resident blocks per SM of the instantiation for `digits` at `lanes`
-// lanes a curve (chip_smoke.py prints it beside K1's times).
-extern "C" int tpuecm_tape_occupancy(int lanes, int digits,
-                                     int* blocks_per_sm) {
-    if (!lanes_ok(lanes)) return (int)cudaErrorInvalidValue;
-    switch (digits) {
-#define TPUECM_CASE(d)                                                       \
-    case d:                                                                  \
-        return lanes_occupancy<d>(tape_lanes_kernel<d>, lanes,              \
-                                  blocks_per_sm);
-        TPUECM_LANE_DIGITS(TPUECM_CASE)
-#undef TPUECM_CASE
-    }
-    return (int)cudaErrorInvalidValue;
-}
+TPUECM_LANES_OCCUPANCY(tpuecm_tape_occupancy, tape_lanes_kernel)

@@ -54,8 +54,11 @@ SIGNATURES = {
     "tpuecm_tape_occupancy": [_I, _I, _IP],
     "tpuecm_chain": [_P, _P, _P, _P, _I, *_MOD, _I, _I, _I, _P],
     "tpuecm_chain_occupancy": [_I, _I, _IP],
-    "tpuecm_prefix": [_P, _P, _P, _I, *_MOD, _I, _P],
-    "tpuecm_apply_inverse": [_P, _P, _P, _P, _P, _I, *_MOD, _I, _P],
+    "tpuecm_prefix": [_P, _P, _P, _I, *_MOD, _I, _I, _I, _P],
+    "tpuecm_prefix_occupancy": [_I, _I, _IP],
+    "tpuecm_apply_inverse": [_P, _P, _P, _P, _P, _I, *_MOD, _I, _I, _I,
+                             _P],
+    "tpuecm_apply_inverse_occupancy": [_I, _I, _IP],
     "tpuecm_replay": [_P, _P, _P, _P, _P, *_MOD, _I, _I, _I, _P],
     "tpuecm_replay_occupancy": [_I, _I, _IP],
     "tpuecm_replay_gather": [_P, _P, _P, _P, _P, _I, _I, *_MOD, _I, _P],

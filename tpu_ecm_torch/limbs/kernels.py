@@ -2,9 +2,9 @@
 the registry of every kernel of the port (the RNS engine's six wrappers
 are in limbs/rns_kernels.py and count their launches here too).  The digit
 kernels take both reductions of csrc/arith.cuh from one build: REDC for a
-generic n, the fold for a special form 2^e - c (ctx.is_mersenne).  K1, K2,
-K5 and K9 run on its lane twin csrc/arith_lanes.cuh, several lanes per
-curve (tape_geometry); K3, K4 and K6-K8 one thread per curve.
+generic n, the fold for a special form 2^e - c (ctx.is_mersenne).  K1-K5
+and K9 run on its lane twin csrc/arith_lanes.cuh, several lanes per curve
+(tape_geometry); K6-K8 one thread per curve.
 
 Each wrapper checks device, dtype, shape and contiguity, then routes on
 where its tensors lie: on the CPU it runs the kernel's plain PyTorch
@@ -89,8 +89,9 @@ launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 # tape entries per stage-1 kernel launch (K1, K9): keeps every launch
 # short
 TAPE_SLICE = 1 << 16
-# The geometry of the lane-core kernels K1, K2, K5 and K9 (csrc/tape.cu,
-# csrc/chain.cu, csrc/replay.cu, csrc/ed_tape.cu on csrc/arith_lanes.cuh):
+# The geometry of the lane-core kernels K1-K5 and K9 (csrc/tape.cu,
+# csrc/chain.cu, csrc/batch_inverse.cu, csrc/replay.cu, csrc/ed_tape.cu on
+# csrc/arith_lanes.cuh):
 # a group of `lanes` threads works on one curve, each lane holding
 # `digits` digits of every operand in registers.  The lane counts they
 # take, the digit counts they are instantiated for (the dispatch of each),
@@ -200,15 +201,15 @@ def _done(name: str, rc: int) -> None:
 
 def tape_geometry(nw: int, b: int):
     """(lanes, digits, curves_per_block, blocks) of the lane-core kernels
-    (K1, K2, K5, K9) at nw digits and B curves: the fewest lanes per curve
+    (K1-K5, K9) at nw digits and B curves: the fewest lanes per curve
     (TAPE_LANES) that hold nw digits at most TAPE_DIGITS[-1] digits a lane,
     digits = ceil(nw / lanes) (at least TAPE_DIGITS[0]), TAPE_BLOCK threads
     a block."""
     if not 2 <= nw <= build.NW_MAX:
-        raise ValueError(f"no lane-core (K1, K2, K5, K9) instantiation "
+        raise ValueError(f"no lane-core (K1-K5, K9) instantiation "
                          f"covers nw={nw} (2 <= nw <= {build.NW_MAX})")
     if b < 1:
-        raise ValueError(f"lane core (K1, K2, K5, K9): batch must be "
+        raise ValueError(f"lane core (K1-K5, K9): batch must be "
                          f">= 1, got {b}")
     for lanes in TAPE_LANES:
         digits = max(-(-nw // lanes), TAPE_DIGITS[0])
@@ -298,7 +299,8 @@ def chain(p1: torch.Tensor, p2: torch.Tensor, pd: torch.Tensor, count: int,
 
 def prefix(zs: torch.Tensor, one: torch.Tensor, ctx: DeviceCtx
            ) -> torch.Tensor:
-    """K3: out[i] = one * zs[0] * ... * zs[i]; [count, NW, B]."""
+    """K3: out[i] = one * zs[0] * ... * zs[i]; [count, NW, B], at
+    tape_geometry's lanes and digits per curve."""
     nw, b = ctx.p.nw, int(one.shape[-1])
     count = int(zs.shape[0])
     _check("prefix", "zs", zs, (count, nw, b), ctx)
@@ -307,17 +309,19 @@ def prefix(zs: torch.Tensor, one: torch.Tensor, ctx: DeviceCtx
         raise ValueError("prefix: empty stack")
     if _on_cpu("prefix", ctx):
         return prefix_plain(zs, one, ctx)
+    lanes, digits, _per_block, _blocks = tape_geometry(nw, b)
     out = torch.empty_like(zs)
     _done("prefix", build.library().tpuecm_prefix(
         zs.data_ptr(), one.data_ptr(), out.data_ptr(), count, *_mod(ctx), b,
-        _stream()))
+        lanes, digits, _stream()))
     return out
 
 
 def apply_inverse(xs: torch.Tensor, zs: torch.Tensor, pres: torch.Tensor,
                   total_inv: torch.Tensor, ctx: DeviceCtx) -> torch.Tensor:
     """K4: out[i] = xs[i] * zs[i]^-1 from pres[i] = one * zs[0..i-1] and
-    total_inv = (zs[0] ... zs[count-1])^-1; [count, NW, B]."""
+    total_inv = (zs[0] ... zs[count-1])^-1; [count, NW, B], at
+    tape_geometry's lanes and digits per curve."""
     nw, b = ctx.p.nw, int(total_inv.shape[-1])
     count = int(xs.shape[0])
     for what, t in (("xs", xs), ("zs", zs), ("pres", pres)):
@@ -327,10 +331,11 @@ def apply_inverse(xs: torch.Tensor, zs: torch.Tensor, pres: torch.Tensor,
         raise ValueError("apply_inverse: empty stack")
     if _on_cpu("apply_inverse", ctx):
         return apply_inverse_plain(xs, zs, pres, total_inv, ctx)
+    lanes, digits, _per_block, _blocks = tape_geometry(nw, b)
     out = torch.empty_like(xs)
     _done("apply_inverse", build.library().tpuecm_apply_inverse(
         xs.data_ptr(), zs.data_ptr(), pres.data_ptr(), total_inv.data_ptr(),
-        out.data_ptr(), count, *_mod(ctx), b, _stream()))
+        out.data_ptr(), count, *_mod(ctx), b, lanes, digits, _stream()))
     return out
 
 

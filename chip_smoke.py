@@ -49,6 +49,10 @@ result and its seconds; any failure raises and exits non-zero.
               stack frame, spills) and their share of the bound, K5's
               also its ms per live entry, and K2's, K3's, K4's and K9's
               their ms beside the one-thread kernel's (_lanes_line);
+              K10's line (_k10_line) gives its tile, threads, blocks,
+              shared memory a block, whether its weights are resident,
+              its ptxas report, its share of the bound and its ms beside
+              K10_BEFORE's;
               the plain versions run their single-plane products from
               CUDA graphs (_graphed_products); the replay kernels' bounds
               count a product per live entry, and their lines give the
@@ -109,7 +113,9 @@ result and its seconds; any failure raises and exits non-zero.
 
 The last three lines are the kernels' JSON record (with each kernel's
 bound: the larger of its multiply-adds over the card's int32 rate and its
-bytes over the memory rate), the card as nvidia-smi reports it, and
+bytes over the memory rate; for K10-K15 the larger of their extension
+dots at the int8 tensor peak and their channel work at the int32 rate,
+against the bytes: _rns_bound), the card as nvidia-smi reports it, and
 {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --profile [DIR] [--job JOB|all]
@@ -184,6 +190,10 @@ RNS_REPLAY_JOB = dict(curves=1024, sigma=110, b1=2_000, b2=200_000)
 # and 3.35 TB/s of HBM3 (NVIDIA H100 SXM data sheet).
 IMAD_PER_S = 132 * 64 * 1.98e9
 HBM_BYTES_PER_S = 3.35e12
+# int8 tensor-core operations (two a multiply-add), dense: 1,979 TOPS
+# (NVIDIA H100 SXM data sheet), the RNS extension dots' peak as exact u8
+# splits
+TENSOR_INT8_OPS_PER_S = 1.979e15
 # The lane-core kernels (csrc/arith_lanes.cuh): name -> (label, kernel
 # template, occupancy entry point)
 LANE_KERNELS = {
@@ -215,6 +225,11 @@ K2_ONE_THREAD = {"flagship": 900.502, "M1277": 5082.399}
 # PERF.md section 6, NVIDIA H100 80GB HBM3, 700 W)
 K3_ONE_THREAD = {"flagship": 168.918, "M1277": 839.021}
 K4_ONE_THREAD = {"flagship": 477.301, "M1277": 2562.009}
+# K10 on csrc/rns_arith.cuh (4 curves a block, integer-pipe dots, `%`
+# reductions) before it moved to the tensor cores: ms per 256-op tape over
+# three launches at row 21 (K=200, B=1024; this smoke's phase 2, PERF.md
+# section 6, NVIDIA H100 80GB HBM3, 700 W)
+K10_BEFORE = {"row21": 32.144}
 
 
 def _ops(engine: str):
@@ -628,11 +643,65 @@ def _rand_residues(gen, rc, shape):
     return r.remainder_(rc.p)
 
 
-def _rns_macs(rc) -> int:
-    """int32 multiply-adds of one RNS product of one curve, as
-    csrc/rns_arith.cuh forms it: the two extension dots (K x (K+1) each)
-    and about six per channel elsewhere."""
-    return 2 * rc.K * (rc.K + 1) + 6 * rc.K + 3
+def _rns_bound(rc, products: int, nbytes: float):
+    """(bound_ms, bound_by, int32-only bound_ms) of `products` RNS
+    products (one curve each) and nbytes of memory traffic, whatever runs
+    them: the two extension dots (K x (K+1) multiply-adds each) as exact u8
+    splits, four int8 products a multiply-add, at the int8 tensor peak;
+    the channel work beside them at the int32 rate: the 7K+4 modular
+    products of limbs/rns.py:mont_mul (A: x*y, s*c1, beta*|Q|_p; B: x*y,
+    s*P^-1, M0*N P^-1, t*qdivinv; r: x*y, s*P^-1, M0*N P^-1, beta's
+    *Q^-1), a multiply and a multiply-high reduction each, three
+    multiply-adds; the larger of the two against the bytes.  The third
+    number is the bound before: every multiply-add of the dots on the
+    int32 pipes, and six a channel pair beside them."""
+    K = rc.K
+    t_dots = products * 2 * K * (K + 1) * 4 * 2 / TENSOR_INT8_OPS_PER_S
+    t_chan = products * 3 * (7 * K + 4) / IMAD_PER_S
+    t_ops, t_mem = max(t_dots, t_chan), nbytes / HBM_BYTES_PER_S
+    old = products * (2 * K * (K + 1) + 6 * K + 3) / IMAD_PER_S
+    return (max(t_ops, t_mem) * 1e3,
+            "operations" if t_ops >= t_mem else "bytes",
+            max(old, t_mem) * 1e3)
+
+
+# A short K10 tape (OP_DUP 0, OP_ADD 1, OP_NOP 2; rows op, dst, a, b, c):
+# a DUP into a fresh slot and one in place, ADDs into a fresh slot, over
+# their difference c and over b, NOPs into another slot and onto
+# themselves
+RNS_EDGE_TAPE = ((0, 1, 0, 0, 0), (1, 2, 1, 0, 3), (1, 3, 2, 1, 3),
+                 (0, 2, 2, 0, 0), (2, 4, 3, 0, 0), (1, 1, 4, 1, 2),
+                 (2, 0, 0, 0, 0))
+
+
+def synthetic_rns(K: int, seed: int, device):
+    """An RnsCtx at any even K in [2, rns.K_MAX] with random tables inside
+    the kernels' bounds: the channel moduli the primes below 2^13 in turn
+    (repeated past the 1027 odd ones), every weight and constant
+    canonical for its channel, qinv odd.  make_rns builds K <= 512 in
+    steps of 8, so K10's edges (2, 222, 224, 520) take these: the kernels
+    and their plain versions compute the same function of any such
+    tables."""
+    import numpy as np
+    from tpu_ecm_torch.limbs import rns
+    rng = np.random.default_rng(seed)
+    primes = rns._primes_below(1 << 13, 1027)
+    chans = [primes[i % len(primes)] for i in range(2 * K)]
+    mr = 1 << 14
+    pa, pb = chans[:K], chans[K:]
+    col = lambda v: np.asarray(v, dtype=np.int64).reshape(-1, 1).astype(
+        np.int32)
+    below = lambda mods, shape=None: rng.integers(
+        0, np.asarray(mods), shape).astype(np.int32)
+    tables = dict(
+        p=col(pa + pb + [mr]), c1=col(below(pa)),
+        w1=below(pb + [mr], (K, K + 1)), n_br=col(below(pb + [mr])),
+        pinv_br=col(below(pb + [mr])), npinv_br=col(below(pb + [mr])),
+        qdivinv=col(below(pb)), w2=below(pa + [mr], (K, K + 1)),
+        qinv_r=col([int(rng.integers(0, mr // 2)) * 2 + 1]),
+        qmod_ar=col(below(pa + [mr])), comp_a=col([p * (K + 1) for p in pa]),
+        f_sub=col(below(pa + pb + [mr])))
+    return rns.make_ctx(tables, K, 14, device)
 
 
 def _rns_kernel_cases(rng, gen, host, rc, b, depth=RNS_SHORT):
@@ -669,37 +738,33 @@ def _rns_kernel_cases(rng, gen, host, rc, b, depth=RNS_SHORT):
     acc = R()
     k = rns_kernels
     row = rc.rows * b * 4
-    macs = b * _rns_macs(rc)
+    bound = lambda products, nbytes: _rns_bound(rc, b * products, nbytes)
     muls, sqrs = _tape_products(tape)
     return {
         "rns_tape": (
             lambda: _sliced_tape(k, k.tape, pts, tape, sc, rc,
                                  depth["tape_slice"]),
             lambda: rns_exec.run_tape(pts.clone(), tape, sc, rc),
-            _bound(macs * (muls + sqrs),
-                   2 * _nbytes(pts) + _nbytes(sc) + tape.nbytes)),
+            bound(muls + sqrs, 2 * _nbytes(pts) + _nbytes(sc) + tape.nbytes)),
         "rns_chain": (lambda: k.chain(p1, p2, pd, rows, rc),
                       lambda: k.chain_plain(p1, p2, pd, rows, rc),
-                      _bound(macs * rows * 6,
-                             _nbytes(p1, p2, pd) + 2 * rows * row)),
+                      bound(rows * 6, _nbytes(p1, p2, pd) + 2 * rows * row)),
         "rns_prefix": (lambda: k.prefix(zs, one, rc),
                        lambda: k.prefix_plain(zs, one, rc),
-                       _bound(macs * rows, _nbytes(zs, one) + rows * row)),
+                       bound(rows, _nbytes(zs, one) + rows * row)),
         "rns_apply_inverse": (
             lambda: k.apply_inverse(xs, zs, pres, tinv, rc),
             lambda: k.apply_inverse_plain(xs, zs, pres, tinv, rc),
-            _bound(macs * rows * 3,
-                   _nbytes(xs, zs, pres, tinv) + rows * row)),
+            bound(rows * 3, _nbytes(xs, zs, pres, tinv) + rows * row)),
         "rns_replay": (lambda: k.replay(acc, pa_ext, pbx, idx, rc),
                        lambda: k.replay_plain(acc, pa_ext, pbx, idx, rc),
-                       _bound(macs * int(idx[0]),
-                              _nbytes(acc, pa_ext, pbx) + idx.nbytes + row)),
+                       bound(int(idx[0]),
+                             _nbytes(acc, pa_ext, pbx) + idx.nbytes + row)),
         "rns_replay_gather": (
             lambda: k.replay_gather(acc, pa_ext, pbx, pairs, rc, e=e),
             lambda: k.replay_gather_plain(acc, pa_ext, pbx, pairs, e, rc),
-            _bound(macs * live,
-                   _rows_read(pairs[:, 0], row) + _rows_read(pairs[:, 1], row)
-                   + pairs.nbytes + 2 * row)),
+            bound(live, _rows_read(pairs[:, 0], row)
+                  + _rows_read(pairs[:, 1], row) + pairs.nbytes + 2 * row)),
     }, slots
 
 
@@ -771,6 +836,8 @@ def _record(ms, plain_ms, bound, err, slots=None):
     entry slots and its ms per live entry."""
     r = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
              bound_by=bound[1], library_ms=None)
+    if len(bound) > 2:                  # an RNS kernel: the int32-only bound
+        r["bound_int32_ms"] = bound[2]
     if slots is not None:
         r.update(entries=slots[0], slots=slots[1], ms_per_entry=ms / slots[0])
     return r
@@ -979,6 +1046,32 @@ def _lanes_line(name, label, r, nw, b, rows) -> str:
     return line
 
 
+def _k10_line(label, r, K, b) -> str:
+    """K10's geometry at K and B curves (curves a block, threads, blocks,
+    shared memory a block, whether the weights are resident in it), its
+    instantiation's ptxas report and its share of the bound, added to its
+    record r, and its ms beside K10_BEFORE's."""
+    from tpu_ecm_torch.limbs import rns_kernels
+    g = rns_kernels.tape_geometry(K, b)
+    r.update(geometry=g._asdict(),
+             ptxas=_lanes_ptxas("rns_tape_kernel")[g.tile],
+             share_of_bound=r["bound_ms"] / r["ms"])
+    x, old = r["ptxas"], K10_BEFORE[label]
+    return (f"K10 at {label} (K={K}, B={b}): T={g.tile} curves a block, "
+            f"{g.threads} threads, {g.blocks} blocks, {g.smem} bytes of "
+            f"shared memory a block, weights "
+            f"{'resident in it' if g.resident else 'from the global table'}"
+            f"; ptxas: {x.get('registers')} registers, "
+            f"{x.get('stack_bytes')} bytes stack frame, "
+            f"{x.get('spill_store_bytes')}/{x.get('spill_load_bytes')} "
+            f"bytes spill stores/loads; {r['ms']:.3f} ms against the bound "
+            f"{r['bound_ms']:.4f} ({r['bound_by']}): "
+            f"{100 * r['share_of_bound']:.2f}% of it (of the int32-only "
+            f"bound {r['bound_int32_ms']:.4f}: "
+            f"{100 * r['bound_int32_ms'] / r['ms']:.2f}%); before: "
+            f"{old:.3f} ms ({old / r['ms']:.2f}x)")
+
+
 def phase_kernels(record):
     """Fills record[name] with the main-path timing of every kernel (and
     record[name]["fold"] with K1-K9's at M1277, the mersenne job's
@@ -1065,6 +1158,8 @@ def phase_kernels(record):
                                        worst[name], slots.get(name))
         del cases
         torch.cuda.empty_cache()
+    print("  " + _k10_line("row21", record["rns_tape"], rc.K, 1024),
+          flush=True)
     print(f"  rns depths at row 21 (K={rc.K}, B=1024): {shown}", flush=True)
     print(f"  fold depths at M1277 (B=2048): {record['tape']['fold']['depth']}"
           f"; plain versions on the first {PLAIN_CURVES} curves", flush=True)

@@ -1,7 +1,9 @@
 """Tests that need an NVIDIA GPU (marker `cuda`; they skip without one):
 the fifteen CUDA kernels against their plain PyTorch versions (the digit
 kernels in REDC and fold modes; K1-K5 and K9 also at ragged batches
-and at every instantiation's edge nw, and a refused launch), the golden sweep
+and at every instantiation's edge nw, and a refused launch; K10 at ragged
+batches, at its K edges, a refused launch and its ptxas report), the
+golden sweep
 and the reference's t35 acceptance sweep through the port, and the RNS engine's, the Mersenne
 fold's, the Edwards curves' and the stage-2 replay modes' finds through
 the driver on the card.
@@ -490,6 +492,87 @@ def test_rns_kernels_match_plain(cuda, modulus, b):
         torch.cuda.synchronize()
         assert torch.equal(got, want), name
         assert kernels.launches[name] >= 1, name
+
+
+def _k10_against_plain(rc, b: int, seed: int):
+    """K10 on chip_smoke.RNS_EDGE_TAPE (every opcode, dst aliasing each
+    input) over random residues at B curves, one launch, against
+    rns_exec.run_tape on the same card tensors, residue for residue."""
+    import numpy as np
+
+    import chip_smoke
+    from tpu_ecm_torch.limbs import kernels, rns_exec, rns_kernels
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    pts = chip_smoke._rand_residues(gen, rc, (6, 2, rc.rows, b))
+    sc = chip_smoke._rand_residues(gen, rc, (rc.rows, b))
+    tape = np.asarray(chip_smoke.RNS_EDGE_TAPE, np.int32)
+    want = rns_exec.run_tape(pts.clone(), tape, sc, rc)
+    kernels.reset_launches()
+    got = rns_kernels.tape(pts.clone(), tape, sc, rc)
+    torch.cuda.synchronize()
+    assert kernels.launches["rns_tape"] == 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("b", [1, 7, 9, 1024])
+def test_rns_tape_batches(cuda, b):
+    """K10 at row 21's K=200 (8 curves a block, weights in shared memory)
+    at batches that leave the last block part empty (B = 1, 7, 9; B % 4
+    != 0 takes the scalar loads) and at the rns job's B = 1024."""
+    import chip_smoke
+    from tpu_ecm_torch import params
+    from tpu_ecm_torch.limbs import rns
+    ctx = params.make_monty(chip_smoke.row21_n())
+    rc = rns.device_ctx(rns.make_rns(ctx, cw=rns.choose_cw(ctx.p.nbits)),
+                        "cuda")
+    assert rc.K == 200
+    _k10_against_plain(rc, b, b)
+
+
+@pytest.mark.parametrize("K", [2, 222, 224, 520])
+def test_rns_tape_k_edges(cuda, K):
+    """K10 at the smallest K, at the last K whose weights fit in shared
+    memory (222), one step past it (224: 4 curves a block, the fragments
+    from the global table) and at K_MAX = 520, on synthetic tables
+    (chip_smoke.synthetic_rns), B = 9."""
+    import chip_smoke
+    from tpu_ecm_torch.limbs import rns_kernels
+    assert rns_kernels.tape_geometry(K, 9).resident == (K <= 222)
+    _k10_against_plain(chip_smoke.synthetic_rns(K, K, "cuda"), 9, K)
+
+
+def test_rns_tape_refused_launch_raises(cuda, monkeypatch):
+    """T = 8 at K = 224, whose weights do not fit in shared memory, is
+    refused by the C entry point, the wrapper raises, and no launch is
+    counted."""
+    import numpy as np
+
+    import chip_smoke
+    from tpu_ecm_torch.limbs import kernels, rns_kernels
+    rc = chip_smoke.synthetic_rns(224, 1, "cuda")
+    pts = torch.zeros((6, 2, rc.rows, 8), dtype=torch.int32, device=cuda)
+    sc = torch.zeros((rc.rows, 8), dtype=torch.int32, device=cuda)
+    monkeypatch.setattr(rns_kernels, "tape_geometry",
+                        lambda K, b: rns_kernels.TapeGeometry(8, 512, 1, 0,
+                                                              True))
+    kernels.reset_launches()
+    with pytest.raises(RuntimeError, match="launch failed"):
+        rns_kernels.tape(pts, np.asarray([[0, 0, 0, 0, 0]], np.int32), sc,
+                         rc)
+    assert kernels.launches["rns_tape"] == 0
+
+
+def test_rns_tape_ptxas_no_stack_or_spills(cuda):
+    """nvcc -Xptxas -v reports no stack frame and no spills for either
+    instantiation of K10 (T = 4, 8)."""
+    import chip_smoke
+    from tpu_ecm_torch.limbs import build
+    build.library()
+    report = chip_smoke._lanes_ptxas("rns_tape_kernel")
+    assert set(report) == {4, 8}
+    for tile, x in report.items():
+        assert (x["stack_bytes"], x["spill_store_bytes"],
+                x["spill_load_bytes"]) == (0, 0, 0), (tile, x)
 
 
 @pytest.mark.parametrize("which", ["N71", "N2355"])

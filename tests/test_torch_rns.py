@@ -299,7 +299,7 @@ def test_convert_rns_ctx_round_trips_jax_state():
     leaves = {f: np.asarray(getattr(hj.dev, f)) for f in rns.TABLES}
     got = convert.rns_ctx(leaves, hj.K, hj.dev.mr_shift, "cpu")
     ref = rns.device_ctx(ht, "cpu")
-    for f in rns.TABLES + ("tab", "wpk"):
+    for f in rns.TABLES + ("tab", "wpk", "wmma"):
         assert torch.equal(getattr(got, f), getattr(ref, f)), f
     assert (got.K, got.mr_shift, got.rows) == (ref.K, ref.mr_shift, 49)
     with pytest.raises(ValueError, match="w1"):
@@ -315,7 +315,8 @@ def test_convert_rns_ctx_round_trips_jax_state():
 
 
 def test_kernel_tables_layout():
-    """tab and wpk as csrc/rns_arith.cuh reads them."""
+    """tab and wpk as csrc/rns_arith.cuh reads them, and K10's padded u8
+    weight planes (rns.mma_weights) as csrc/rns_mma.cuh reads them."""
     _ctx, _hj, ht = _hosts(N71)
     tab, wpk = rns.kernel_tables(ht.tables, ht.K)
     K, t = ht.K, ht.tables
@@ -325,3 +326,21 @@ def test_kernel_tables_layout():
     w = wpk.view(np.uint32)
     np.testing.assert_array_equal(w[1] & 0xFFFF, t["w2"][0::2])
     np.testing.assert_array_equal(w[0] >> 16, t["w1"][1::2])
+    planes = rns.mma_weights(t, K)
+    kpad, mpad = -(-K // 16) * 16, -(-(K + 1) // 32) * 32
+    assert planes.shape == (4, mpad // 32, kpad // 16, 32, 16)
+    assert planes.dtype == np.uint8
+    # back from 32 x 16 row-major tiles to W^T [Mpad, Kpad]
+    wt = planes.transpose(0, 1, 3, 2, 4).reshape(4, mpad, kpad).astype(
+        np.int64)
+    for m, name in enumerate(("w1", "w2")):
+        np.testing.assert_array_equal(
+            wt[2 * m, :K + 1, :K] + 256 * wt[2 * m + 1, :K + 1, :K],
+            t[name].T)
+        assert not wt[2 * m:2 * m + 2, K + 1:].any()
+        assert not wt[2 * m:2 * m + 2, :, K:].any()
+    assert planes[1::2].max() < 64 and planes.max() > 0
+    assert planes[1, 0, 0, 3, 5] == t["w1"][5, 3] >> 8
+    rc = rns.device_ctx(ht, "cpu")
+    assert torch.equal(rc.wmma, torch.from_numpy(planes))
+    assert rc.wmma.data_ptr() % 32 == 0

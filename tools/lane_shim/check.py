@@ -1,7 +1,8 @@
 """Run the lane core of tpu_ecm_torch/csrc/arith_lanes.cuh (K1's
 arithmetic) and the kernel bodies of K2 (csrc/chain.cu), K3 and K4
-(csrc/batch_inverse.cu), K5 (csrc/replay.cu) and K9 (csrc/ed_tape.cu) on
-the CPU and hold them against their plain versions.
+(csrc/batch_inverse.cu), K5 (csrc/replay.cu) and K9 (csrc/ed_tape.cu), and
+K10's (csrc/rns_tape.cu on the tensor-core core csrc/rns_mma.cuh), on the
+CPU and hold them against their plain versions.
 
 The CUDA source is built by g++ against cuda_runtime.h beside this file,
 which runs every CUDA thread as a std::thread and shuffles through a
@@ -15,13 +16,18 @@ sqrmod, curve/ops.xdbl / xadd, limbs/kernels.replay_plain,
 curve/edops.run_tape, limbs/kernels.chain_plain, prefix_plain and
 apply_inverse_plain on CPU tensors.  K3's, K4's and K5's cp.async copies
 land at once and, in a second run, at their wait
-(cuda_pipeline_primitives.h).
+(cuda_pipeline_primitives.h).  K10's body is built apart (rns_check.cpp,
+with mma.h standing in for nvcuda::wmma) and held residue for residue
+against limbs/rns_exec.run_tape on a tape of every opcode, at a small K,
+K=200 (the rns job's; its weights in shared memory), K=224 (past the
+shared-memory limit: the fragments load from the global table) and
+ragged batches.
 From the repository root:
 
     python tools/lane_shim/check.py              # -O2 build
     python tools/lane_shim/check.py --sanitize   # ASan + UBSan build
 
-The library goes to build/lane_shim/ (a directory .gitignore lists),
+The libraries go to build/lane_shim/ (a directory .gitignore lists),
 named by a hash of the sources and flags.
 """
 
@@ -42,10 +48,12 @@ sys.path.insert(0, REPO)
 
 import torch  # noqa: E402
 
+import chip_smoke  # noqa: E402
 from tpu_ecm_torch import params  # noqa: E402
 from tpu_ecm_torch.curve import edops, edwards  # noqa: E402
 from tpu_ecm_torch.curve import ops as curve_ops  # noqa: E402
 from tpu_ecm_torch.limbs import build, kernels, layout, torch_ops  # noqa: E402
+from tpu_ecm_torch.limbs import rns, rns_exec, rns_kernels  # noqa: E402
 
 BUILD_DIR = os.path.join(REPO, "build", "lane_shim")
 SOURCES = (os.path.join(HERE, "cuda_runtime.h"),
@@ -57,27 +65,46 @@ SOURCES = (os.path.join(HERE, "cuda_runtime.h"),
            os.path.join(build.CSRC, "ed_tape.cu"),
            os.path.join(build.CSRC, "chain.cu"),
            os.path.join(build.CSRC, "batch_inverse.cu"))
+RNS_SOURCES = (os.path.join(HERE, "cuda_runtime.h"),
+               os.path.join(HERE, "rns_check.cpp"),
+               os.path.join(HERE, "mma.h"),
+               os.path.join(build.CSRC, "rns_mma.cuh"),
+               os.path.join(build.CSRC, "rns_tape.cu"))
 SANITIZE = ("-O1", "-g", "-fsanitize=address,undefined")
 
 
-def build_lib(sanitize: bool = False) -> str:
-    """g++ build of lanes_check.cpp unless this source hash is built;
-    returns the library's path."""
+def build_lib(sanitize: bool = False, sources=SOURCES,
+              name: str = "lanes") -> str:
+    """g++ build of sources[1] (lanes_check.cpp, or rns_check.cpp with
+    RNS_SOURCES) unless this source hash is built; returns the library's
+    path."""
     flags = ["-std=c++20", "-fPIC", "-shared", "-pthread",
              *(SANITIZE if sanitize else ("-O2",)), "-I", HERE,
              "-I", build.CSRC, f"-DTPUECM_NW_MAX={build.NW_MAX}",
              f"-DTPUECM_CL_MAX={build.CL_MAX}"]
     h = hashlib.sha256(" ".join(flags).encode())
-    for path in SOURCES:
+    for path in sources:
         with open(path, "rb") as f:
             h.update(f.read())
-    out = os.path.join(BUILD_DIR, f"liblanes_{h.hexdigest()[:16]}.so")
+    out = os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:16]}.so")
     if not os.path.exists(out):
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{out}.{os.getpid()}.tmp"
-        subprocess.run(["g++", *flags, "-o", tmp, SOURCES[1]], check=True)
+        subprocess.run(["g++", *flags, "-o", tmp, sources[1]], check=True)
         os.replace(tmp, out)
     return out
+
+
+def load_rns(path: str) -> ctypes.CDLL:
+    lib = ctypes.CDLL(path)
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.rns_tape_run.argtypes = [P, ctypes.c_longlong, P, P, P, P, I, I, I]
+    lib.rns_tape_run.restype = I
+    lib.rns_tape_geometry.argtypes = [I, I, I, P]
+    lib.rns_tape_geometry.restype = I
+    lib.rns_reduce.argtypes = [P, P, I, ctypes.c_uint, ctypes.c_uint, P]
+    lib.rns_reduce.restype = None
+    return lib
 
 
 def load(path: str) -> ctypes.CDLL:
@@ -383,6 +410,62 @@ def compare_batch_inverse(lib, ctx, b: int, count: int, lanes=None,
     return res
 
 
+def rns_residues(rng, rc, shape) -> torch.Tensor:
+    """Random canonical residues [.., 2K+1, B] on the CPU (any canonical
+    residues, consistent across channels or not, are K10's inputs)."""
+    p = rc.p.numpy().astype(np.int64)
+    r = rng.integers(0, 1 << 30, shape) % p
+    return torch.from_numpy(r.astype(np.int32))
+
+
+def rns_tape_shim(lib, pts, tape, s_const, rc) -> torch.Tensor:
+    """K10's kernel body over a copy of pts at tape_geometry's tile;
+    returns the copy."""
+    b = int(pts.shape[-1])
+    tile = rns_kernels.tape_geometry(rc.K, b).tile
+    got = pts.clone()
+    t = np.ascontiguousarray(tape, dtype=np.int32)
+    code = lib.rns_tape_run(t.ctypes.data, t.shape[0], got.data_ptr(),
+                            s_const.data_ptr(), rc.tab.data_ptr(),
+                            rc.wmma.data_ptr(), rc.K, b, tile)
+    if code:
+        raise ValueError(f"K10 refused K={rc.K} B={b} tile={tile}: {code}")
+    return got
+
+
+def rns_ctx_at(bits: int) -> rns.RnsCtx:
+    """The RNS context make_rns builds for a random odd `bits`-bit N, on
+    the CPU (K grows with the bits: 24 at 256, 200 at 2397, 224 at
+    2700)."""
+    import random
+    n = random.Random(bits).getrandbits(bits) | 1 | (1 << (bits - 1))
+    ctx = params.make_monty(n)
+    return rns.device_ctx(rns.make_rns(ctx, cw=rns.choose_cw(ctx.p.nbits)),
+                          "cpu")
+
+
+def compare_rns_tape(lib, rc, b: int, seed: int = 0) -> list:
+    """(what, equal) of K10's kernel body on chip_smoke.RNS_EDGE_TAPE
+    (every opcode, dst aliasing a, b and c) over random residues at B
+    curves against rns_exec.run_tape."""
+    tape = np.asarray(chip_smoke.RNS_EDGE_TAPE, dtype=np.int32)
+    rng = np.random.default_rng(seed)
+    pts = rns_residues(rng, rc, (6, 2, rc.rows, b))
+    sc = rns_residues(rng, rc, (rc.rows, b))
+    want = rns_exec.run_tape(pts.clone(), tape, sc, rc)
+    got = rns_tape_shim(lib, pts, tape, sc, rc)
+    g = rns_kernels.tape_geometry(rc.K, b)
+    return [(f"K={rc.K} T={g.tile} resident={g.resident} B={b} K10 "
+             f"ops={len(tape)}", torch.equal(got, want))]
+
+
+# K10's cases (bits of a random N, B): K=24 at ragged batches (B % 4 != 0:
+# the scalar loads; B % 8 == 4: a block's second curve group empty), K=200
+# (the rns job's, weights in shared memory) and K=224 (past the
+# shared-memory limit, T = 4)
+RNS_CASES = ((256, 9), (256, 12), (2397, 9), (2700, 3))
+
+
 N416 = (205688069665150755269371147819668813122841983204197482918578443
         * 411376139330301510538742295639337626245683966408394965837157771)
 # (modulus, mersenne, force_w, B, lanes): REDC with norm_inputs on and
@@ -469,6 +552,11 @@ def main() -> int:
         return subprocess.run([sys.executable, *sys.argv], env=env).returncode
     lib = load(path)
     bad = 0
+    rlib = load_rns(build_lib(args.sanitize, RNS_SOURCES, "rns"))
+    for bits, b in RNS_CASES:
+        for what, ok in compare_rns_tape(rlib, rns_ctx_at(bits), b):
+            print(f"{what}: {'equal' if ok else 'DIFFER'}", flush=True)
+            bad += not ok
     for n, mers, fw, b, lanes in CASES:
         ctx = params.make_monty(n, mersenne=mers, force_w=fw)
         for what, ok in compare(lib, ctx, b, lanes):

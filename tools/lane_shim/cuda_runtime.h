@@ -1,6 +1,7 @@
 // A CPU stand-in for the part of the CUDA runtime that
-// tpu_ecm_torch/csrc/arith_lanes.cuh uses, so that its device code builds
-// with g++ (-std=c++20) and runs on the CPU (tools/lane_shim/check.py).
+// tpu_ecm_torch/csrc/arith_lanes.cuh and rns_mma.cuh use, so that their
+// device code builds with g++ (-std=c++20) and runs on the CPU
+// (tools/lane_shim/check.py; mma.h beside this file stands in for wmma).
 //
 // A launch runs its blocks in turn, each with one std::thread per CUDA
 // thread.  __syncthreads is a barrier of the block, __syncwarp one of the
@@ -22,6 +23,21 @@
 #define __forceinline__ inline
 #define __launch_bounds__(x)
 #define __shared__ static
+#define __align__(n) alignas(n)
+
+struct alignas(8) uint2 {
+    unsigned x, y;
+};
+struct alignas(16) uint4 {
+    unsigned x, y, z, w;
+};
+struct alignas(16) int4 {
+    int x, y, z, w;
+};
+
+inline unsigned __umulhi(unsigned a, unsigned b) {
+    return (unsigned)(((unsigned long long)a * b) >> 32);
+}
 
 struct dim3 {
     unsigned x = 0, y = 0, z = 0;

@@ -1,6 +1,7 @@
 // RNS Montgomery arithmetic for a tile of curves per block: the CUDA twin
 // of tpu_ecm/limbs/rns.py:mont_mul/add/sub (and of limbs/rns.py, its plain
-// version in this package).  Shared by K10-K15 (csrc/rns_*.cu).
+// version in this package).  Shared by K11-K15 (csrc/rns_*.cu); K10 runs
+// on the tensor-core core csrc/rns_mma.cuh.
 //
 // A value is 2K+1 canonical residues: rows [0, K) base A, [K, 2K) base B,
 // row 2K the r channel m_r = 2^14.  Device planes are [2K+1, B], curve axis
@@ -275,22 +276,6 @@ __device__ __forceinline__ void rns_sub(RV& o, const RV& x, const RV& y,
 // ---------------------------------------------------------------------------
 // curve formulas (rns_exec.py:xdbl/xadd)
 // ---------------------------------------------------------------------------
-
-// Duplicate; s = (A+2)/4.  xo, zo may alias x, z.
-__device__ __forceinline__ void rns_xdbl(RV& xo, RV& zo, const RV& x,
-                                         const RV& z, const RV& s,
-                                         const RnsLane& L) {
-    RV sp, dm, u, v;
-    rns_add(sp, x, z, L);
-    rns_sub(dm, x, z, L);
-    rns_sqr(v, dm, L);
-    rns_sqr(u, sp, L);
-    rns_mul(xo, u, v, L);
-    rns_sub(dm, u, v, L);                      // dm := W = U - V
-    rns_mul(sp, dm, s, L);                     // sp := s*W
-    rns_add(sp, sp, v, L);
-    rns_mul(zo, sp, dm, L);
-}
 
 // First half of the differential add P1 + P2: t1 = (U+V)^2, t2 = (U-V)^2;
 // then X+ = t1 * Zd and Z+ = t2 * Xd (left to the caller, which may load

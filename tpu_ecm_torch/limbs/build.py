@@ -26,7 +26,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "tpu_ecm_torch")
 HEADERS = ("arith.cuh", "arith_lanes.cuh", "replay_tree.cuh",
-           "rns_arith.cuh")
+           "rns_arith.cuh", "rns_mma.cuh")
 SOURCES = ("tape.cu", "chain.cu", "batch_inverse.cu", "replay.cu",
            "replay_gather.cu", "replay_resident.cu", "ed_tape.cu",
            "rns_tape.cu", "rns_chain.cu", "rns_batch_inverse.cu",
@@ -69,7 +69,7 @@ SIGNATURES = {
     "tpuecm_replay_resident_carveout": [_I],
     "tpuecm_ed_tape": [_P, _L, _P, _P, *_MOD, _I, _I, _I, _P],
     "tpuecm_ed_tape_occupancy": [_I, _I, _IP],
-    "tpuecm_rns_tape": [_P, _L, _P, _P, _P, _P, _I, _I, _P],
+    "tpuecm_rns_tape": [_P, _L, _P, _P, _P, _P, _I, _I, _I, _P],
     "tpuecm_rns_chain": [_P, _P, _P, _P, _I, _P, _P, _I, _I, _P],
     "tpuecm_rns_prefix": [_P, _P, _P, _I, _P, _P, _I, _I, _P],
     "tpuecm_rns_apply_inverse": [_P, _P, _P, _P, _P, _I, _P, _P, _I, _I,

@@ -1,6 +1,7 @@
 """RNS (residue number system) Montgomery arithmetic: the twin of
-tpu_ecm/limbs/rns.py, and the plain version of the RNS arithmetic core of
-the CUDA kernels (csrc/rns_arith.cuh).
+tpu_ecm/limbs/rns.py, and the plain version of the RNS arithmetic cores of
+the CUDA kernels (csrc/rns_mma.cuh for K10, csrc/rns_arith.cuh for
+K11-K15).
 
 A value is held as its residues in 2K+1 channels, planes [..., 2K+1, B]
 with the curve axis last: rows [0, K) are base A = {p_1..p_K}, rows
@@ -189,7 +190,8 @@ def make_rns(ctx: MontyCtx, cw: int = 12) -> RnsHost:
 class RnsCtx:
     """The constant tables of one modulus as int32 tensors on one device
     (the twin of rns.RnsCtx without its TPU-only split tables), plus the
-    two flat arrays the CUDA kernels read (`tab`, `wpk`; kernel_tables)."""
+    arrays the CUDA kernels read (`tab`, `wpk`: kernel_tables; `wmma`:
+    mma_weights)."""
     p: torch.Tensor          # [2K+1, 1] channel moduli, rows [A | B | r]
     c1: torch.Tensor         # [K, 1]
     w1: torch.Tensor         # [K, K+1]
@@ -204,6 +206,7 @@ class RnsCtx:
     f_sub: torch.Tensor      # [2K+1, 1]
     tab: torch.Tensor        # flat per-row constants (kernel_tables)
     wpk: torch.Tensor        # W1, W2 as packed 16-bit pairs (kernel_tables)
+    wmma: torch.Tensor       # W1, W2 as padded u8 planes (mma_weights)
     K: int
     mr_shift: int
 
@@ -237,14 +240,37 @@ def kernel_tables(t: Dict[str, np.ndarray], K: int
     return tab, wpk
 
 
+def mma_weights(t: Dict[str, np.ndarray], K: int) -> np.ndarray:
+    """K10's weights (csrc/rns_mma.cuh): uint8 [4, Mpad/32, Kpad/16, 32,
+    16], planes W1 lo, W1 hi, W2 lo, W2 hi of W^T in 32 x 16 row-major
+    tiles: plane[j // 32, i // 16, j % 32, i % 16] = the low or high byte
+    of W[i, j] for W = w1, w2 (i < K input channels, j <= K output
+    channels), zero in the padding to Kpad = ceil16(K) and Mpad =
+    ceil32(K+1): the A operand of the tensor-core tiles.  Every weight is
+    below 2^14, so a high byte is below 64."""
+    kpad, mpad = -(-K // 16) * 16, -(-(K + 1) // 32) * 32
+    out = np.zeros((4, mpad, kpad), dtype=np.uint8)
+    for m, w in enumerate((t["w1"], t["w2"])):
+        out[2 * m, :K + 1, :K] = (w & 0xFF).T
+        out[2 * m + 1, :K + 1, :K] = (w >> 8).T
+    return np.ascontiguousarray(
+        out.reshape(4, mpad // 32, 32, kpad // 16, 16).transpose(0, 1, 3, 2,
+                                                                 4))
+
+
 def make_ctx(tables: Dict[str, np.ndarray], K: int, mr_shift: int,
              device) -> RnsCtx:
     """RnsCtx on `device` from numpy tables (make_rns's, or the leaves of a
     JAX RnsCtx through convert.rns_ctx)."""
     tab, wpk = kernel_tables(tables, K)
     on = lambda a: torch.from_numpy(np.array(a, dtype=np.int32)).to(device)
+    w = mma_weights(tables, K)
+    # a tensor of its own: torch's allocators align it for the tensor-core
+    # tiles' 32-byte rule
+    wmma = torch.empty(w.shape, dtype=torch.uint8, device=device)
+    wmma.copy_(torch.from_numpy(w))
     return RnsCtx(**{k: on(tables[k]) for k in TABLES}, tab=on(tab),
-                  wpk=on(wpk), K=K, mr_shift=mr_shift)
+                  wpk=on(wpk), wmma=wmma, K=K, mr_shift=mr_shift)
 
 
 def device_ctx(host: RnsHost, device) -> RnsCtx:

@@ -6,13 +6,16 @@ shape and contiguity, runs the plain version for CPU tensors, launches the
 kernel on the current stream for CUDA tensors (never the plain version),
 raises for anything else, and counts its launches in kernels.launches.
 Planes are int32 [..., 2K+1, B] residue planes, curve axis last; the plain
-version of K10 is rns_exec.run_tape.  Every kernel gives the plain
-version's residues exactly (K15 too: both multiply acc by one difference
-per entry, in entry order; K14: both multiply each step's differences in
-the same pairwise tree).
+version of K10 is rns_exec.run_tape.  K10 runs on the tensor-core core
+csrc/rns_mma.cuh at tape_geometry's tile, K11-K15 on csrc/rns_arith.cuh.
+Every kernel gives the plain version's residues exactly (K15 too: both
+multiply acc by one difference per entry, in entry order; K14: both
+multiply each step's differences in the same pairwise tree).
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -25,6 +28,36 @@ from .rns import RnsCtx
 
 # tape entries per stage-1 kernel launch: keeps every launch short
 TAPE_SLICE = 1 << 12
+# K10's limits (csrc/rns_mma.cuh): dynamic shared memory a block may use,
+# and warps a block
+MMA_SMEM_MAX = 232448
+MMA_MAX_WARPS = 17
+
+
+class TapeGeometry(NamedTuple):
+    tile: int          # curves a block (T)
+    threads: int
+    blocks: int
+    smem: int          # dynamic shared memory a block, bytes
+    resident: bool     # the weight planes in shared memory
+
+
+def tape_geometry(K: int, b: int) -> TapeGeometry:
+    """K10's launch at K and B curves (csrc/rns_mma.cuh:rns_tape_config):
+    a tile of T = 8 curves a block where X, the P/Q tiles, the channel
+    pairs' constants and the four u8 weight planes fit in shared memory
+    (K <= 222), else T = 4 with the
+    weights read from the global table; G = T/4 threads a channel pair,
+    and at least two warps a 32-row M tile, up to MMA_MAX_WARPS."""
+    kpad, mpad = -(-K // 16) * 16, -(-(K + 1) // 32) * 32
+    base = 16 * kpad + 104 * mpad + 32
+    resident = base + 4 * kpad * mpad <= MMA_SMEM_MAX
+    tile = 8 if resident else 4
+    warps = max(-(-(tile // 4) * (K + 1) // 32),
+                min(2 * mpad // 32, MMA_MAX_WARPS))
+    return TapeGeometry(tile, 32 * warps, -(-b // tile),
+                        base + (4 * kpad * mpad if resident else 0),
+                        resident)
 
 
 def _on_cpu(name: str, rc: RnsCtx) -> bool:
@@ -62,11 +95,13 @@ def tape(pts: torch.Tensor, tape_np: np.ndarray, s_const: torch.Tensor,
         return pts
     lib = build.library()
     dev = torch.from_numpy(t).to(pts.device)
+    tile = tape_geometry(rc.K, b).tile
     for lo in range(0, t.shape[0], TAPE_SLICE):
         steps = min(TAPE_SLICE, t.shape[0] - lo)
         _done("rns_tape", lib.tpuecm_rns_tape(
             dev[lo].data_ptr(), steps, pts.data_ptr(), s_const.data_ptr(),
-            *_ctx_args(rc), b, _stream()))
+            rc.tab.data_ptr(), rc.wmma.data_ptr(), rc.K, b, tile,
+            _stream()))
     return pts
 
 

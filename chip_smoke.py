@@ -52,7 +52,9 @@ result and its seconds; any failure raises and exits non-zero.
               K10's line (_k10_line) gives its tile, threads, blocks,
               shared memory a block, whether its weights are resident,
               its ptxas report, its share of the bound and its ms beside
-              K10_BEFORE's;
+              K10_BEFORE's; K14's (_k14_line) the same with its products
+              a pass, its live entries and the bytes its gathers move,
+              beside K14_BEFORE's;
               the plain versions run their single-plane products from
               CUDA graphs (_graphed_products); the replay kernels' bounds
               count a product per live entry, and their lines give the
@@ -230,6 +232,11 @@ K4_ONE_THREAD = {"flagship": 477.301, "M1277": 2562.009}
 # three launches at row 21 (K=200, B=1024; this smoke's phase 2, PERF.md
 # section 6, NVIDIA H100 80GB HBM3, 700 W)
 K10_BEFORE = {"row21": 32.144}
+# K14 on csrc/rns_arith.cuh (one product at a time, integer-pipe dots, `%`
+# reductions) before it moved to the tensor cores: ms on the rns job's
+# first replay call at row 21 (K=200, B=1024, 65,536 entries; this smoke's
+# phase 2, PERF.md section 6, NVIDIA H100 80GB HBM3, 700 W)
+K14_BEFORE = {"row21": 1464.523}
 
 
 def _ops(engine: str):
@@ -963,18 +970,20 @@ def _ptxas_lines(kernel: str) -> list:
 
 
 def _lanes_ptxas(kernel: str) -> dict:
-    """What nvcc -Xptxas -v reported for each instantiation of a lane-core
-    kernel template (digits a lane -> registers, stack frame and spill
-    bytes), from the build log."""
+    """What nvcc -Xptxas -v reported for each instantiation of a kernel
+    template (its int template argument, or the tuple of them where it
+    has several, e.g. digits a lane of a lane-core kernel, (T, H) of K14
+    -> registers, stack frame and spill bytes), from the build log."""
     from tpu_ecm_torch.limbs import build
     with open(build.library_path()[:-3] + ".log") as f:
         log = f.read().splitlines()
     out, digits = {}, None
     for line in log:
-        hit = re.search(rf"Compiling entry function '_Z\d+{kernel}ILi(\d+)EE",
-                        line)
+        hit = re.search(
+            rf"Compiling entry function '_Z\d+{kernel}I((?:Li\d+E)+)E", line)
         if hit:
-            digits = int(hit.group(1))
+            args = tuple(map(int, re.findall(r"Li(\d+)E", hit.group(1))))
+            digits = args[0] if len(args) == 1 else args
             out[digits] = {}
             continue
         if "Compiling entry function" in line:
@@ -1072,6 +1081,39 @@ def _k10_line(label, r, K, b) -> str:
             f"{old:.3f} ms ({old / r['ms']:.2f}x)")
 
 
+def _k14_line(label, r, K, b) -> str:
+    """K14's geometry at K and B curves (curves a block, products a pass,
+    threads, blocks, shared memory a block, whether the weights are
+    resident in it), its instantiation's ptxas report, its share of the
+    bound and the bytes its gathers move (two rows per entry slot, each
+    (2K+1)*4 bytes a curve), added to its record r, and its ms beside
+    K14_BEFORE's."""
+    from tpu_ecm_torch.limbs import rns_kernels
+    g = rns_kernels.gather_geometry(K, b)
+    gathered = r["slots"] * 2 * (2 * K + 1) * b * 4
+    r.update(geometry=g._asdict(),
+             ptxas=_lanes_ptxas("rns_replay_gather_kernel")[
+                 (g.tile, g.halves)],
+             share_of_bound=r["bound_ms"] / r["ms"],
+             gathered_bytes=gathered,
+             gathered_gb_per_s=gathered / r["ms"] / 1e6)
+    x, old = r["ptxas"], K14_BEFORE[label]
+    return (f"K14 at {label} (K={K}, B={b}): T={g.tile} curves a block, "
+            f"{g.halves} products a pass, {g.threads} threads, {g.blocks} "
+            f"blocks, {g.smem} bytes of shared memory a block, weights "
+            f"{'resident in it' if g.resident else 'from the global table'}"
+            f"; ptxas: {x.get('registers')} registers, "
+            f"{x.get('stack_bytes')} bytes stack frame, "
+            f"{x.get('spill_store_bytes')}/{x.get('spill_load_bytes')} "
+            f"bytes spill stores/loads; {r['entries']} live entries in "
+            f"{r['slots']} slots, {r['ms']:.3f} ms "
+            f"({r['ms_per_entry']:.6f} per live entry) against the bound "
+            f"{r['bound_ms']:.4f} ({r['bound_by']}): "
+            f"{100 * r['share_of_bound']:.2f}% of it; gathers "
+            f"{gathered / 1e9:.1f} GB, {r['gathered_gb_per_s']:.0f} GB/s; "
+            f"before: {old:.3f} ms ({old / r['ms']:.2f}x)")
+
+
 def phase_kernels(record):
     """Fills record[name] with the main-path timing of every kernel (and
     record[name]["fold"] with K1-K9's at M1277, the mersenne job's
@@ -1159,6 +1201,8 @@ def phase_kernels(record):
         del cases
         torch.cuda.empty_cache()
     print("  " + _k10_line("row21", record["rns_tape"], rc.K, 1024),
+          flush=True)
+    print("  " + _k14_line("row21", record["rns_replay_gather"], rc.K, 1024),
           flush=True)
     print(f"  rns depths at row 21 (K={rc.K}, B=1024): {shown}", flush=True)
     print(f"  fold depths at M1277 (B=2048): {record['tape']['fold']['depth']}"

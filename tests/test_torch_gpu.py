@@ -1,9 +1,9 @@
 """Tests that need an NVIDIA GPU (marker `cuda`; they skip without one):
 the fifteen CUDA kernels against their plain PyTorch versions (the digit
 kernels in REDC and fold modes; K1-K5 and K9 also at ragged batches
-and at every instantiation's edge nw, and a refused launch; K10 at ragged
-batches, at its K edges, a refused launch and its ptxas report), the
-golden sweep
+and at every instantiation's edge nw, and a refused launch; K10 and K14 at
+ragged batches, at their K edges, a refused launch and their ptxas
+reports), the golden sweep
 and the reference's t35 acceptance sweep through the port, and the RNS engine's, the Mersenne
 fold's, the Edwards curves' and the stage-2 replay modes' finds through
 the driver on the card.
@@ -573,6 +573,98 @@ def test_rns_tape_ptxas_no_stack_or_spills(cuda):
     for tile, x in report.items():
         assert (x["stack_bytes"], x["spill_store_bytes"],
                 x["spill_load_bytes"]) == (0, 0, 0), (tile, x)
+
+
+def _k14_against_plain(rc, b: int, seed: int, steps: int = 4):
+    """K14 on `steps` 16-entry steps of v-sorted random entries ending in
+    pad entries (chip_smoke._random_calls' gather call) over random
+    residues at B curves, one launch, against
+    rns_kernels.replay_gather_plain on the same card tensors, residue for
+    residue."""
+    import numpy as np
+
+    import chip_smoke
+    from tpu_ecm_torch.limbs import kernels, rns_kernels
+    from tpu_ecm_torch.stage2 import exec as s2
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    g, pb_rows, e = 11, 13, s2.REPLAY_E
+    pairs = chip_smoke._random_calls(rng, g, pb_rows, steps * e)["gather"]
+    assert pairs.shape[0] == steps * e and (pairs[-5:] == [g, 0]).all()
+    acc = chip_smoke._rand_residues(gen, rc, (rc.rows, b))
+    pa_ext = chip_smoke._rand_residues(gen, rc, (g + 1, rc.rows, b))
+    pbx = chip_smoke._rand_residues(gen, rc, (pb_rows, rc.rows, b))
+    pbx[0] = 0
+    want = rns_kernels.replay_gather_plain(acc, pa_ext, pbx, pairs, e, rc)
+    kernels.reset_launches()
+    got = rns_kernels.replay_gather(acc, pa_ext, pbx, pairs, rc, e=e)
+    torch.cuda.synchronize()
+    assert kernels.launches["rns_replay_gather"] == 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("b", [1, 7, 9, 1024])
+def test_rns_gather_batches(cuda, b):
+    """K14 at row 21's K=200 (8 curves a block, the weights in shared
+    memory, two products a pass) at batches that leave the last block
+    part empty (B = 1, 7, 9; B % 4 != 0 takes the scalar loads) and at the
+    rns job's B = 1024."""
+    import chip_smoke
+    from tpu_ecm_torch import params
+    from tpu_ecm_torch.limbs import rns
+    ctx = params.make_monty(chip_smoke.row21_n())
+    rc = rns.device_ctx(rns.make_rns(ctx, cw=rns.choose_cw(ctx.p.nbits)),
+                        "cuda")
+    assert rc.K == 200
+    _k14_against_plain(rc, b, b)
+
+
+@pytest.mark.parametrize("K", [2, 222, 224, 520])
+def test_rns_gather_k_edges(cuda, K):
+    """K14 at the smallest K, at the last K whose weights fit in shared
+    memory (222: one product a pass), one step past it (224: 4 curves a
+    block, the fragments from the global table) and at K_MAX = 520, on
+    synthetic tables (chip_smoke.synthetic_rns), B = 9."""
+    import chip_smoke
+    from tpu_ecm_torch.limbs import rns_kernels
+    g = rns_kernels.gather_geometry(K, 9)
+    assert g.resident == (K <= 222) and g.halves == (1 if K == 222 else 2)
+    _k14_against_plain(chip_smoke.synthetic_rns(K, K, "cuda"), 9, K)
+
+
+def test_rns_gather_refused_launch_raises(cuda, monkeypatch):
+    """T = 8 with two halves at K = 224, which does not fit in shared
+    memory, is refused by the C entry point, the wrapper raises, and no
+    launch is counted."""
+    import numpy as np
+
+    import chip_smoke
+    from tpu_ecm_torch.limbs import kernels, rns_kernels
+    rc = chip_smoke.synthetic_rns(224, 1, "cuda")
+    acc = torch.zeros((rc.rows, 8), dtype=torch.int32, device=cuda)
+    rows = torch.zeros((2, rc.rows, 8), dtype=torch.int32, device=cuda)
+    monkeypatch.setattr(rns_kernels, "gather_geometry",
+                        lambda K, b: rns_kernels.GatherGeometry(
+                            8, 2, 512, 1, 0, True, 1))
+    kernels.reset_launches()
+    with pytest.raises(RuntimeError, match="launch failed"):
+        rns_kernels.replay_gather(acc, rows, rows,
+                                  np.zeros((16, 2), np.int32), rc, e=16)
+    assert kernels.launches["rns_replay_gather"] == 0
+
+
+def test_rns_gather_ptxas_no_stack_or_spills(cuda):
+    """nvcc -Xptxas -v reports no stack frame and no spills for any
+    instantiation of K14 (T = 8 with two halves and with one, T = 4 with
+    two)."""
+    import chip_smoke
+    from tpu_ecm_torch.limbs import build
+    build.library()
+    report = chip_smoke._lanes_ptxas("rns_replay_gather_kernel")
+    assert set(report) == {(4, 2), (8, 1), (8, 2)}
+    for key, x in report.items():
+        assert (x["stack_bytes"], x["spill_store_bytes"],
+                x["spill_load_bytes"]) == (0, 0, 0), (key, x)
 
 
 @pytest.mark.parametrize("which", ["N71", "N2355"])

@@ -11,9 +11,9 @@ loads, products and stores, memory to memory).  Each case holds the body
 residue for residue against limbs/rns_exec.run_tape on CPU tensors, on a
 tape with every opcode and dst aliasing each input: a small K at ragged
 batches, the rns job's K=200, K=224 past the shared-memory limit, and the
-synthetic edges K=2, 222 and K_MAX=520; the launch geometry against
-rns_kernels.tape_geometry; and the multiply-high reductions against `%`
-on edge inputs.
+synthetic edges K=2, 222 and K_MAX=520; the launch geometry that
+rns_kernels.tape_geometry reads from the source's own entry point; and
+the multiply-high reductions against `%` on edge inputs.
 """
 
 import importlib.util
@@ -63,7 +63,7 @@ def test_edge_tape_covers_every_op_and_alias():
 def test_rns_tape_shim_equals_run_tape(bits, b):
     shim, lib = _shim()
     rc = shim.rns_ctx_at(bits)
-    geometry = rns_kernels.tape_geometry(rc.K, b)
+    geometry = rns_kernels.tape_geometry(rc.K, b, lib)
     assert rc.K == {256: 24, 2397: 200, 2700: 224}[bits]
     assert geometry.resident == (rc.K <= 222) and b % geometry.tile
     for what, ok in shim.compare_rns_tape(lib, rc, b):
@@ -82,26 +82,33 @@ def test_rns_tape_shim_k_edges(K, b):
 
 
 def test_geometry_matches_the_kernels_config():
-    """rns_kernels.tape_geometry equals csrc/rns_mma.cuh:rns_tape_config
-    at every K the wrapper lets through; T = 8 exactly up to K = 222; the
-    config refuses T = 8 past it, an odd K, K past K_MAX, B = 0 and a tile
-    other than 4 or 8."""
-    import ctypes
+    """rns_kernels.tape_geometry, read from csrc/rns_tape.cu's
+    tpuecm_rns_tape_geometry, at every K the wrapper lets through: T = 8
+    exactly up to K = 222, enough warps for every channel pair and two a
+    32-row M tile (at most 14 at T = 8, 17 at T = 4), the block's shared
+    memory within the card's 232,448 bytes, 213,024 of them at the rns
+    job's K = 200 (PERF.md); a tile asked for is kept; T = 8 past K = 222,
+    an odd K, K past K_MAX, B = 0 and a tile other than 4 or 8 are
+    refused."""
     _shim_mod, lib = _shim()
-    out = (ctypes.c_longlong * 5)()
     for K in range(2, rns.K_MAX + 1, 2):
+        mpad = -(-(K + 1) // 32) * 32
         for b in (1, 9, 1024):
-            g = rns_kernels.tape_geometry(K, b)
-            assert lib.rns_tape_geometry(K, b, g.tile, out) == 0, K
-            assert tuple(out) == (g.tile, g.threads, g.blocks,
-                                  int(g.resident), g.smem), K
+            g = rns_kernels.tape_geometry(K, b, lib)
             assert g.resident == (K <= 222) and g.tile == (8 if K <= 222
-                                                           else 4)
-            assert g.threads <= (448 if g.tile == 8 else 544)
+                                                           else 4), K
+            warps = max(-(-(g.tile // 4) * (K + 1) // 32),
+                        min(2 * mpad // 32, 17))
+            assert g.threads == 32 * warps <= (448 if g.tile == 8 else 544)
+            assert g.blocks == -(-b // g.tile) and g.smem <= 232448, K
+            assert rns_kernels.tape_geometry(K, b, lib, 4).tile == 4
+    assert rns_kernels.tape_geometry(200, 1024, lib) == (8, 448, 128,
+                                                         213024, True)
     refused = [(224, 9, 8), (201, 9, 8), (rns.K_MAX + 2, 9, 4), (24, 0, 8),
                (24, 9, 16)]
     for K, b, tile in refused:
-        assert lib.rns_tape_geometry(K, b, tile, out) != 0, (K, b, tile)
+        with pytest.raises(ValueError, match="no launch"):
+            rns_kernels.tape_geometry(K, b, lib, tile)
 
 
 # P and Q at their largest at K_MAX (u8 splits: lo <= 255, a weight's hi

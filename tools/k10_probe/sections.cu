@@ -113,7 +113,7 @@ static void run(int K, int B, int reps) {
     std::vector<int> vals(2 * (size_t)rows * B);
     for (size_t i = 0; i < vals.size(); ++i)
         vals[i] = below(p[(i / B) % rows]);
-    RnsTapeLaunch c;
+    RnsMmaLaunch c;
     if (rns_tape_config(K, B, 8, c) != 0) {
         std::printf("K=%d: no T=8 launch\n", K);
         return;

@@ -1,8 +1,9 @@
 """Run the lane core of tpu_ecm_torch/csrc/arith_lanes.cuh (K1's
 arithmetic) and the kernel bodies of K2 (csrc/chain.cu), K3 and K4
 (csrc/batch_inverse.cu), K5 (csrc/replay.cu) and K9 (csrc/ed_tape.cu), and
-K10's (csrc/rns_tape.cu on the tensor-core core csrc/rns_mma.cuh), on the
-CPU and hold them against their plain versions.
+K10's and K14's (csrc/rns_tape.cu, csrc/rns_replay_gather.cu, on the
+tensor-core core csrc/rns_mma.cuh), on the CPU and hold them against their
+plain versions.
 
 The CUDA source is built by g++ against cuda_runtime.h beside this file,
 which runs every CUDA thread as a std::thread and shuffles through a
@@ -16,10 +17,12 @@ sqrmod, curve/ops.xdbl / xadd, limbs/kernels.replay_plain,
 curve/edops.run_tape, limbs/kernels.chain_plain, prefix_plain and
 apply_inverse_plain on CPU tensors.  K3's, K4's and K5's cp.async copies
 land at once and, in a second run, at their wait
-(cuda_pipeline_primitives.h).  K10's body is built apart (rns_check.cpp,
-with mma.h standing in for nvcuda::wmma) and held residue for residue
-against limbs/rns_exec.run_tape on a tape of every opcode, at a small K,
-K=200 (the rns job's; its weights in shared memory), K=224 (past the
+(cuda_pipeline_primitives.h).  K10's and K14's bodies are built apart
+(rns_check.cpp, with mma.h standing in for nvcuda::wmma) and held residue
+for residue against limbs/rns_exec.run_tape on a tape of every opcode and
+against rns_kernels.replay_gather_plain on calls of v-sorted entries and
+pads (K14's entry copies landing at once and at their wait), at a small
+K, K=200 (the rns job's; its weights in shared memory), K=224 (past the
 shared-memory limit: the fragments load from the global table) and
 ragged batches.
 From the repository root:
@@ -69,7 +72,8 @@ RNS_SOURCES = (os.path.join(HERE, "cuda_runtime.h"),
                os.path.join(HERE, "rns_check.cpp"),
                os.path.join(HERE, "mma.h"),
                os.path.join(build.CSRC, "rns_mma.cuh"),
-               os.path.join(build.CSRC, "rns_tape.cu"))
+               os.path.join(build.CSRC, "rns_tape.cu"),
+               os.path.join(build.CSRC, "rns_replay_gather.cu"))
 SANITIZE = ("-O1", "-g", "-fsanitize=address,undefined")
 
 
@@ -100,10 +104,15 @@ def load_rns(path: str) -> ctypes.CDLL:
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.rns_tape_run.argtypes = [P, ctypes.c_longlong, P, P, P, P, I, I, I]
     lib.rns_tape_run.restype = I
-    lib.rns_tape_geometry.argtypes = [I, I, I, P]
-    lib.rns_tape_geometry.restype = I
+    lib.tpuecm_rns_tape_geometry.argtypes = [I, I, I, P]
+    lib.tpuecm_rns_tape_geometry.restype = I
     lib.rns_reduce.argtypes = [P, P, I, ctypes.c_uint, ctypes.c_uint, P]
     lib.rns_reduce.restype = None
+    lib.rns_gather_run.argtypes = [P, P, P, P, P, P, I, I, P, P, I, I, I,
+                                   I]
+    lib.rns_gather_run.restype = I
+    lib.tpuecm_rns_gather_geometry.argtypes = [I, I, I, P]
+    lib.tpuecm_rns_gather_geometry.restype = I
     return lib
 
 
@@ -422,7 +431,7 @@ def rns_tape_shim(lib, pts, tape, s_const, rc) -> torch.Tensor:
     """K10's kernel body over a copy of pts at tape_geometry's tile;
     returns the copy."""
     b = int(pts.shape[-1])
-    tile = rns_kernels.tape_geometry(rc.K, b).tile
+    tile = rns_kernels.tape_geometry(rc.K, b, lib).tile
     got = pts.clone()
     t = np.ascontiguousarray(tape, dtype=np.int32)
     code = lib.rns_tape_run(t.ctypes.data, t.shape[0], got.data_ptr(),
@@ -454,9 +463,71 @@ def compare_rns_tape(lib, rc, b: int, seed: int = 0) -> list:
     sc = rns_residues(rng, rc, (rc.rows, b))
     want = rns_exec.run_tape(pts.clone(), tape, sc, rc)
     got = rns_tape_shim(lib, pts, tape, sc, rc)
-    g = rns_kernels.tape_geometry(rc.K, b)
+    g = rns_kernels.tape_geometry(rc.K, b, lib)
     return [(f"K={rc.K} T={g.tile} resident={g.resident} B={b} K10 "
              f"ops={len(tape)}", torch.equal(got, want))]
+
+
+def gather_call(rng, rc, b: int, e: int, steps: int, g: int = 5,
+                pb_rows: int = 7, pads: int = 3):
+    """A K14 call's inputs on CPU tensors: acc, pa_ext (g rows and the
+    pad row g), pbx (pb_rows rows, row 0 zero) of random residues, and idx
+    [steps*e, 2] of v-sorted (pa, pb) entries over few rows (so rows
+    repeat) ending in `pads` pad entries (g, 0)."""
+    acc = rns_residues(rng, rc, (rc.rows, b))
+    pa_ext = rns_residues(rng, rc, (g + 1, rc.rows, b))
+    pbx = rns_residues(rng, rc, (pb_rows, rc.rows, b))
+    pbx[0] = 0
+    n = steps * e
+    live = max(n - pads, 0)
+    idx = np.full((n, 2), (g, 0), np.int32)
+    idx[:live, 0] = np.sort(rng.integers(0, g, live))
+    idx[:live, 1] = rng.integers(1, pb_rows, live)
+    return acc, pa_ext, pbx, idx
+
+
+def rns_gather_shim(lib, acc, pa_ext, pbx, idx, e: int, rc, tile=None,
+                    late: int = 0) -> torch.Tensor:
+    """K14's kernel body on one call, at gather_geometry's tile or the one
+    given (the number of halves follows from it), its entry copies landing
+    at once or (late) at their wait, into an output filled with -7 first;
+    scratch holds only the planes the geometry gives."""
+    b = int(acc.shape[-1])
+    geo = rns_kernels.gather_geometry(rc.K, b, lib, tile or 0)
+    out = torch.full_like(acc, -7)
+    scratch = torch.full((geo.scratch,) + tuple(acc.shape), -7,
+                         dtype=torch.int32)
+    idx = np.ascontiguousarray(idx, dtype=np.int32)
+    code = lib.rns_gather_run(acc.data_ptr(), out.data_ptr(),
+                              scratch.data_ptr(), pa_ext.data_ptr(),
+                              pbx.data_ptr(),
+                              idx.ctypes.data, idx.shape[0] // e, e,
+                              rc.tab.data_ptr(), rc.wmma.data_ptr(), rc.K, b,
+                              geo.tile, late)
+    if code:
+        raise ValueError(f"K14 refused K={rc.K} B={b} tile={geo.tile} "
+                         f"E={e}: {code}")
+    return out
+
+
+def compare_rns_gather(lib, rc, b: int, e: int, steps: int, seed: int = 0,
+                       tile=None, lates=(0, 1)) -> list:
+    """(what, equal) of K14's kernel body on a gather_call of `steps`
+    steps of e entries at B curves against rns_kernels.replay_gather_plain,
+    at gather_geometry's tile or the one given, its entry copies landing
+    at once (late 0) and at their wait (late 1)."""
+    rng = np.random.default_rng(seed)
+    acc, pa_ext, pbx, idx = gather_call(rng, rc, b, e, steps)
+    want = rns_kernels.replay_gather_plain(acc, pa_ext, pbx, idx, e, rc)
+    geo = rns_kernels.gather_geometry(rc.K, b, lib, tile or 0)
+    res = []
+    for late in lates:
+        got = rns_gather_shim(lib, acc, pa_ext, pbx, idx, e, rc, tile, late)
+        res.append((f"K={rc.K} T={geo.tile} H={geo.halves}"
+                    f" B={b} K14 E={e} steps={steps} copies "
+                    f"{('at once', 'at their wait')[late]}",
+                    torch.equal(got, want)))
+    return res
 
 
 # K10's cases (bits of a random N, B): K=24 at ragged batches (B % 4 != 0:
@@ -464,6 +535,11 @@ def compare_rns_tape(lib, rc, b: int, seed: int = 0) -> list:
 # (the rns job's, weights in shared memory) and K=224 (past the
 # shared-memory limit, T = 4)
 RNS_CASES = ((256, 9), (256, 12), (2397, 9), (2700, 3))
+# K14's cases (bits of a random N, B, E, steps): the same geometries, E =
+# 16 (the main path's) over three steps, E = 1 and 2 and an odd count of
+# steps
+GATHER_CASES = ((256, 9, 16, 3), (256, 12, 2, 3), (256, 9, 1, 5),
+                (2397, 9, 16, 2), (2700, 3, 16, 2))
 
 
 N416 = (205688069665150755269371147819668813122841983204197482918578443
@@ -555,6 +631,11 @@ def main() -> int:
     rlib = load_rns(build_lib(args.sanitize, RNS_SOURCES, "rns"))
     for bits, b in RNS_CASES:
         for what, ok in compare_rns_tape(rlib, rns_ctx_at(bits), b):
+            print(f"{what}: {'equal' if ok else 'DIFFER'}", flush=True)
+            bad += not ok
+    for bits, b, e, steps in GATHER_CASES:
+        for what, ok in compare_rns_gather(rlib, rns_ctx_at(bits), b, e,
+                                           steps):
             print(f"{what}: {'equal' if ok else 'DIFFER'}", flush=True)
             bad += not ok
     for n, mers, fw, b, lanes in CASES:

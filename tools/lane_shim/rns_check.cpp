@@ -1,36 +1,33 @@
-// Entry points that run K10's kernel body (tpu_ecm_torch/csrc/rns_tape.cu
-// on csrc/rns_mma.cuh) on the CPU through cuda_runtime.h and mma.h beside
-// this file, on host arrays laid out as the kernel's planes:
-//   rns_tape_run:      the body over the [6, 2, 2K+1, B] file in place, at
-//                      rns_tape_config's geometry for `tile`;
-//   rns_tape_geometry: that geometry, {tile, threads, blocks, resident,
-//                      smem bytes};
-//   rns_reduce:        red, mulc and chan on n inputs.
-// The first two return rns_tape_config's code (0, or cudaErrorInvalidValue
-// for a K, B or tile the kernel refuses).
+// Entry points that run the kernel bodies of K10 (tpu_ecm_torch/csrc/
+// rns_tape.cu) and K14 (csrc/rns_replay_gather.cu), both on
+// csrc/rns_mma.cuh, on the CPU through cuda_runtime.h and mma.h beside
+// this file, on host arrays laid out as the kernels' planes:
+//   rns_tape_run:   K10's body over the [6, 2, 2K+1, B] file in place, at
+//                   rns_tape_config's geometry for `tile`;
+//   rns_gather_run: K14's body on one call, at rns_gather_config's
+//                   geometry for `tile`, its cp.async copies landing at
+//                   once or (late) at their wait;
+//   rns_reduce:     red, mulc and chan on n inputs.
+// The sources' own geometry entry points (tpuecm_rns_tape_geometry,
+// tpuecm_rns_gather_geometry) are exported as they are.  All but the last
+// return the launch's code (0, or cudaErrorInvalidValue for a K, B, tile
+// or call shape the kernel refuses).
 #include <cstdlib>
 #include <cstring>
+#include <type_traits>
 
+#include <cuda_pipeline_primitives.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 
+#include "rns_replay_gather.cu"
 #include "rns_tape.cu"
-
-extern "C" int rns_tape_geometry(int K, int B, int tile, long long* out) {
-    RnsTapeLaunch c;
-    const int rc = rns_tape_config(K, B, tile, c);
-    if (rc != cudaSuccess) return rc;
-    const long long g[5] = {c.tile, c.threads, c.blocks, c.resident,
-                            (long long)c.smem};
-    std::memcpy(out, g, sizeof g);
-    return 0;
-}
 
 extern "C" int rns_tape_run(const int* tape, long long nsteps, int* pts,
                             const int* s_const, const int* tab,
                             const unsigned char* wmma, int K, int B,
                             int tile) {
-    RnsTapeLaunch c;
+    RnsMmaLaunch c;
     const int rc = rns_tape_config(K, B, tile, c);
     if (rc != cudaSuccess) return rc;
     const size_t bytes = (c.smem + 127) / 128 * 128;
@@ -43,6 +40,38 @@ extern "C" int rns_tape_run(const int* tape, long long nsteps, int* pts,
         else
             rns_tape_body<4>(smem, tape, nsteps, pts, s_const, tab, wmma, K,
                              B);
+    });
+    std::free(smem);
+    return 0;
+}
+
+extern "C" int rns_gather_run(const int* acc_in, int* acc_out,
+                              int* scratch, const int* pa_ext,
+                              const int* pbx,
+                              const int* idx, int nsteps, int E,
+                              const int* tab, const unsigned char* wmma,
+                              int K, int B, int tile, int late) {
+    if (!gather_args_ok(nsteps, E)) return cudaErrorInvalidValue;
+    RnsMmaLaunch c;
+    const int rc = rns_gather_config(K, B, tile, c);
+    if (rc != cudaSuccess) return rc;
+    const size_t bytes = (c.smem + 127) / 128 * 128;
+    auto* smem = static_cast<unsigned char*>(std::aligned_alloc(128, bytes));
+    std::memset(smem, 0xA5, bytes);   // no read may rely on zeroed memory
+    emu_copy_late = late;
+    emu_launch(c.blocks, c.threads, [&] {
+        auto run = [&](auto t, auto h) {
+            rns_replay_gather_body<decltype(t)::value, decltype(h)::value>(
+                smem, acc_in, acc_out, scratch, pa_ext, pbx, idx, nsteps, E,
+                tab, wmma, K, B);
+        };
+        using I4 = std::integral_constant<int, 4>;
+        using I8 = std::integral_constant<int, 8>;
+        using H1 = std::integral_constant<int, 1>;
+        using H2 = std::integral_constant<int, 2>;
+        if (c.tile == 4) run(I4{}, H2{});
+        else if (c.halves == 2) run(I8{}, H2{});
+        else run(I8{}, H1{});
     });
     std::free(smem);
     return 0;

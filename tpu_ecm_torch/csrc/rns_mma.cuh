@@ -1,7 +1,7 @@
 // RNS Montgomery arithmetic on the tensor cores for a tile of T curves a
 // block: the CUDA twin of limbs/rns.py:mont_mul/add/sub (the plain
-// version) that K10 (csrc/rns_tape.cu) runs.  K11-K15 stay on
-// csrc/rns_arith.cuh.
+// version) that K10 (csrc/rns_tape.cu) and K14 (csrc/rns_replay_gather.cu)
+// run.  K11-K13 and K15 stay on csrc/rns_arith.cuh.
 //
 // A value is 2K+1 canonical residues: rows [0, K) base A, [K, 2K) base B,
 // row 2K the r channel m_r = 2^14; device planes are [2K+1, B], curve axis
@@ -62,6 +62,14 @@
 // there once per block; otherwise (T = 4) the fragments load from the
 // global table through L1/L2.
 //
+// Two independent products of the same T curves (mma_mul2) run as one:
+// the block holds H = 2 halves of X, P, Q and tr, each dot's warp loads a
+// weight fragment once and multiplies both halves' inputs by it (N = 16
+// columns as two n8 fragments, four accumulator chains a warp), and the
+// four barriers serve both.  Half j's buffers follow half 0's at a fixed
+// stride (xhalf, phalf), so mma_mul, which uses half 0 only, runs
+// unchanged in a block set up with two halves.
+//
 // Every thread of the block must call every mma_mul, so the kernel keeps
 // its control flow uniform across the block.
 #pragma once
@@ -93,12 +101,15 @@
 __host__ __device__ inline int rns_kpad(int K) { return (K + 15) / 16 * 16; }
 __host__ __device__ inline int rns_mpad(int K) { return (K + 32) / 32 * 32; }
 
-// X [2][Kpad/16][8][16] u8, P and Q [Mpad][8] s32, tr [8] u32, the
-// channel pairs' constants (kA, kB [Mpad] uint4, kF [Mpad] uint2), then
-// the weight planes [4][Mpad/32][Kpad/16][32][16] u8 when resident
-inline size_t rns_tape_smem(int K, bool resident) {
+// X [H][2][Kpad/16][8][16] u8, P and Q [H][Mpad][8] s32, tr [H][8] u32,
+// the channel pairs' constants (kA, kB [Mpad] uint4, kF [Mpad] uint2),
+// then the weight planes [4][Mpad/32][Kpad/16][32][16] u8 when resident;
+// H halves (1, or 2 for mma_mul2)
+__host__ __device__ inline size_t rns_mma_bytes(int K, bool resident,
+                                               int halves) {
     const size_t kp = rns_kpad(K), mp = rns_mpad(K);
-    return 16 * kp + 104 * mp + 32 + (resident ? 4 * kp * mp : 0);
+    return halves * (16 * kp + 64 * mp + 32) + 40 * mp
+           + (resident ? 4 * kp * mp : 0);
 }
 
 // Threads a block may have: T = 8 runs at K <= 222, at most 14 warps, and
@@ -108,30 +119,60 @@ __host__ __device__ constexpr int rns_tape_max_threads(int T) {
     return T == 8 ? 448 : RNS_MMA_MAX_THREADS;
 }
 
-struct RnsTapeLaunch {
-    int tile, threads, blocks, resident;
+struct RnsMmaLaunch {
+    int tile, halves, threads, blocks, resident;
     size_t smem;
 };
 
-// cudaSuccess, or cudaErrorInvalidValue for a K, B or tile K10 does not
-// take: T = 8 keeps the weights in shared memory and is refused where they
-// do not fit; T = 4 reads them from the global table.  Warps: enough for
-// every channel pair, and two a 32-row M tile up to RNS_MMA_MAX_WARPS.
-inline int rns_tape_config(int K, int B, int tile, RnsTapeLaunch& c) {
+// cudaSuccess, or cudaErrorInvalidValue for a K, B, tile or number of
+// halves the kernels do not take: T = 8 keeps the weights in shared
+// memory and is refused where they do not fit beside `halves` sets of X,
+// P, Q and tr and `extra` bytes of the kernel's own (K10: one half, K <=
+// 222; K14: two halves up to K = 208); T = 4 reads them from the global
+// table.  Warps: enough for every channel pair, and two a 32-row M tile
+// up to RNS_MMA_MAX_WARPS.
+inline int rns_mma_config(int K, int B, int tile, int halves, size_t extra,
+                          RnsMmaLaunch& c) {
     if (K < 2 || K % 2 || K > RNS_MMA_K_MAX || B < 1
-        || (tile != 4 && tile != 8))
+        || (tile != 4 && tile != 8) || (halves != 1 && halves != 2))
         return (int)cudaErrorInvalidValue;
     const int G = tile / 4, mt = rns_mpad(K) / 32;
     const int chans = (G * (K + 1) + 31) / 32;
     const int dots = 2 * mt < RNS_MMA_MAX_WARPS ? 2 * mt : RNS_MMA_MAX_WARPS;
     c.tile = tile;
+    c.halves = halves;
     c.resident = tile == 8;
-    c.smem = rns_tape_smem(K, c.resident);
+    c.smem = rns_mma_bytes(K, c.resident, halves) + extra;
     c.threads = 32 * (chans > dots ? chans : dots);
     c.blocks = (B + tile - 1) / tile;
     if (c.smem > RNS_MMA_SMEM_MAX || c.threads > rns_tape_max_threads(tile))
         return (int)cudaErrorInvalidValue;
     return (int)cudaSuccess;
+}
+
+// The tile a kernel with `extra` bytes of its own takes at K unless told
+// otherwise: 8 where the weights fit in shared memory beside one half
+// (K <= 222 for K10 and K14), else 4
+inline int rns_mma_tile(int K, size_t extra) {
+    return rns_mma_bytes(K, true, 1) + extra <= RNS_MMA_SMEM_MAX ? 8 : 4;
+}
+
+// K10's launch: one half, at `tile` (0: rns_mma_tile's)
+inline int rns_tape_config(int K, int B, int tile, RnsMmaLaunch& c) {
+    return rns_mma_config(K, B, tile ? tile : rns_mma_tile(K, 0), 1, 0, c);
+}
+
+// Fills out[n] from a launch for a geometry entry point (the caller's
+// layout: rns_kernels.TapeGeometry's fields, then GatherGeometry's)
+inline void rns_mma_geometry(const RnsMmaLaunch& c, bool halves,
+                             long long* out) {
+    int i = 0;
+    out[i++] = c.tile;
+    if (halves) out[i++] = c.halves;
+    out[i++] = c.threads;
+    out[i++] = c.blocks;
+    out[i++] = (long long)c.smem;
+    out[i++] = c.resident;
 }
 
 // ---------------------------------------------------------------------------
@@ -182,8 +223,9 @@ struct MV {
 
 // The block's constants and buffers.  Each thread keeps its channels'
 // moduli and Barrett constants in registers; the pair's other constants
-// sit in shared memory and are loaded where a product uses them, which
-// keeps the register count inside the launch bounds.
+// sit in shared memory and are loaded where a product uses them, and the
+// shared buffers are reached by 32-bit offsets from x, which keeps the
+// register count inside the launch bounds (96 a thread at 17 warps).
 struct MmaCtx {
     int K, B, c, cb, col;      // channel pair, the thread's first curve
                                // and its column in X, P, Q and tr
@@ -191,18 +233,33 @@ struct MmaCtx {
     int kt, mt;                // k tiles, M tiles
     uint32_t pA, mA, pBr, mBr, qinv, mask;
     const unsigned char* w;    // four weight planes (shared or global)
-    unsigned char* x;          // dot input [2][Kpad/16][8][16]: lo, hi
-    int* P;                    // dot partial sums [Mpad][8]
-    int* Q;
-    uint32_t* tr;              // t_r of each curve column [8]
-    const uint4* kA;           // [pair] c1, c1', |Q|_p, |Q|_p'
-    const uint4* kB;           // [pair] P^-1, N P^-1, qdivinv, qdivinv'
-    const uint2* kF;           // [pair] F mod p_A, F mod p_B/r
+    unsigned char* x;          // dot input [H][2][Kpad/16][8][16]: lo, hi
+    int oP, oQ, otr, okA, okB, okF;   // byte offsets from x of P, Q, tr,
+                                      // kA, kB and kF
+    __device__ int* Pp() const { return reinterpret_cast<int*>(x + oP); }
+    __device__ int* Qp() const { return reinterpret_cast<int*>(x + oQ); }
+    __device__ uint32_t* trp() const {
+        return reinterpret_cast<uint32_t*>(x + otr);
+    }
+    __device__ const uint4* kAp() const {
+        return reinterpret_cast<const uint4*>(x + okA);
+    }
+    __device__ const uint4* kBp() const {
+        return reinterpret_cast<const uint4*>(x + okB);
+    }
+    __device__ const uint2* kFp() const {
+        return reinterpret_cast<const uint2*>(x + okF);
+    }
 };
 
+// Half j's X, P/Q and tr sit j * xhalf bytes, j * phalf ints and 8 j
+// words past half 0's.
+__device__ __forceinline__ int xhalf(const MmaCtx& L) { return 256 * L.kt; }
+__device__ __forceinline__ int phalf(const MmaCtx& L) { return 256 * L.mt; }
+
 // Call with every thread of the block before any other function here;
-// smem is the block's rns_tape_smem(K, T == 8) bytes, 128-byte aligned.
-template <int T>
+// smem is the block's rns_mma_bytes(K, T == 8, H) bytes, 128-byte aligned.
+template <int T, int H = 1>
 __device__ __forceinline__ void mma_setup(MmaCtx& L, unsigned char* smem,
                                           const int* tab,
                                           const unsigned char* wmma, int K,
@@ -226,10 +283,13 @@ __device__ __forceinline__ void mma_setup(MmaCtx& L, unsigned char* smem,
     L.qinv = (uint32_t)tab[RNS_TAB_QINV(K)];
     L.mask = (uint32_t)tab[RNS_TAB_P(K) + 2 * K] - 1u;
     L.x = smem;
-    L.P = reinterpret_cast<int*>(smem + 16 * (size_t)kp);
-    L.Q = L.P + 8 * mp;
-    L.tr = reinterpret_cast<uint32_t*>(L.Q + 8 * mp);
-    uint4* kA = reinterpret_cast<uint4*>(L.tr + 8);
+    L.oP = 16 * kp * H;
+    L.oQ = L.oP + 32 * mp * H;
+    L.otr = L.oQ + 32 * mp * H;
+    L.okA = L.otr + 32 * H;
+    L.okB = L.okA + 16 * mp;
+    L.okF = L.okB + 16 * mp;
+    uint4* kA = reinterpret_cast<uint4*>(smem + L.okA);
     uint4* kB = kA + mp;
     uint2* kF = reinterpret_cast<uint2*>(kB + mp);
     for (int c = t; c <= K; c += blockDim.x) {     // pair K: the r channel
@@ -246,13 +306,10 @@ __device__ __forceinline__ void mma_setup(MmaCtx& L, unsigned char* smem,
         kF[c] = uint2{a ? (uint32_t)tab[RNS_TAB_FSUB(K) + c] : 0u,
                       (uint32_t)tab[RNS_TAB_FSUB(K) + K + c]};
     }
-    L.kA = kA;
-    L.kB = kB;
-    L.kF = kF;
     // X's padding rows and unused curve columns stay zero (the weights of
     // padding rows are zero too)
     uint4* x4 = reinterpret_cast<uint4*>(L.x);
-    for (int i = t; i < kp; i += blockDim.x) x4[i] = uint4{0, 0, 0, 0};
+    for (int i = t; i < kp * H; i += blockDim.x) x4[i] = uint4{0, 0, 0, 0};
     if (T == 8) {                                   // resident weights
         uint4* w4 = reinterpret_cast<uint4*>(kF + mp);
         const uint4* g4 = reinterpret_cast<const uint4*>(wmma);
@@ -313,10 +370,12 @@ __device__ __forceinline__ void store_mv(int* plane, const MV& v,
 // the extension dots
 // ---------------------------------------------------------------------------
 
-// The thread's four dot inputs of channel c (< K) into X's two planes:
-// tile c / 16, curve columns col .. col + 3, row c % 16 of each.
-__device__ __forceinline__ void put_x(const MmaCtx& L, const uint32_t v[4]) {
-    unsigned char* x = L.x + (L.c >> 4) * 128 + 16 * L.col + (L.c & 15);
+// The thread's four dot inputs of channel c (< K) into half j of X's two
+// planes: tile c / 16, curve columns col .. col + 3, row c % 16 of each.
+__device__ __forceinline__ void put_x(const MmaCtx& L, const uint32_t v[4],
+                                      int j = 0) {
+    unsigned char* x = L.x + j * xhalf(L) + (L.c >> 4) * 128 + 16 * L.col
+                       + (L.c & 15);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
         x[16 * i] = (unsigned char)v[i];
@@ -324,16 +383,18 @@ __device__ __forceinline__ void put_x(const MmaCtx& L, const uint32_t v[4]) {
     }
 }
 
-// P and Q of output rows [0, K] and the 8 curve columns from the dot input
-// in X and weight planes `plane` (lo) and plane + 1 (hi): item 2m + h is
-// M tile m with the weights' lo (h = 0, into P) or hi (h = 1, into Q) byte.
-// The operands are stored as the integer mma takes them, A row-major and
-// B column-major, each tile 16 bytes a row and contiguous (A: 32 x 16,
-// 512 bytes; B: 8 curves x 16 channels, 128 bytes), so a fragment is a few
-// whole-row loads; the other layouts cost a byte load per element.  With
+// P and Q of output rows [0, K] and the 8 curve columns of each of the H
+// halves from the dot input in X and weight planes `plane` (lo) and
+// plane + 1 (hi): item 2m + h is M tile m with the weights' lo (h = 0,
+// into P) or hi (h = 1, into Q) byte.  The operands are stored as the
+// integer mma takes them, A row-major and B column-major, each tile 16
+// bytes a row and contiguous (A: 32 x 16, 512 bytes; B: 8 curves x 16
+// channels, 128 bytes), so a fragment is a few whole-row loads; the other
+// layouts cost a byte load per element.  A weight fragment, loaded once,
+// multiplies every half's inputs (2H accumulator chains a warp).  With
 // the weights in global memory (T = 4) the k loop is not unrolled:
 // fragments fetched ahead would not fit the registers of 17 warps.
-template <int T>
+template <int T, int H = 1>
 __device__ __forceinline__ void ext_dot(const MmaCtx& L, int plane) {
     using namespace nvcuda;
     const int warp = threadIdx.x / 32, warps = blockDim.x / 32;
@@ -344,19 +405,25 @@ __device__ __forceinline__ void ext_dot(const MmaCtx& L, int plane) {
         const int m = item >> 1, h = item & 1;
         const unsigned char* w = L.w + (plane + h) * wsz
                                  + (size_t)m * L.kt * 512;
-        wmma::fragment<wmma::accumulator, 32, 8, 16, int> lo, hi;
-        wmma::fill_fragment(lo, 0);
-        wmma::fill_fragment(hi, 0);
+        wmma::fragment<wmma::accumulator, 32, 8, 16, int> lo[H], hi[H];
+#pragma unroll
+        for (int j = 0; j < H; ++j) {
+            wmma::fill_fragment(lo[j], 0);
+            wmma::fill_fragment(hi[j], 0);
+        }
         auto step = [&](int k) {
             wmma::fragment<wmma::matrix_a, 32, 8, 16, unsigned char,
                            wmma::row_major> a;
-            wmma::fragment<wmma::matrix_b, 32, 8, 16, unsigned char,
-                           wmma::col_major> vl, vh;
             wmma::load_matrix_sync(a, w + 512 * k, 16);
-            wmma::load_matrix_sync(vl, xlo + 128 * k, 16);
-            wmma::load_matrix_sync(vh, xhi + 128 * k, 16);
-            wmma::mma_sync(lo, a, vl, lo);
-            wmma::mma_sync(hi, a, vh, hi);
+#pragma unroll
+            for (int j = 0; j < H; ++j) {
+                wmma::fragment<wmma::matrix_b, 32, 8, 16, unsigned char,
+                               wmma::col_major> vl, vh;
+                wmma::load_matrix_sync(vl, xlo + j * xhalf(L) + 128 * k, 16);
+                wmma::load_matrix_sync(vh, xhi + j * xhalf(L) + 128 * k, 16);
+                wmma::mma_sync(lo[j], a, vl, lo[j]);
+                wmma::mma_sync(hi[j], a, vh, hi[j]);
+            }
         };
         if constexpr (T == 8) {
             for (int k = 0; k < L.kt; ++k) step(k);
@@ -366,9 +433,13 @@ __device__ __forceinline__ void ext_dot(const MmaCtx& L, int plane) {
         }
         // the same element of two accumulators of one type is the same
         // (row, column)
-        for (int i = 0; i < lo.num_elements; ++i) lo.x[i] += hi.x[i] << 8;
-        wmma::store_matrix_sync((h ? L.Q : L.P) + 256 * m, lo, 8,
-                                wmma::mem_row_major);
+#pragma unroll
+        for (int j = 0; j < H; ++j) {
+            for (int i = 0; i < lo[j].num_elements; ++i)
+                lo[j].x[i] += hi[j].x[i] << 8;
+            int* out = (h ? L.Qp() : L.Pp()) + j * phalf(L) + 256 * m;
+            wmma::store_matrix_sync(out, lo[j], 8, wmma::mem_row_major);
+        }
     }
 }
 
@@ -376,35 +447,37 @@ __device__ __forceinline__ void ext_dot(const MmaCtx& L, int plane) {
 // channel arithmetic
 // ---------------------------------------------------------------------------
 
-// Phase A of a product: s = x*y per channel; sigma = s_A * c1 into X; the
-// B/r channel's s into sR.
+// Phase A of a product: s = x*y per channel; sigma = s_A * c1 into X's
+// half j; the B/r channel's s into sR.
 __device__ __forceinline__ void mul_head(uint32_t sR[4], const MV& x,
-                                         const MV& y, const MmaCtx& L) {
+                                         const MV& y, const MmaCtx& L,
+                                         int j = 0) {
     if (L.hasA) {
-        const uint4 k = L.kA[L.c];
+        const uint4 k = L.kAp()[L.c];
         uint32_t v[4];
 #pragma unroll
         for (int i = 0; i < 4; ++i)
             v[i] = mulc(red(x.a[i] * y.a[i], L.pA, L.mA), k.x, k.y, L.pA);
-        put_x(L, v);
+        put_x(L, v, j);
     }
 #pragma unroll
     for (int i = 0; i < 4; ++i) sR[i] = red(x.r[i] * y.r[i], L.pBr, L.mBr);
 }
 
 // Phase C, after the first dot: t = s*P^-1 + M0*(N P^-1) into o.r; tau =
-// t_B * qdivinv into X, t_r into tr.
+// t_B * qdivinv into X, t_r into tr (half j of each).
 __device__ __forceinline__ void mul_mid(MV& o, const uint32_t sR[4],
-                                        const MmaCtx& L) {
+                                        const MmaCtx& L, int j = 0) {
     const int col = L.col;
     if (!L.hasBr) {
 #pragma unroll
         for (int i = 0; i < 4; ++i) o.r[i] = 0;
         return;
     }
-    const uint4 k = L.kB[L.c];
-    const int4 P = *reinterpret_cast<const int4*>(L.P + 8 * L.c + col);
-    const int4 Q = *reinterpret_cast<const int4*>(L.Q + 8 * L.c + col);
+    const uint4 k = L.kBp()[L.c];
+    const int ph = j * phalf(L);
+    const int4 P = *reinterpret_cast<const int4*>(L.Pp() + ph + 8 * L.c + col);
+    const int4 Q = *reinterpret_cast<const int4*>(L.Qp() + ph + 8 * L.c + col);
     const uint32_t Ps[4] = {(uint32_t)P.x, (uint32_t)P.y, (uint32_t)P.z,
                             (uint32_t)P.w};
     const uint32_t Qs[4] = {(uint32_t)Q.x, (uint32_t)Q.y, (uint32_t)Q.z,
@@ -417,31 +490,34 @@ __device__ __forceinline__ void mul_mid(MV& o, const uint32_t sR[4],
         v[i] = mulc(o.r[i], k.z, k.w, L.pBr);
     }
     if (L.hasA) {
-        put_x(L, v);
+        put_x(L, v, j);
     } else {                                    // pair K: the r channel
 #pragma unroll
-        for (int i = 0; i < 4; ++i) L.tr[col + i] = o.r[i];
+        for (int i = 0; i < 4; ++i) L.trp()[8 * j + col + i] = o.r[i];
     }
 }
 
 // Phase E, after the second dot: beta from S2's r row and t_r, then t_A =
-// S2_A - beta*|Q|_p into o.a.
-__device__ __forceinline__ void mul_tail(MV& o, const MmaCtx& L) {
+// S2_A - beta*|Q|_p into o.a (half j).
+__device__ __forceinline__ void mul_tail(MV& o, const MmaCtx& L,
+                                         int j = 0) {
     const int col = L.col;
     if (!L.hasA) {
 #pragma unroll
         for (int i = 0; i < 4; ++i) o.a[i] = 0;
         return;
     }
-    const uint4 k = L.kA[L.c];
-    const uint32_t* P = reinterpret_cast<const uint32_t*>(L.P) + col;
-    const uint32_t* Q = reinterpret_cast<const uint32_t*>(L.Q) + col;
+    const uint4 k = L.kAp()[L.c];
+    const uint32_t* P = reinterpret_cast<const uint32_t*>(L.Pp())
+                        + j * phalf(L) + col;
+    const uint32_t* Q = reinterpret_cast<const uint32_t*>(L.Qp())
+                        + j * phalf(L) + col;
+    const uint32_t* tr = L.trp() + 8 * j + col;
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
         // S2's exact low 14 bits on the r row
         const uint32_t s2r = P[8 * L.K + i] + (Q[8 * L.K + i] << 8);
-        const uint32_t beta = ((s2r - L.tr[col + i]) & L.mask) * L.qinv
-                              & L.mask;
+        const uint32_t beta = ((s2r - tr[i]) & L.mask) * L.qinv & L.mask;
         const uint32_t d = chan(P[8 * L.c + i], Q[8 * L.c + i], L.pA, L.mA)
                            - mulc(beta, k.z, k.w, L.pA);
         o.a[i] = umin32(d, d + L.pA);
@@ -462,6 +538,28 @@ __device__ __forceinline__ void mma_mul(MV& o, const MV& x, const MV& y,
     ext_dot<T>(L, 2);
     __syncthreads();
     mul_tail(o, L);
+}
+
+// o0 = x0*y0/P and o1 = x1*y1/P, independent products of the same curves
+// through halves 0 and 1 (a block set up with H = 2), their dots as one;
+// any of o0, o1 may alias any input.  Every thread must call it.
+template <int T>
+__device__ __forceinline__ void mma_mul2(MV& o0, const MV& x0, const MV& y0,
+                                         MV& o1, const MV& x1, const MV& y1,
+                                         const MmaCtx& L) {
+    uint32_t s0[4], s1[4];
+    mul_head(s0, x0, y0, L, 0);
+    mul_head(s1, x1, y1, L, 1);
+    __syncthreads();
+    ext_dot<T, 2>(L, 0);
+    __syncthreads();
+    mul_mid(o0, s0, L, 0);
+    mul_mid(o1, s1, L, 1);
+    __syncthreads();
+    ext_dot<T, 2>(L, 2);
+    __syncthreads();
+    mul_tail(o0, L, 0);
+    mul_tail(o1, L, 1);
 }
 
 __device__ __forceinline__ uint32_t add_ch(uint32_t x, uint32_t y,
@@ -490,7 +588,7 @@ __device__ __forceinline__ void mma_add(MV& o, const MV& x, const MV& y,
 // x - y + F (rns.sub; F = 2KN keeps the value nonnegative)
 __device__ __forceinline__ void mma_sub(MV& o, const MV& x, const MV& y,
                                         const MmaCtx& L) {
-    const uint2 f = L.kF[L.hasBr ? L.c : L.K];     // pairs past K: unused
+    const uint2 f = L.kFp()[L.hasBr ? L.c : L.K];     // pairs past K: unused
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
         o.a[i] = sub_ch(x.a[i], y.a[i], f.x, L.pA);

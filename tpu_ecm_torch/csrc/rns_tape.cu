@@ -72,7 +72,7 @@ __device__ __forceinline__ void mma_xadd(MV& xo, MV& zo, const MV& x1,
     mma_mul<T>(zo, d2, s1, L);
 }
 
-// The kernel body on one block (smem: rns_tape_smem(K, T == 8) bytes).
+// The kernel body on one block (smem: rns_mma_bytes(K, T == 8, 1) bytes).
 template <int T>
 __device__ void rns_tape_body(unsigned char* smem, const int* tape,
                               long long nsteps, int* pts, const int* s_const,
@@ -119,7 +119,7 @@ rns_tape_kernel(const int* __restrict__ tape, long long nsteps, int* pts,
 }
 
 template <int T>
-static int launch_tape(const RnsTapeLaunch& c, const int* tape,
+static int launch_tape(const RnsMmaLaunch& c, const int* tape,
                        long long nsteps, int* pts, const int* s_const,
                        const int* tab, const unsigned char* wmma, int K,
                        int B, cudaStream_t stream) {
@@ -138,13 +138,24 @@ extern "C" int tpuecm_rns_tape(const int* tape, long long nsteps, int* pts,
                                const int* s_const, const int* tab,
                                const unsigned char* wmma, int K, int B,
                                int tile, void* stream) {
-    RnsTapeLaunch c;
+    RnsMmaLaunch c;
     const int rc = rns_tape_config(K, B, tile, c);
     if (rc != (int)cudaSuccess) return rc;
-    return tile == 8
+    return c.tile == 8
         ? launch_tape<8>(c, tape, nsteps, pts, s_const, tab, wmma, K, B,
                          (cudaStream_t)stream)
         : launch_tape<4>(c, tape, nsteps, pts, s_const, tab, wmma, K, B,
                          (cudaStream_t)stream);
 }
 #endif
+
+// K10's geometry at K, B and `tile` (0: its own) into out[5]: {tile,
+// threads, blocks, smem bytes, resident}, as rns_kernels.tape_geometry
+// reads it; cudaErrorInvalidValue where rns_tape_config refuses
+extern "C" int tpuecm_rns_tape_geometry(int K, int B, int tile,
+                                        long long* out) {
+    RnsMmaLaunch c;
+    const int rc = rns_tape_config(K, B, tile, c);
+    if (rc == (int)cudaSuccess) rns_mma_geometry(c, false, out);
+    return rc;
+}

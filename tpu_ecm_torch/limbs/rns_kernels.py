@@ -6,15 +6,17 @@ shape and contiguity, runs the plain version for CPU tensors, launches the
 kernel on the current stream for CUDA tensors (never the plain version),
 raises for anything else, and counts its launches in kernels.launches.
 Planes are int32 [..., 2K+1, B] residue planes, curve axis last; the plain
-version of K10 is rns_exec.run_tape.  K10 runs on the tensor-core core
-csrc/rns_mma.cuh at tape_geometry's tile, K11-K15 on csrc/rns_arith.cuh.
-Every kernel gives the plain version's residues exactly (K15 too: both
-multiply acc by one difference per entry, in entry order; K14: both
-multiply each step's differences in the same pairwise tree).
+version of K10 is rns_exec.run_tape.  K10 (at tape_geometry's tile) and
+K14 (at gather_geometry's tile and halves) run on the tensor-core core
+csrc/rns_mma.cuh, K11-K13 and K15 on csrc/rns_arith.cuh.  Every kernel
+gives the plain version's residues exactly (K15 too: both multiply acc by
+one difference per entry, in entry order; K14: both multiply each step's
+differences in the same pairwise tree).
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import numpy as np
@@ -28,10 +30,6 @@ from .rns import RnsCtx
 
 # tape entries per stage-1 kernel launch: keeps every launch short
 TAPE_SLICE = 1 << 12
-# K10's limits (csrc/rns_mma.cuh): dynamic shared memory a block may use,
-# and warps a block
-MMA_SMEM_MAX = 232448
-MMA_MAX_WARPS = 17
 
 
 class TapeGeometry(NamedTuple):
@@ -42,22 +40,52 @@ class TapeGeometry(NamedTuple):
     resident: bool     # the weight planes in shared memory
 
 
-def tape_geometry(K: int, b: int) -> TapeGeometry:
-    """K10's launch at K and B curves (csrc/rns_mma.cuh:rns_tape_config):
-    a tile of T = 8 curves a block where X, the P/Q tiles, the channel
-    pairs' constants and the four u8 weight planes fit in shared memory
-    (K <= 222), else T = 4 with the
+class GatherGeometry(NamedTuple):
+    tile: int          # curves a block (T)
+    halves: int        # products a pass (2: paired, mma_mul2)
+    threads: int
+    blocks: int
+    smem: int          # dynamic shared memory a block, bytes
+    resident: bool     # the weight planes in shared memory
+    scratch: int       # scratch planes of [2K+1, B] int32 a call takes
+
+
+def _geometry(entry: str, K: int, b: int, tile: int, n: int, lib) -> list:
+    """The n numbers a geometry entry point of csrc/ fills at K, B and
+    `tile` (0: the kernel's own), from `lib` (a build of those sources;
+    the card's library by default)."""
+    out = (ctypes.c_longlong * n)()
+    fn = getattr(lib or build.library(), entry)
+    if fn(K, b, tile, out):
+        raise ValueError(f"{entry}: no launch covers K={K}, B={b}, "
+                         f"tile={tile}")
+    return list(out)
+
+
+def tape_geometry(K: int, b: int, lib=None, tile: int = 0
+                  ) -> TapeGeometry:
+    """K10's launch at K and B curves, as csrc/rns_mma.cuh:rns_tape_config
+    picks it (tpuecm_rns_tape_geometry): a tile of T = 8 curves a block
+    where X, the P/Q tiles, the channel pairs' constants and the four u8
+    weight planes fit in shared memory (K <= 222), else T = 4 with the
     weights read from the global table; G = T/4 threads a channel pair,
-    and at least two warps a 32-row M tile, up to MMA_MAX_WARPS."""
-    kpad, mpad = -(-K // 16) * 16, -(-(K + 1) // 32) * 32
-    base = 16 * kpad + 104 * mpad + 32
-    resident = base + 4 * kpad * mpad <= MMA_SMEM_MAX
-    tile = 8 if resident else 4
-    warps = max(-(-(tile // 4) * (K + 1) // 32),
-                min(2 * mpad // 32, MMA_MAX_WARPS))
-    return TapeGeometry(tile, 32 * warps, -(-b // tile),
-                        base + (4 * kpad * mpad if resident else 0),
-                        resident)
+    and at least two warps a 32-row M tile, up to 17.  A `tile` other
+    than 0 asks for that tile's launch."""
+    g = _geometry("tpuecm_rns_tape_geometry", K, b, tile, 5, lib)
+    return TapeGeometry(*g[:4], bool(g[4]))
+
+
+def gather_geometry(K: int, b: int, lib=None, tile: int = 0
+                    ) -> GatherGeometry:
+    """K14's launch at K and B curves, as
+    csrc/rns_replay_gather.cu:rns_gather_config picks it
+    (tpuecm_rns_gather_geometry): K10's tile and threads, with two halves
+    (paired products) where they fit beside the resident weights and the
+    entry ring (K <= 208), one where only one does (208 < K <= 222), and
+    two at T = 4 past it (global fragments); one scratch plane at T = 8,
+    five at T = 4.  A `tile` other than 0 asks for that tile's launch."""
+    g = _geometry("tpuecm_rns_gather_geometry", K, b, tile, 7, lib)
+    return GatherGeometry(*g[:5], bool(g[5]), g[6])
 
 
 def _on_cpu(name: str, rc: RnsCtx) -> bool:
@@ -204,10 +232,14 @@ def replay_gather(acc: torch.Tensor, pa_ext: torch.Tensor, pbx: torch.Tensor,
     if _on_cpu("rns_replay_gather", rc):
         return replay_gather_plain(acc, pa_ext, pbx, idx, e, rc)
     out = torch.empty_like(acc)
+    g = gather_geometry(rc.K, b)
+    scratch = torch.empty((g.scratch, rows, b), dtype=torch.int32,
+                          device=acc.device)
     dev = torch.from_numpy(idx).to(acc.device)
     _done("rns_replay_gather", build.library().tpuecm_rns_replay_gather(
-        acc.data_ptr(), out.data_ptr(), pa_ext.data_ptr(), pbx.data_ptr(),
-        dev.data_ptr(), idx.shape[0] // e, e, *_ctx_args(rc), b, _stream()))
+        acc.data_ptr(), out.data_ptr(), scratch.data_ptr(), pa_ext.data_ptr(),
+        pbx.data_ptr(), dev.data_ptr(), idx.shape[0] // e, e,
+        rc.tab.data_ptr(), rc.wmma.data_ptr(), rc.K, b, g.tile, _stream()))
     return out
 
 

@@ -52,9 +52,10 @@ result and its seconds; any failure raises and exits non-zero.
               K10's line (_k10_line) gives its tile, threads, blocks,
               shared memory a block, whether its weights are resident,
               its ptxas report, its share of the bound and its ms beside
-              K10_BEFORE's; K14's (_k14_line) the same with its products
-              a pass, its live entries and the bytes its gathers move,
-              beside K14_BEFORE's;
+              K10_BEFORE's; K11's (_k11_line) the same with its products
+              a pass and rows, beside K11_BEFORE's; K14's (_k14_line) the
+              same with its products a pass, its live entries and the
+              bytes its gathers move, beside K14_BEFORE's;
               the plain versions run their single-plane products from
               CUDA graphs (_graphed_products); the replay kernels' bounds
               count a product per live entry, and their lines give the
@@ -232,6 +233,12 @@ K4_ONE_THREAD = {"flagship": 477.301, "M1277": 2562.009}
 # three launches at row 21 (K=200, B=1024; this smoke's phase 2, PERF.md
 # section 6, NVIDIA H100 80GB HBM3, 700 W)
 K10_BEFORE = {"row21": 32.144}
+# K11 on csrc/rns_arith.cuh (4 curves a block, one product at a time,
+# integer-pipe dots, `%` reductions) before it moved to the tensor cores:
+# ms per chain of the Pa group the memory rule picks at row 21 (K=200,
+# B=1024, 4,096 rows; this smoke's phase 2, PERF.md section 6, NVIDIA
+# H100 80GB HBM3, 700 W)
+K11_BEFORE = {"row21": 555.088}
 # K14 on csrc/rns_arith.cuh (one product at a time, integer-pipe dots, `%`
 # reductions) before it moved to the tensor cores: ms on the rns job's
 # first replay call at row 21 (K=200, B=1024, 65,536 entries; this smoke's
@@ -1081,6 +1088,32 @@ def _k10_line(label, r, K, b) -> str:
             f"{old:.3f} ms ({old / r['ms']:.2f}x)")
 
 
+def _k11_line(label, r, K, b, rows) -> str:
+    """K11's geometry at K and B curves (curves a block, products a pass,
+    threads, blocks, shared memory a block, whether the weights are
+    resident in it), its instantiation's ptxas report and its share of the
+    bound on `rows` rows, added to its record r, and its ms beside
+    K11_BEFORE's."""
+    from tpu_ecm_torch.limbs import rns_kernels
+    g = rns_kernels.chain_geometry(K, b)
+    r.update(geometry=g._asdict(),
+             ptxas=_lanes_ptxas("rns_chain_kernel")[(g.tile, g.halves)],
+             share_of_bound=r["bound_ms"] / r["ms"])
+    x, old = r["ptxas"], K11_BEFORE[label]
+    return (f"K11 at {label} (K={K}, B={b}): T={g.tile} curves a block, "
+            f"{g.halves} products a pass, {g.threads} threads, {g.blocks} "
+            f"blocks, {g.smem} bytes of shared memory a block, weights "
+            f"{'resident in it' if g.resident else 'from the global table'}"
+            f"; ptxas: {x.get('registers')} registers, "
+            f"{x.get('stack_bytes')} bytes stack frame, "
+            f"{x.get('spill_store_bytes')}/{x.get('spill_load_bytes')} "
+            f"bytes spill stores/loads; {rows} rows, {r['ms']:.3f} ms "
+            f"({1e3 * r['ms'] / rows:.3f} us a row) against the bound "
+            f"{r['bound_ms']:.4f} ({r['bound_by']}): "
+            f"{100 * r['share_of_bound']:.2f}% of it; before: {old:.3f} ms "
+            f"({old / r['ms']:.2f}x)")
+
+
 def _k14_line(label, r, K, b) -> str:
     """K14's geometry at K and B curves (curves a block, products a pass,
     threads, blocks, shared memory a block, whether the weights are
@@ -1202,6 +1235,8 @@ def phase_kernels(record):
         torch.cuda.empty_cache()
     print("  " + _k10_line("row21", record["rns_tape"], rc.K, 1024),
           flush=True)
+    print("  " + _k11_line("row21", record["rns_chain"], rc.K, 1024,
+                           depth["rows"]), flush=True)
     print("  " + _k14_line("row21", record["rns_replay_gather"], rc.K, 1024),
           flush=True)
     print(f"  rns depths at row 21 (K={rc.K}, B=1024): {shown}", flush=True)

@@ -1,9 +1,9 @@
 """Tests that need an NVIDIA GPU (marker `cuda`; they skip without one):
 the fifteen CUDA kernels against their plain PyTorch versions (the digit
 kernels in REDC and fold modes; K1-K5 and K9 also at ragged batches
-and at every instantiation's edge nw, and a refused launch; K10 and K14 at
-ragged batches, at their K edges, a refused launch and their ptxas
-reports), the golden sweep
+and at every instantiation's edge nw, and a refused launch; K10, K11 and
+K14 at ragged batches, at their K edges, a refused launch and their ptxas
+reports, K11 also at counts 1, 2 and G - 1), the golden sweep
 and the reference's t35 acceptance sweep through the port, and the RNS engine's, the Mersenne
 fold's, the Edwards curves' and the stage-2 replay modes' finds through
 the driver on the card.
@@ -661,6 +661,112 @@ def test_rns_gather_ptxas_no_stack_or_spills(cuda):
     from tpu_ecm_torch.limbs import build
     build.library()
     report = chip_smoke._lanes_ptxas("rns_replay_gather_kernel")
+    assert set(report) == {(4, 2), (8, 1), (8, 2)}
+    for key, x in report.items():
+        assert (x["stack_bytes"], x["spill_store_bytes"],
+                x["spill_load_bytes"]) == (0, 0, 0), (key, x)
+
+
+def _row21_rc():
+    import chip_smoke
+    from tpu_ecm_torch import params
+    from tpu_ecm_torch.limbs import rns
+    ctx = params.make_monty(chip_smoke.row21_n())
+    rc = rns.device_ctx(rns.make_rns(ctx, cw=rns.choose_cw(ctx.p.nbits)),
+                        "cuda")
+    assert rc.K == 200
+    return ctx, rc
+
+
+def _k11_against_plain(rc, b: int, seed: int, count: int = 3):
+    """K11 on `count` rows from random seed points p1, p2 and Pd at B
+    curves, one launch, against rns_kernels.chain_plain on the same card
+    tensors (its products from CUDA graphs, chip_smoke._graphed_products),
+    residue for residue."""
+    import chip_smoke
+    from tpu_ecm_torch.limbs import kernels, rns_kernels
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    p1, p2, pd = (chip_smoke._rand_residues(gen, rc, (2, rc.rows, b))
+                  for _ in range(3))
+    with chip_smoke._graphed_products():
+        want = rns_kernels.chain_plain(p1, p2, pd, count, rc)
+    kernels.reset_launches()
+    got = rns_kernels.chain(p1, p2, pd, count, rc)
+    torch.cuda.synchronize()
+    assert kernels.launches["rns_chain"] == 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("b", [1, 7, 9, 1024])
+def test_rns_chain_batches(cuda, b):
+    """K11 at row 21's K=200 (8 curves a block, the weights in shared
+    memory, two products a pass) at batches that leave the last block
+    part empty (B = 1, 7, 9; B % 4 != 0 takes the scalar loads) and at the
+    rns job's B = 1024, three rows (out[i-2] read back from the output)."""
+    _ctx, rc = _row21_rc()
+    _k11_against_plain(rc, b, b)
+
+
+@pytest.mark.parametrize("K", [2, 208, 210, 222, 224, 520])
+def test_rns_chain_k_edges(cuda, K):
+    """K11 at the smallest K, at the last K where two halves fit beside the
+    resident weights (208), at the first and last where only one does
+    (210, 222), one step past the shared-memory limit (224: 4 curves a
+    block, the fragments from the global table) and at K_MAX = 520, on
+    synthetic tables (chip_smoke.synthetic_rns), B = 9."""
+    import chip_smoke
+    from tpu_ecm_torch.limbs import rns_kernels
+    g = rns_kernels.chain_geometry(K, 9)
+    assert g.resident == (K <= 222)
+    assert g.halves == (1 if K in (210, 222) else 2)
+    _k11_against_plain(chip_smoke.synthetic_rns(K, K, "cuda"), 9, K)
+
+
+@pytest.mark.parametrize("count", ["1", "2", "G-1"])
+def test_rns_chain_counts(cuda, count):
+    """K11 at row 21's K=200, B = 9, on one row and on two (the seeds as
+    the only differences) and on G - 1 rows, the chain after a pending
+    point of the rns job's Pa groups (stage2/exec.py), G the group the
+    memory rule picks for the job's 1024 curves on this card."""
+    import chip_smoke
+    from tpu_ecm_torch.stage2 import exec as s2, plan
+    ctx, rc = _row21_rc()
+    n = int(count) if count != "G-1" else None
+    if n is None:
+        job = chip_smoke.RNS_JOB
+        sp = plan.make_stage2_params(job["b1"], job["b2"], nw=ctx.p.nw,
+                                     batch=1024)
+        free = torch.cuda.mem_get_info()[0]
+        n = s2.pa_group_for_memory(rc.rows * 1024 * 4, sp.num_pb, free) - 1
+        assert n >= 255
+    _k11_against_plain(rc, 9, 11, n)
+
+
+def test_rns_chain_refused_launch_raises(cuda, monkeypatch):
+    """T = 8 at K = 224, whose weights do not fit in shared memory, is
+    refused by the C entry point, the wrapper raises, and no launch is
+    counted."""
+    import chip_smoke
+    from tpu_ecm_torch.limbs import kernels, rns_kernels
+    rc = chip_smoke.synthetic_rns(224, 1, "cuda")
+    pts = torch.zeros((2, rc.rows, 8), dtype=torch.int32, device=cuda)
+    monkeypatch.setattr(rns_kernels, "chain_geometry",
+                        lambda K, b: rns_kernels.ChainGeometry(
+                            8, 2, 512, 1, 0, True))
+    kernels.reset_launches()
+    with pytest.raises(RuntimeError, match="launch failed"):
+        rns_kernels.chain(pts, pts, pts, 3, rc)
+    assert kernels.launches["rns_chain"] == 0
+
+
+def test_rns_chain_ptxas_no_stack_or_spills(cuda):
+    """nvcc -Xptxas -v reports no stack frame and no spills for any
+    instantiation of K11 (T = 8 with two halves and with one, T = 4 with
+    two)."""
+    import chip_smoke
+    from tpu_ecm_torch.limbs import build
+    build.library()
+    report = chip_smoke._lanes_ptxas("rns_chain_kernel")
     assert set(report) == {(4, 2), (8, 1), (8, 2)}
     for key, x in report.items():
         assert (x["stack_bytes"], x["spill_store_bytes"],

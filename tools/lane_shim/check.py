@@ -1,9 +1,9 @@
 """Run the lane core of tpu_ecm_torch/csrc/arith_lanes.cuh (K1's
 arithmetic) and the kernel bodies of K2 (csrc/chain.cu), K3 and K4
 (csrc/batch_inverse.cu), K5 (csrc/replay.cu) and K9 (csrc/ed_tape.cu), and
-K10's and K14's (csrc/rns_tape.cu, csrc/rns_replay_gather.cu, on the
-tensor-core core csrc/rns_mma.cuh), on the CPU and hold them against their
-plain versions.
+K10's, K11's and K14's (csrc/rns_tape.cu, csrc/rns_chain.cu,
+csrc/rns_replay_gather.cu, on the tensor-core core csrc/rns_mma.cuh), on
+the CPU and hold them against their plain versions.
 
 The CUDA source is built by g++ against cuda_runtime.h beside this file,
 which runs every CUDA thread as a std::thread and shuffles through a
@@ -17,9 +17,10 @@ sqrmod, curve/ops.xdbl / xadd, limbs/kernels.replay_plain,
 curve/edops.run_tape, limbs/kernels.chain_plain, prefix_plain and
 apply_inverse_plain on CPU tensors.  K3's, K4's and K5's cp.async copies
 land at once and, in a second run, at their wait
-(cuda_pipeline_primitives.h).  K10's and K14's bodies are built apart
-(rns_check.cpp, with mma.h standing in for nvcuda::wmma) and held residue
-for residue against limbs/rns_exec.run_tape on a tape of every opcode and
+(cuda_pipeline_primitives.h).  K10's, K11's and K14's bodies are built
+apart (rns_check.cpp, with mma.h standing in for nvcuda::wmma) and held
+residue for residue against limbs/rns_exec.run_tape on a tape of every
+opcode, against rns_kernels.chain_plain on chains of 1 to 5 rows and
 against rns_kernels.replay_gather_plain on calls of v-sorted entries and
 pads (K14's entry copies landing at once and at their wait), at a small
 K, K=200 (the rns job's; its weights in shared memory), K=224 (past the
@@ -73,6 +74,7 @@ RNS_SOURCES = (os.path.join(HERE, "cuda_runtime.h"),
                os.path.join(HERE, "mma.h"),
                os.path.join(build.CSRC, "rns_mma.cuh"),
                os.path.join(build.CSRC, "rns_tape.cu"),
+               os.path.join(build.CSRC, "rns_chain.cu"),
                os.path.join(build.CSRC, "rns_replay_gather.cu"))
 SANITIZE = ("-O1", "-g", "-fsanitize=address,undefined")
 
@@ -108,6 +110,10 @@ def load_rns(path: str) -> ctypes.CDLL:
     lib.tpuecm_rns_tape_geometry.restype = I
     lib.rns_reduce.argtypes = [P, P, I, ctypes.c_uint, ctypes.c_uint, P]
     lib.rns_reduce.restype = None
+    lib.rns_chain_run.argtypes = [P, P, P, P, I, P, P, I, I, I]
+    lib.rns_chain_run.restype = I
+    lib.tpuecm_rns_chain_geometry.argtypes = [I, I, I, P]
+    lib.tpuecm_rns_chain_geometry.restype = I
     lib.rns_gather_run.argtypes = [P, P, P, P, P, P, I, I, P, P, I, I, I,
                                    I]
     lib.rns_gather_run.restype = I
@@ -468,6 +474,37 @@ def compare_rns_tape(lib, rc, b: int, seed: int = 0) -> list:
              f"ops={len(tape)}", torch.equal(got, want))]
 
 
+def rns_chain_shim(lib, p1, p2, pd, count: int, rc, tile=None
+                   ) -> torch.Tensor:
+    """K11's kernel body on one chain of `count` rows, at chain_geometry's
+    tile or the one given (the number of halves follows from it), into an
+    output filled with -7 first."""
+    b = int(p1.shape[-1])
+    geo = rns_kernels.chain_geometry(rc.K, b, lib, tile or 0)
+    out = torch.full((count,) + tuple(p1.shape), -7, dtype=torch.int32)
+    code = lib.rns_chain_run(p1.data_ptr(), p2.data_ptr(), pd.data_ptr(),
+                             out.data_ptr(), count, rc.tab.data_ptr(),
+                             rc.wmma.data_ptr(), rc.K, b, geo.tile)
+    if code:
+        raise ValueError(f"K11 refused K={rc.K} B={b} tile={geo.tile} "
+                         f"count={count}: {code}")
+    return out
+
+
+def compare_rns_chain(lib, rc, b: int, count: int, seed: int = 0,
+                      tile=None) -> list:
+    """(what, equal) of K11's kernel body on random seed points p1, p2 and
+    Pd at B curves against rns_kernels.chain_plain, at chain_geometry's
+    tile or the one given."""
+    rng = np.random.default_rng(seed)
+    p1, p2, pd = (rns_residues(rng, rc, (2, rc.rows, b)) for _ in range(3))
+    want = rns_kernels.chain_plain(p1, p2, pd, count, rc)
+    got = rns_chain_shim(lib, p1, p2, pd, count, rc, tile)
+    geo = rns_kernels.chain_geometry(rc.K, b, lib, tile or 0)
+    return [(f"K={rc.K} T={geo.tile} H={geo.halves} B={b} K11 "
+             f"count={count}", torch.equal(got, want))]
+
+
 def gather_call(rng, rc, b: int, e: int, steps: int, g: int = 5,
                 pb_rows: int = 7, pads: int = 3):
     """A K14 call's inputs on CPU tensors: acc, pa_ext (g rows and the
@@ -535,6 +572,10 @@ def compare_rns_gather(lib, rc, b: int, e: int, steps: int, seed: int = 0,
 # (the rns job's, weights in shared memory) and K=224 (past the
 # shared-memory limit, T = 4)
 RNS_CASES = ((256, 9), (256, 12), (2397, 9), (2700, 3))
+# K11's cases (bits of a random N, B, count): the same geometries, counts
+# 1, 2 (the seeds as differences only), 3 and 5 (out[i-2] read back)
+RNS_CHAIN_CASES = ((256, 9, 5), (256, 12, 1), (256, 9, 2), (2397, 9, 3),
+                   (2700, 3, 3))
 # K14's cases (bits of a random N, B, E, steps): the same geometries, E =
 # 16 (the main path's) over three steps, E = 1 and 2 and an odd count of
 # steps
@@ -631,6 +672,10 @@ def main() -> int:
     rlib = load_rns(build_lib(args.sanitize, RNS_SOURCES, "rns"))
     for bits, b in RNS_CASES:
         for what, ok in compare_rns_tape(rlib, rns_ctx_at(bits), b):
+            print(f"{what}: {'equal' if ok else 'DIFFER'}", flush=True)
+            bad += not ok
+    for bits, b, count in RNS_CHAIN_CASES:
+        for what, ok in compare_rns_chain(rlib, rns_ctx_at(bits), b, count):
             print(f"{what}: {'equal' if ok else 'DIFFER'}", flush=True)
             bad += not ok
     for bits, b, e, steps in GATHER_CASES:

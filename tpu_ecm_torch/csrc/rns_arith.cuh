@@ -1,7 +1,7 @@
 // RNS Montgomery arithmetic for a tile of curves per block: the CUDA twin
 // of tpu_ecm/limbs/rns.py:mont_mul/add/sub (and of limbs/rns.py, its plain
-// version in this package).  Shared by K11-K13 and K15 (csrc/rns_*.cu);
-// K10 and K14 run on the tensor-core core csrc/rns_mma.cuh.
+// version in this package).  Shared by K12, K13 and K15 (csrc/rns_*.cu);
+// K10, K11 and K14 run on the tensor-core core csrc/rns_mma.cuh.
 //
 // A value is 2K+1 canonical residues: rows [0, K) base A, [K, 2K) base B,
 // row 2K the r channel m_r = 2^14.  Device planes are [2K+1, B], curve axis
@@ -235,32 +235,12 @@ __device__ __forceinline__ void rns_mul(RV& o, const RV& x, const RV& y,
             ? (s2a[b] + L.pA - (L.beta[b] * L.qmod) % L.pA) % L.pA : 0u;
 }
 
-__device__ __forceinline__ void rns_sqr(RV& o, const RV& x,
-                                        const RnsLane& L) {
-    rns_mul(o, x, x, L);
-}
-
-__device__ __forceinline__ uint32_t add_ch(uint32_t x, uint32_t y,
-                                           uint32_t p) {
-    const uint32_t z = x + y;
-    return z >= p ? z - p : z;
-}
-
 // x - y + f mod p for canonical x, y, f: x + f + p - y lies in [0, 3p)
 __device__ __forceinline__ uint32_t sub_ch(uint32_t x, uint32_t y,
                                            uint32_t f, uint32_t p) {
     uint32_t z = x + f + p - y;
     z = z >= p ? z - p : z;
     return z >= p ? z - p : z;
-}
-
-__device__ __forceinline__ void rns_add(RV& o, const RV& x, const RV& y,
-                                        const RnsLane& L) {
-#pragma unroll
-    for (int b = 0; b < RNS_TILE; ++b) {
-        o.a[b] = add_ch(x.a[b], y.a[b], L.pA);
-        o.r[b] = add_ch(x.r[b], y.r[b], L.pBr);
-    }
 }
 
 // x - y + F (rns.sub; F = 2KN keeps the value nonnegative)
@@ -271,30 +251,6 @@ __device__ __forceinline__ void rns_sub(RV& o, const RV& x, const RV& y,
         o.a[b] = sub_ch(x.a[b], y.a[b], L.fA, L.pA);
         o.r[b] = sub_ch(x.r[b], y.r[b], L.fBr, L.pBr);
     }
-}
-
-// ---------------------------------------------------------------------------
-// curve formulas (rns_exec.py:xdbl/xadd)
-// ---------------------------------------------------------------------------
-
-// First half of the differential add P1 + P2: t1 = (U+V)^2, t2 = (U-V)^2;
-// then X+ = t1 * Zd and Z+ = t2 * Xd (left to the caller, which may load
-// the difference point late).
-__device__ __forceinline__ void rns_xadd_head(RV& t1, RV& t2, const RV& x1,
-                                              const RV& z1, const RV& x2,
-                                              const RV& z2,
-                                              const RnsLane& L) {
-    RV s1, d1, s2, d2;
-    rns_add(s1, x1, z1, L);
-    rns_sub(d1, x1, z1, L);
-    rns_add(s2, x2, z2, L);
-    rns_sub(d2, x2, z2, L);
-    rns_mul(d1, d1, s2, L);                    // d1 := U
-    rns_mul(s1, s1, d2, L);                    // s1 := V
-    rns_add(s2, d1, s1, L);
-    rns_sub(d2, d1, s1, L);
-    rns_sqr(t1, s2, L);
-    rns_sqr(t2, d2, L);
 }
 
 // ---------------------------------------------------------------------------

@@ -1,7 +1,8 @@
 // RNS Montgomery arithmetic on the tensor cores for a tile of T curves a
 // block: the CUDA twin of limbs/rns.py:mont_mul/add/sub (the plain
-// version) that K10 (csrc/rns_tape.cu) and K14 (csrc/rns_replay_gather.cu)
-// run.  K11-K13 and K15 stay on csrc/rns_arith.cuh.
+// version) that K10 (csrc/rns_tape.cu), K11 (csrc/rns_chain.cu) and K14
+// (csrc/rns_replay_gather.cu) run.  K12, K13 and K15 stay on
+// csrc/rns_arith.cuh.
 //
 // A value is 2K+1 canonical residues: rows [0, K) base A, [K, 2K) base B,
 // row 2K the r channel m_r = 2^14; device planes are [2K+1, B], curve axis
@@ -128,9 +129,9 @@ struct RnsMmaLaunch {
 // halves the kernels do not take: T = 8 keeps the weights in shared
 // memory and is refused where they do not fit beside `halves` sets of X,
 // P, Q and tr and `extra` bytes of the kernel's own (K10: one half, K <=
-// 222; K14: two halves up to K = 208); T = 4 reads them from the global
-// table.  Warps: enough for every channel pair, and two a 32-row M tile
-// up to RNS_MMA_MAX_WARPS.
+// 222; K11, K14: two halves up to K = 208); T = 4 reads them from the
+// global table.  Warps: enough for every channel pair, and two a 32-row M
+// tile up to RNS_MMA_MAX_WARPS.
 inline int rns_mma_config(int K, int B, int tile, int halves, size_t extra,
                           RnsMmaLaunch& c) {
     if (K < 2 || K % 2 || K > RNS_MMA_K_MAX || B < 1
@@ -152,7 +153,7 @@ inline int rns_mma_config(int K, int B, int tile, int halves, size_t extra,
 
 // The tile a kernel with `extra` bytes of its own takes at K unless told
 // otherwise: 8 where the weights fit in shared memory beside one half
-// (K <= 222 for K10 and K14), else 4
+// (K <= 222 for K10, K11 and K14), else 4
 inline int rns_mma_tile(int K, size_t extra) {
     return rns_mma_bytes(K, true, 1) + extra <= RNS_MMA_SMEM_MAX ? 8 : 4;
 }
@@ -162,8 +163,21 @@ inline int rns_tape_config(int K, int B, int tile, RnsMmaLaunch& c) {
     return rns_mma_config(K, B, tile ? tile : rns_mma_tile(K, 0), 1, 0, c);
 }
 
+// The launch of a kernel that pairs its products (K11, K14) with `extra`
+// bytes of its own, at `tile` (0: rns_mma_tile's): two halves where they
+// fit beside the resident weights, else one at T = 8 (208 < K <= 222 at
+// extra <= 384); T = 4 always takes two
+inline int rns_paired_config(int K, int B, int tile, size_t extra,
+                             RnsMmaLaunch& c) {
+    if (!tile) tile = rns_mma_tile(K, extra);
+    const int rc = rns_mma_config(K, B, tile, 2, extra, c);
+    if (rc == (int)cudaSuccess || tile != 8) return rc;
+    return rns_mma_config(K, B, tile, 1, extra, c);
+}
+
 // Fills out[n] from a launch for a geometry entry point (the caller's
-// layout: rns_kernels.TapeGeometry's fields, then GatherGeometry's)
+// layout: rns_kernels.TapeGeometry's fields, or ChainGeometry's and
+// GatherGeometry's)
 inline void rns_mma_geometry(const RnsMmaLaunch& c, bool halves,
                              long long* out) {
     int i = 0;
@@ -560,6 +574,21 @@ __device__ __forceinline__ void mma_mul2(MV& o0, const MV& x0, const MV& y0,
     __syncthreads();
     mul_tail(o0, L, 0);
     mul_tail(o1, L, 1);
+}
+
+// o0 = x0*y0 and o1 = x1*y1: one paired pass (H = 2) or two products in
+// turn (H = 1; o0 must not alias x1 or y1)
+template <int T, int H>
+__device__ __forceinline__ void mma_mul_pair(MV& o0, const MV& x0,
+                                             const MV& y0, MV& o1,
+                                             const MV& x1, const MV& y1,
+                                             const MmaCtx& L) {
+    if constexpr (H == 2) {
+        mma_mul2<T>(o0, x0, y0, o1, x1, y1, L);
+    } else {
+        mma_mul<T>(o0, x0, y0, L);
+        mma_mul<T>(o1, x1, y1, L);
+    }
 }
 
 __device__ __forceinline__ uint32_t add_ch(uint32_t x, uint32_t y,

@@ -107,20 +107,6 @@ __device__ __forceinline__ void gather_diff(MV& d, const int* e,
     mma_sub(d, a, d, L);
 }
 
-// o0 = x0*y0 and o1 = x1*y1: one paired pass (H = 2) or two products in
-// turn (H = 1; o0 must not alias x1 or y1)
-template <int T, int H>
-__device__ __forceinline__ void mul_pair(MV& o0, const MV& x0, const MV& y0,
-                                         MV& o1, const MV& x1, const MV& y1,
-                                         const MmaCtx& L) {
-    if constexpr (H == 2) {
-        mma_mul2<T>(o0, x0, y0, o1, x1, y1, L);
-    } else {
-        mma_mul<T>(o0, x0, y0, L);
-        mma_mul<T>(o1, x1, y1, L);
-    }
-}
-
 // o0, o1 = the tree products of entries [0, 2^h) and [2^h, 2^(h+1)) from
 // e (in the ring): two subtrees of height h, their own subtrees paired
 // depth first.  At T = 4 the first pair waits for the second in scratch
@@ -135,7 +121,7 @@ __device__ __forceinline__ void pair_trees(MV& o0, MV& o1, const int* e,
         gather_diff(d1, e + 2, g, L);
         gather_diff(d2, e + 4, g, L);
         gather_diff(d3, e + 6, g, L);
-        mul_pair<T, H>(o0, d0, d1, o1, d2, d3, L);
+        mma_mul_pair<T, H>(o0, d0, d1, o1, d2, d3, L);
     } else {
         MV a0, a1, b0, b1;
         [[maybe_unused]] int* stash =
@@ -150,7 +136,7 @@ __device__ __forceinline__ void pair_trees(MV& o0, MV& o1, const int* e,
             load_mv(a0, stash, L);
             load_mv(a1, stash + g.row, L);
         }
-        mul_pair<T, H>(o0, a0, a1, o1, b0, b1, L);
+        mma_mul_pair<T, H>(o0, a0, a1, o1, b0, b1, L);
     }
 }
 
@@ -183,14 +169,9 @@ inline bool gather_args_ok(int nsteps, int E) {
            && nsteps <= 0x7fffffff / RNS_E_MAX;
 }
 
-// K14's launch at `tile` (0: rns_mma_tile's beside the entry ring): two
-// halves where they fit, else one at T = 8 (208 < K <= 222); T = 4 always
-// takes two
+// K14's launch at `tile` (0: rns_mma_tile's beside the entry ring)
 inline int rns_gather_config(int K, int B, int tile, RnsMmaLaunch& c) {
-    if (!tile) tile = rns_mma_tile(K, RNS_GATHER_SMEM);
-    const int rc = rns_mma_config(K, B, tile, 2, RNS_GATHER_SMEM, c);
-    if (rc == (int)cudaSuccess || tile != 8) return rc;
-    return rns_mma_config(K, B, tile, 1, RNS_GATHER_SMEM, c);
+    return rns_paired_config(K, B, tile, RNS_GATHER_SMEM, c);
 }
 
 // The kernel body on one block (smem: the entry ring, then
@@ -236,7 +217,7 @@ __device__ __forceinline__ void rns_replay_gather_body(
             } else {                    // acc *= the step before's root
                 load_mv(acc, acc_out, L);
                 load_mv(root, scratch, L);
-                mul_pair<T, H>(acc, acc, root, root, t0, t1, L);
+                mma_mul_pair<T, H>(acc, acc, root, root, t0, t1, L);
                 store_mv(acc_out, acc, L);
             }
             store_mv(scratch, root, L);

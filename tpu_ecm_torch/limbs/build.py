@@ -71,7 +71,8 @@ SIGNATURES = {
     "tpuecm_ed_tape_occupancy": [_I, _I, _IP],
     "tpuecm_rns_tape": [_P, _L, _P, _P, _P, _P, _I, _I, _I, _P],
     "tpuecm_rns_tape_geometry": [_I, _I, _I, _P],
-    "tpuecm_rns_chain": [_P, _P, _P, _P, _I, _P, _P, _I, _I, _P],
+    "tpuecm_rns_chain": [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _P],
+    "tpuecm_rns_chain_geometry": [_I, _I, _I, _P],
     "tpuecm_rns_prefix": [_P, _P, _P, _I, _P, _P, _I, _I, _P],
     "tpuecm_rns_apply_inverse": [_P, _P, _P, _P, _P, _I, _P, _P, _I, _I,
                                  _P],

@@ -6,9 +6,10 @@ shape and contiguity, runs the plain version for CPU tensors, launches the
 kernel on the current stream for CUDA tensors (never the plain version),
 raises for anything else, and counts its launches in kernels.launches.
 Planes are int32 [..., 2K+1, B] residue planes, curve axis last; the plain
-version of K10 is rns_exec.run_tape.  K10 (at tape_geometry's tile) and
-K14 (at gather_geometry's tile and halves) run on the tensor-core core
-csrc/rns_mma.cuh, K11-K13 and K15 on csrc/rns_arith.cuh.  Every kernel
+version of K10 is rns_exec.run_tape.  K10 (at tape_geometry's tile), K11
+(at chain_geometry's tile and halves) and K14 (at gather_geometry's) run
+on the tensor-core core csrc/rns_mma.cuh, K12, K13 and K15 on
+csrc/rns_arith.cuh.  Every kernel
 gives the plain version's residues exactly (K15 too: both multiply acc by
 one difference per entry, in entry order; K14: both multiply each step's
 differences in the same pairwise tree).
@@ -34,6 +35,15 @@ TAPE_SLICE = 1 << 12
 
 class TapeGeometry(NamedTuple):
     tile: int          # curves a block (T)
+    threads: int
+    blocks: int
+    smem: int          # dynamic shared memory a block, bytes
+    resident: bool     # the weight planes in shared memory
+
+
+class ChainGeometry(NamedTuple):
+    tile: int          # curves a block (T)
+    halves: int        # products a pass (2: paired, mma_mul2)
     threads: int
     blocks: int
     smem: int          # dynamic shared memory a block, bytes
@@ -73,6 +83,19 @@ def tape_geometry(K: int, b: int, lib=None, tile: int = 0
     than 0 asks for that tile's launch."""
     g = _geometry("tpuecm_rns_tape_geometry", K, b, tile, 5, lib)
     return TapeGeometry(*g[:4], bool(g[4]))
+
+
+def chain_geometry(K: int, b: int, lib=None, tile: int = 0
+                   ) -> ChainGeometry:
+    """K11's launch at K and B curves, as
+    csrc/rns_chain.cu:rns_chain_config picks it
+    (tpuecm_rns_chain_geometry): K10's tile and threads, with two halves
+    (paired products) where they fit beside the resident weights (K <=
+    208), one where only one does (208 < K <= 222), and two at T = 4 past
+    it (global fragments).  A `tile` other than 0 asks for that tile's
+    launch."""
+    g = _geometry("tpuecm_rns_chain_geometry", K, b, tile, 6, lib)
+    return ChainGeometry(*g[:5], bool(g[5]))
 
 
 def gather_geometry(K: int, b: int, lib=None, tile: int = 0
@@ -148,7 +171,8 @@ def chain(p1: torch.Tensor, p2: torch.Tensor, pd: torch.Tensor, count: int,
                       device=p1.device)
     _done("rns_chain", build.library().tpuecm_rns_chain(
         p1.data_ptr(), p2.data_ptr(), pd.data_ptr(), out.data_ptr(), count,
-        *_ctx_args(rc), b, _stream()))
+        rc.tab.data_ptr(), rc.wmma.data_ptr(), rc.K, b,
+        chain_geometry(rc.K, b).tile, _stream()))
     return out
 
 

@@ -52,10 +52,12 @@ result and its seconds; any failure raises and exits non-zero.
               K10's line (_k10_line) gives its tile, threads, blocks,
               shared memory a block, whether its weights are resident,
               its ptxas report, its share of the bound and its ms beside
-              K10_BEFORE's; K11's (_k11_line) the same with its products
-              a pass and rows, beside K11_BEFORE's; K14's (_k14_line) the
-              same with its products a pass, its live entries and the
-              bytes its gathers move, beside K14_BEFORE's;
+              K10_BEFORE's; K11's, K12's and K13's (_rows_line) the same
+              with their products a pass, rows and us a row, beside
+              K11_BEFORE's, K12_BEFORE's and K13_BEFORE's; K14's
+              (_k14_line) the same with its products a pass, its live
+              entries and the bytes its gathers move, beside
+              K14_BEFORE's;
               the plain versions run their single-plane products from
               CUDA graphs (_graphed_products); the replay kernels' bounds
               count a product per live entry, and their lines give the
@@ -244,6 +246,23 @@ K11_BEFORE = {"row21": 555.088}
 # first replay call at row 21 (K=200, B=1024, 65,536 entries; this smoke's
 # phase 2, PERF.md section 6, NVIDIA H100 80GB HBM3, 700 W)
 K14_BEFORE = {"row21": 1464.523}
+# K12 and K13 on csrc/rns_arith.cuh (4 curves a block, one product at a
+# time, integer-pipe dots, `%` reductions) before they moved to the tensor
+# cores: ms per stack of the Pa group the memory rule picks at row 21
+# (K=200, B=1024, 4,096 rows; this smoke's phase 2, PERF.md section 6,
+# NVIDIA H100 80GB HBM3, 700 W)
+K12_BEFORE = {"row21": 115.600}
+K13_BEFORE = {"row21": 286.174}
+# The kernels whose line gives their ms per row (_rows_line): name ->
+# (label, geometry function of limbs/rns_kernels, kernel template, ms
+# before the redesign)
+ROWS_KERNELS = {
+    "rns_chain": ("K11", "chain_geometry", "rns_chain_kernel", K11_BEFORE),
+    "rns_prefix": ("K12", "prefix_geometry", "rns_prefix_kernel",
+                   K12_BEFORE),
+    "rns_apply_inverse": ("K13", "apply_inverse_geometry",
+                          "rns_apply_inverse_kernel", K13_BEFORE),
+}
 
 
 def _ops(engine: str):
@@ -439,12 +458,10 @@ def main_path_depth(nw: int, rows: int, b: int, job: dict,
     K8's with slabs of cap rows when cap is set, the digit engine's slab
     on this card); a tape slice of 100 ops splits the 256-op tapes (K1's,
     K9's when ed_ops is set, K10's) over three launches."""
-    import torch
     from tpu_ecm_torch.stage2 import exec as s2, plan
     sp = plan.make_stage2_params(job["b1"], job["b2"], nw=nw, batch=b)
-    free = (torch.cuda.mem_get_info()[0] + torch.cuda.memory_reserved()
-            - torch.cuda.memory_allocated())
-    g = s2.pa_group_for_memory(rows * b * 4, sp.num_pb, free)
+    g = s2.pa_group_for_memory(rows * b * 4, sp.num_pb,
+                               s2.device_free_bytes("cuda"))
     return dict(tape_ops=256, tape_slice=100, pb_rows=sp.num_pb, rows=g,
                 entries=s2.REPLAY_BLOCK["cuda"], ed_ops=ed_ops, cap=cap,
                 calls=_first_calls(job, sp, g, cap))
@@ -1088,19 +1105,21 @@ def _k10_line(label, r, K, b) -> str:
             f"{old:.3f} ms ({old / r['ms']:.2f}x)")
 
 
-def _k11_line(label, r, K, b, rows) -> str:
-    """K11's geometry at K and B curves (curves a block, products a pass,
-    threads, blocks, shared memory a block, whether the weights are
-    resident in it), its instantiation's ptxas report and its share of the
-    bound on `rows` rows, added to its record r, and its ms beside
-    K11_BEFORE's."""
+def _rows_line(name, label, r, K, b, rows) -> str:
+    """K11's, K12's or K13's geometry at K and B curves (curves a block,
+    products a pass, threads, blocks, shared memory a block, whether the
+    weights are resident in it), its instantiation's ptxas report and its
+    share of the bound on `rows` rows, added to its record r, and its ms
+    beside the ms before its redesign (ROWS_KERNELS)."""
     from tpu_ecm_torch.limbs import rns_kernels
-    g = rns_kernels.chain_geometry(K, b)
+    k, geometry, kernel, before = ROWS_KERNELS[name]
+    g = getattr(rns_kernels, geometry)(K, b)
+    ptxas = _lanes_ptxas(kernel)
     r.update(geometry=g._asdict(),
-             ptxas=_lanes_ptxas("rns_chain_kernel")[(g.tile, g.halves)],
+             ptxas=ptxas.get((g.tile, g.halves), ptxas.get(g.tile)),
              share_of_bound=r["bound_ms"] / r["ms"])
-    x, old = r["ptxas"], K11_BEFORE[label]
-    return (f"K11 at {label} (K={K}, B={b}): T={g.tile} curves a block, "
+    x, old = r["ptxas"], before[label]
+    return (f"{k} at {label} (K={K}, B={b}): T={g.tile} curves a block, "
             f"{g.halves} products a pass, {g.threads} threads, {g.blocks} "
             f"blocks, {g.smem} bytes of shared memory a block, weights "
             f"{'resident in it' if g.resident else 'from the global table'}"
@@ -1235,8 +1254,9 @@ def phase_kernels(record):
         torch.cuda.empty_cache()
     print("  " + _k10_line("row21", record["rns_tape"], rc.K, 1024),
           flush=True)
-    print("  " + _k11_line("row21", record["rns_chain"], rc.K, 1024,
-                           depth["rows"]), flush=True)
+    for name in ROWS_KERNELS:
+        print("  " + _rows_line(name, "row21", record[name], rc.K, 1024,
+                                depth["rows"]), flush=True)
     print("  " + _k14_line("row21", record["rns_replay_gather"], rc.K, 1024),
           flush=True)
     print(f"  rns depths at row 21 (K={rc.K}, B=1024): {shown}", flush=True)
@@ -1681,19 +1701,39 @@ PROFILE_JOBS = {
 }
 
 
+def _profile_launches(per_name) -> dict:
+    """name -> (kernels.launches, launches the profile lists) for each of
+    the port's kernels launched in the profiled run; a profile entry is
+    the kernel whose template (LANE_KERNELS' for the lane-core kernels,
+    name + "_kernel" for the others) its demangled name calls."""
+    from tpu_ecm_torch.limbs import kernels
+    listed = {}
+    for name, (count, _us) in per_name.items():
+        hit = re.search(r"(\w+_kernel)[<(]", name)
+        if hit:
+            listed[hit.group(1)] = listed.get(hit.group(1), 0) + count
+    return {k: (c, listed.get(LANE_KERNELS[k][1] if k in LANE_KERNELS
+                              else k + "_kernel", 0))
+            for k, c in kernels.launches.items() if c}
+
+
 def profile_job(tmp, out_dir, job: str):
     """One job once under torch.profiler (after a small warm-up run of the
     same path, so lazy set-up stays outside the window): device time per
     kernel, and the union of the card's kernel intervals against the job's
-    wall time, which gives the card's idle share of the job."""
+    wall time, which gives the card's idle share of the job; each of the
+    port's kernels' launches in the profile against kernels.launches of
+    the same run (_profile_launches)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    from tpu_ecm_torch.limbs import kernels
     n, j, opts, warm = PROFILE_JOBS[job]
     n = n or row21_n()
     _run(os.path.join(tmp, "o1"), curves=4, b1=300, b2=10000, sigma=110,
          **warm)
     sub = os.path.join(tmp, job)
+    kernels.reset_launches()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1717,14 +1757,19 @@ def profile_job(tmp, out_dir, job: str):
             hi = max(hi, b)
     busy = (busy + (hi - lo if hi is not None else 0)) / 1e6
     rows = sorted(per_name.items(), key=lambda kv: -kv[1][1])
+    counts = _profile_launches(per_name)
     os.makedirs(out_dir, exist_ok=True)
     path = os.path.join(out_dir, f"profile_{job}.txt")
     with open(path, "w") as fh:
         fh.write(f"{smi_line()}\n")
         for name, (count, us) in rows:
             fh.write(f"{us / 1e6:12.6f} s {count:8d}x  {name}\n")
+        fh.write(f"launches (kernels.launches, profile): {counts}\n")
     for name, (count, us) in rows[:8]:
         print(f"  {us / 1e6:12.6f} s {count:8d}x  {name[:70]}")
+    differ = {k: c for k, c in counts.items() if c[0] != c[1]}
+    print(f"  launches (kernels.launches, profile): {counts}"
+          + (f"; DIFFER: {differ}" if differ else "; equal"), flush=True)
     t = res.timings
     return (f"{job}: stage1 {t['stage1']:.2f} s, stage2_init "
             f"{t['stage2_init']:.2f} s, stage2 {t['stage2']:.2f} s, "

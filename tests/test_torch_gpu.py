@@ -1,9 +1,10 @@
 """Tests that need an NVIDIA GPU (marker `cuda`; they skip without one):
 the fifteen CUDA kernels against their plain PyTorch versions (the digit
 kernels in REDC and fold modes; K1-K5 and K9 also at ragged batches
-and at every instantiation's edge nw, and a refused launch; K10, K11 and
-K14 at ragged batches, at their K edges, a refused launch and their ptxas
-reports, K11 also at counts 1, 2 and G - 1), the golden sweep
+and at every instantiation's edge nw, and a refused launch; K10-K14 at
+ragged batches, at their K edges, a refused launch and their ptxas
+reports, K11 also at counts 1, 2 and G - 1, K12 and K13 at counts 1, 2
+and G), the golden sweep
 and the reference's t35 acceptance sweep through the port, and the RNS engine's, the Mersenne
 fold's, the Edwards curves' and the stage-2 replay modes' finds through
 the driver on the card.
@@ -736,7 +737,7 @@ def test_rns_chain_counts(cuda, count):
         job = chip_smoke.RNS_JOB
         sp = plan.make_stage2_params(job["b1"], job["b2"], nw=ctx.p.nw,
                                      batch=1024)
-        free = torch.cuda.mem_get_info()[0]
+        free = s2.device_free_bytes("cuda")
         n = s2.pa_group_for_memory(rc.rows * 1024 * 4, sp.num_pb, free) - 1
         assert n >= 255
     _k11_against_plain(rc, 9, 11, n)
@@ -771,6 +772,119 @@ def test_rns_chain_ptxas_no_stack_or_spills(cuda):
     for key, x in report.items():
         assert (x["stack_bytes"], x["spill_store_bytes"],
                 x["spill_load_bytes"]) == (0, 0, 0), (key, x)
+
+
+def _k12k13_against_plain(rc, b: int, seed: int, count: int = 3):
+    """K12 on a random stack of `count` z rows from a random `one`, and K13
+    on random xs, zs, pres of `count` rows and a random total_inv (both
+    take any canonical residues), at B curves, one launch each, against
+    rns_kernels.prefix_plain and apply_inverse_plain on the same card
+    tensors (their products from CUDA graphs,
+    chip_smoke._graphed_products), residue for residue."""
+    import chip_smoke
+    from tpu_ecm_torch.limbs import kernels, rns_kernels
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    xs, zs, pres = (chip_smoke._rand_residues(gen, rc, (count, rc.rows, b))
+                    for _ in range(3))
+    one, tinv = (chip_smoke._rand_residues(gen, rc, (rc.rows, b))
+                 for _ in range(2))
+    with chip_smoke._graphed_products():
+        want_pre = rns_kernels.prefix_plain(zs, one, rc)
+        want = rns_kernels.apply_inverse_plain(xs, zs, pres, tinv, rc)
+    kernels.reset_launches()
+    got_pre = rns_kernels.prefix(zs, one, rc)
+    got = rns_kernels.apply_inverse(xs, zs, pres, tinv, rc)
+    torch.cuda.synchronize()
+    assert kernels.launches["rns_prefix"] == 1
+    assert kernels.launches["rns_apply_inverse"] == 1
+    assert torch.equal(got_pre, want_pre)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("b", [1, 7, 9, 1024])
+def test_rns_batch_inverse_batches(cuda, b):
+    """K12 and K13 at row 21's K=200 (8 curves a block, the weights in
+    shared memory; K13 two products a pass) at batches that leave the last
+    block part empty (B = 1, 7, 9; B % 4 != 0 takes the scalar loads) and
+    at the rns job's B = 1024, three rows."""
+    _ctx, rc = _row21_rc()
+    _k12k13_against_plain(rc, b, b)
+
+
+@pytest.mark.parametrize("K", [2, 208, 210, 222, 224, 520])
+def test_rns_batch_inverse_k_edges(cuda, K):
+    """K12 and K13 at the smallest K, at the last K where K13's two halves
+    fit beside the resident weights (208), at the first and last where
+    only one does (210, 222), one step past the shared-memory limit (224:
+    4 curves a block, the fragments from the global table) and at K_MAX =
+    520, on synthetic tables (chip_smoke.synthetic_rns), B = 9."""
+    import chip_smoke
+    from tpu_ecm_torch.limbs import rns_kernels
+    p = rns_kernels.prefix_geometry(K, 9)
+    a = rns_kernels.apply_inverse_geometry(K, 9)
+    assert p.resident == a.resident == (K <= 222) and p.halves == 1
+    assert a.halves == (1 if K in (210, 222) else 2)
+    _k12k13_against_plain(chip_smoke.synthetic_rns(K, K, "cuda"), 9, K)
+
+
+@pytest.mark.parametrize("count", ["1", "2", "G"])
+def test_rns_batch_inverse_counts(cuda, count):
+    """K12 and K13 at row 21's K=200, B = 9, on one row, on two and on G
+    rows, the Pa group the memory rule picks for the rns job's 1024 curves
+    on this card (stage2/exec.py inverts a group's rows in one call)."""
+    import chip_smoke
+    from tpu_ecm_torch.stage2 import exec as s2, plan
+    ctx, rc = _row21_rc()
+    n = int(count) if count != "G" else None
+    if n is None:
+        job = chip_smoke.RNS_JOB
+        sp = plan.make_stage2_params(job["b1"], job["b2"], nw=ctx.p.nw,
+                                     batch=1024)
+        free = s2.device_free_bytes("cuda")
+        n = s2.pa_group_for_memory(rc.rows * 1024 * 4, sp.num_pb, free)
+        assert n >= 256
+    _k12k13_against_plain(rc, 9, 13, n)
+
+
+@pytest.mark.parametrize("name", ["rns_prefix", "rns_apply_inverse"])
+def test_rns_batch_inverse_refused_launch_raises(cuda, monkeypatch, name):
+    """T = 8 at K = 224, whose weights do not fit in shared memory, is
+    refused by the C entry point, the wrapper raises, and no launch is
+    counted."""
+    import chip_smoke
+    from tpu_ecm_torch.limbs import kernels, rns_kernels
+    rc = chip_smoke.synthetic_rns(224, 1, "cuda")
+    pl = torch.zeros((3, rc.rows, 8), dtype=torch.int32, device=cuda)
+    monkeypatch.setattr(rns_kernels, "prefix_geometry",
+                        lambda K, b: rns_kernels.ChainGeometry(
+                            8, 1, 512, 1, 0, True))
+    monkeypatch.setattr(rns_kernels, "apply_inverse_geometry",
+                        lambda K, b: rns_kernels.ChainGeometry(
+                            8, 2, 512, 1, 0, True))
+    kernels.reset_launches()
+    with pytest.raises(RuntimeError, match="launch failed"):
+        if name == "rns_prefix":
+            rns_kernels.prefix(pl, pl[0], rc)
+        else:
+            rns_kernels.apply_inverse(pl, pl, pl, pl[0], rc)
+    assert kernels.launches[name] == 0
+
+
+def test_rns_batch_inverse_ptxas_no_stack_or_spills(cuda):
+    """nvcc -Xptxas -v reports no stack frame and no spills for any
+    instantiation of K12 (T = 4, 8) or K13 (T = 8 with two halves and
+    with one, T = 4 with two)."""
+    import chip_smoke
+    from tpu_ecm_torch.limbs import build
+    build.library()
+    for kernel, keys in (("rns_prefix_kernel", {4, 8}),
+                         ("rns_apply_inverse_kernel",
+                          {(4, 2), (8, 1), (8, 2)})):
+        report = chip_smoke._lanes_ptxas(kernel)
+        assert set(report) == keys, kernel
+        for key, x in report.items():
+            assert (x["stack_bytes"], x["spill_store_bytes"],
+                    x["spill_load_bytes"]) == (0, 0, 0), (kernel, key, x)
 
 
 @pytest.mark.parametrize("which", ["N71", "N2355"])

@@ -212,3 +212,25 @@ def test_convert_checks_layout():
     with pytest.raises(ValueError):
         convert.stage1_state(np.zeros((5, 2, nw, 4), np.int32), acc, ctx.p,
                              "cpu")
+
+
+def test_memory_rule_counts_the_allocators_cache(monkeypatch):
+    """The Pa group the runner takes on a card counts the bytes the
+    caching allocator holds reserved but unused as free
+    (t_exec.device_free_bytes), so the memory rule picks the same group
+    for a job whatever ran before it in the process: at row 21's planes
+    (401 rows, 1024 curves) and its 963-row Pb table, 50 GiB free in the
+    driver and 30 GiB cached by the allocator give the 4,096-row group,
+    the driver's free bytes alone 2,048 rows."""
+    gib = 1 << 30
+    monkeypatch.setattr(torch.cuda, "mem_get_info",
+                        lambda device=None: (50 * gib, 80 * gib))
+    monkeypatch.setattr(torch.cuda, "memory_reserved",
+                        lambda device=None: 32 * gib)
+    monkeypatch.setattr(torch.cuda, "memory_allocated",
+                        lambda device=None: 2 * gib)
+    free = t_exec.device_free_bytes("cuda")
+    assert free == 80 * gib
+    plane = 401 * 1024 * 4
+    assert t_exec.pa_group_for_memory(plane, 963, free) == 4096
+    assert t_exec.pa_group_for_memory(plane, 963, 50 * gib) == 2048

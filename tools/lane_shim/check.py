@@ -1,9 +1,10 @@
 """Run the lane core of tpu_ecm_torch/csrc/arith_lanes.cuh (K1's
 arithmetic) and the kernel bodies of K2 (csrc/chain.cu), K3 and K4
 (csrc/batch_inverse.cu), K5 (csrc/replay.cu) and K9 (csrc/ed_tape.cu), and
-K10's, K11's and K14's (csrc/rns_tape.cu, csrc/rns_chain.cu,
-csrc/rns_replay_gather.cu, on the tensor-core core csrc/rns_mma.cuh), on
-the CPU and hold them against their plain versions.
+K10's, K11's, K12's, K13's and K14's (csrc/rns_tape.cu, csrc/rns_chain.cu,
+csrc/rns_batch_inverse.cu, csrc/rns_replay_gather.cu, on the tensor-core
+core csrc/rns_mma.cuh), on the CPU and hold them against their plain
+versions.
 
 The CUDA source is built by g++ against cuda_runtime.h beside this file,
 which runs every CUDA thread as a std::thread and shuffles through a
@@ -17,11 +18,12 @@ sqrmod, curve/ops.xdbl / xadd, limbs/kernels.replay_plain,
 curve/edops.run_tape, limbs/kernels.chain_plain, prefix_plain and
 apply_inverse_plain on CPU tensors.  K3's, K4's and K5's cp.async copies
 land at once and, in a second run, at their wait
-(cuda_pipeline_primitives.h).  K10's, K11's and K14's bodies are built
-apart (rns_check.cpp, with mma.h standing in for nvcuda::wmma) and held
-residue for residue against limbs/rns_exec.run_tape on a tape of every
-opcode, against rns_kernels.chain_plain on chains of 1 to 5 rows and
-against rns_kernels.replay_gather_plain on calls of v-sorted entries and
+(cuda_pipeline_primitives.h).  K10's to K14's bodies are built apart
+(rns_check.cpp, with mma.h standing in for nvcuda::wmma) and held residue
+for residue against limbs/rns_exec.run_tape on a tape of every opcode,
+against rns_kernels.chain_plain on chains of 1 to 5 rows, against
+rns_kernels.prefix_plain and apply_inverse_plain on stacks of 1 to 5 rows
+and against rns_kernels.replay_gather_plain on calls of v-sorted entries and
 pads (K14's entry copies landing at once and at their wait), at a small
 K, K=200 (the rns job's; its weights in shared memory), K=224 (past the
 shared-memory limit: the fragments load from the global table) and
@@ -75,6 +77,7 @@ RNS_SOURCES = (os.path.join(HERE, "cuda_runtime.h"),
                os.path.join(build.CSRC, "rns_mma.cuh"),
                os.path.join(build.CSRC, "rns_tape.cu"),
                os.path.join(build.CSRC, "rns_chain.cu"),
+               os.path.join(build.CSRC, "rns_batch_inverse.cu"),
                os.path.join(build.CSRC, "rns_replay_gather.cu"))
 SANITIZE = ("-O1", "-g", "-fsanitize=address,undefined")
 
@@ -114,6 +117,14 @@ def load_rns(path: str) -> ctypes.CDLL:
     lib.rns_chain_run.restype = I
     lib.tpuecm_rns_chain_geometry.argtypes = [I, I, I, P]
     lib.tpuecm_rns_chain_geometry.restype = I
+    lib.rns_prefix_run.argtypes = [P, P, P, I, P, P, I, I, I]
+    lib.rns_prefix_run.restype = I
+    lib.rns_apply_inverse_run.argtypes = [P, P, P, P, P, I, P, P, I, I, I]
+    lib.rns_apply_inverse_run.restype = I
+    for name in ("tpuecm_rns_prefix_geometry",
+                 "tpuecm_rns_apply_inverse_geometry"):
+        getattr(lib, name).argtypes = [I, I, I, P]
+        getattr(lib, name).restype = I
     lib.rns_gather_run.argtypes = [P, P, P, P, P, P, I, I, P, P, I, I, I,
                                    I]
     lib.rns_gather_run.restype = I
@@ -505,6 +516,72 @@ def compare_rns_chain(lib, rc, b: int, count: int, seed: int = 0,
              f"count={count}", torch.equal(got, want))]
 
 
+def rns_prefix_shim(lib, zs, one, rc, tile=None) -> torch.Tensor:
+    """K12's kernel body on one stack, at prefix_geometry's tile or the one
+    given, into an output filled with -7 first."""
+    b, count = int(one.shape[-1]), int(zs.shape[0])
+    geo = rns_kernels.prefix_geometry(rc.K, b, lib, tile or 0)
+    out = torch.full(tuple(zs.shape), -7, dtype=torch.int32)
+    code = lib.rns_prefix_run(zs.data_ptr(), one.data_ptr(), out.data_ptr(),
+                              count, rc.tab.data_ptr(), rc.wmma.data_ptr(),
+                              rc.K, b, geo.tile)
+    if code:
+        raise ValueError(f"K12 refused K={rc.K} B={b} tile={geo.tile} "
+                         f"count={count}: {code}")
+    return out
+
+
+def rns_apply_inverse_shim(lib, xs, zs, pres, tinv, rc, tile=None
+                           ) -> torch.Tensor:
+    """K13's kernel body on one stack, at apply_inverse_geometry's tile or
+    the one given (the number of halves follows from it), into an output
+    filled with -7 first."""
+    b, count = int(tinv.shape[-1]), int(xs.shape[0])
+    geo = rns_kernels.apply_inverse_geometry(rc.K, b, lib, tile or 0)
+    out = torch.full(tuple(xs.shape), -7, dtype=torch.int32)
+    code = lib.rns_apply_inverse_run(
+        xs.data_ptr(), zs.data_ptr(), pres.data_ptr(), tinv.data_ptr(),
+        out.data_ptr(), count, rc.tab.data_ptr(), rc.wmma.data_ptr(), rc.K,
+        b, geo.tile)
+    if code:
+        raise ValueError(f"K13 refused K={rc.K} B={b} tile={geo.tile} "
+                         f"count={count}: {code}")
+    return out
+
+
+def compare_rns_prefix(lib, rc, b: int, count: int, seed: int = 0,
+                       tile=None) -> list:
+    """(what, equal) of K12's kernel body on a random stack of `count` z
+    rows and a random `one` at B curves against rns_kernels.prefix_plain,
+    at prefix_geometry's tile or the one given."""
+    rng = np.random.default_rng(seed)
+    zs = rns_residues(rng, rc, (count, rc.rows, b))
+    one = rns_residues(rng, rc, (rc.rows, b))
+    want = rns_kernels.prefix_plain(zs, one, rc)
+    got = rns_prefix_shim(lib, zs, one, rc, tile)
+    geo = rns_kernels.prefix_geometry(rc.K, b, lib, tile or 0)
+    return [(f"K={rc.K} T={geo.tile} B={b} K12 count={count}",
+             torch.equal(got, want))]
+
+
+def compare_rns_apply_inverse(lib, rc, b: int, count: int, seed: int = 0,
+                              tile=None) -> list:
+    """(what, equal) of K13's kernel body on random stacks xs, zs, pres of
+    `count` rows and a random total_inv at B curves against
+    rns_kernels.apply_inverse_plain, at apply_inverse_geometry's tile or
+    the one given (any canonical residues: the kernel does not rely on
+    pres being zs's prefix)."""
+    rng = np.random.default_rng(seed)
+    xs, zs, pres = (rns_residues(rng, rc, (count, rc.rows, b))
+                    for _ in range(3))
+    tinv = rns_residues(rng, rc, (rc.rows, b))
+    want = rns_kernels.apply_inverse_plain(xs, zs, pres, tinv, rc)
+    got = rns_apply_inverse_shim(lib, xs, zs, pres, tinv, rc, tile)
+    geo = rns_kernels.apply_inverse_geometry(rc.K, b, lib, tile or 0)
+    return [(f"K={rc.K} T={geo.tile} H={geo.halves} B={b} K13 "
+             f"count={count}", torch.equal(got, want))]
+
+
 def gather_call(rng, rc, b: int, e: int, steps: int, g: int = 5,
                 pb_rows: int = 7, pads: int = 3):
     """A K14 call's inputs on CPU tensors: acc, pa_ext (g rows and the
@@ -575,6 +652,10 @@ RNS_CASES = ((256, 9), (256, 12), (2397, 9), (2700, 3))
 # K11's cases (bits of a random N, B, count): the same geometries, counts
 # 1, 2 (the seeds as differences only), 3 and 5 (out[i-2] read back)
 RNS_CHAIN_CASES = ((256, 9, 5), (256, 12, 1), (256, 9, 2), (2397, 9, 3),
+                   (2700, 3, 3))
+# K12's and K13's cases (bits of a random N, B, count): the same
+# geometries, counts 1, 2, 3 and 5
+RNS_BATCH_CASES = ((256, 9, 5), (256, 12, 1), (256, 9, 2), (2397, 9, 3),
                    (2700, 3, 3))
 # K14's cases (bits of a random N, B, E, steps): the same geometries, E =
 # 16 (the main path's) over three steps, E = 1 and 2 and an odd count of
@@ -676,6 +757,12 @@ def main() -> int:
             bad += not ok
     for bits, b, count in RNS_CHAIN_CASES:
         for what, ok in compare_rns_chain(rlib, rns_ctx_at(bits), b, count):
+            print(f"{what}: {'equal' if ok else 'DIFFER'}", flush=True)
+            bad += not ok
+    for bits, b, count in RNS_BATCH_CASES:
+        rc = rns_ctx_at(bits)
+        for what, ok in (compare_rns_prefix(rlib, rc, b, count)
+                         + compare_rns_apply_inverse(rlib, rc, b, count)):
             print(f"{what}: {'equal' if ok else 'DIFFER'}", flush=True)
             bad += not ok
     for bits, b, e, steps in GATHER_CASES:

@@ -1,7 +1,7 @@
 // RNS Montgomery arithmetic for a tile of curves per block: the CUDA twin
 // of tpu_ecm/limbs/rns.py:mont_mul/add/sub (and of limbs/rns.py, its plain
-// version in this package).  Shared by K12, K13 and K15 (csrc/rns_*.cu);
-// K10, K11 and K14 run on the tensor-core core csrc/rns_mma.cuh.
+// version in this package).  It serves K15 alone (csrc/rns_replay.cu);
+// K10-K14 run on the tensor-core core csrc/rns_mma.cuh.
 //
 // A value is 2K+1 canonical residues: rows [0, K) base A, [K, 2K) base B,
 // row 2K the r channel m_r = 2^14.  Device planes are [2K+1, B], curve axis

@@ -1,8 +1,8 @@
 // RNS Montgomery arithmetic on the tensor cores for a tile of T curves a
 // block: the CUDA twin of limbs/rns.py:mont_mul/add/sub (the plain
-// version) that K10 (csrc/rns_tape.cu), K11 (csrc/rns_chain.cu) and K14
-// (csrc/rns_replay_gather.cu) run.  K12, K13 and K15 stay on
-// csrc/rns_arith.cuh.
+// version) that K10 (csrc/rns_tape.cu), K11 (csrc/rns_chain.cu), K12 and
+// K13 (csrc/rns_batch_inverse.cu) and K14 (csrc/rns_replay_gather.cu)
+// run.  K15 stays on csrc/rns_arith.cuh.
 //
 // A value is 2K+1 canonical residues: rows [0, K) base A, [K, 2K) base B,
 // row 2K the r channel m_r = 2^14; device planes are [2K+1, B], curve axis
@@ -128,9 +128,9 @@ struct RnsMmaLaunch {
 // cudaSuccess, or cudaErrorInvalidValue for a K, B, tile or number of
 // halves the kernels do not take: T = 8 keeps the weights in shared
 // memory and is refused where they do not fit beside `halves` sets of X,
-// P, Q and tr and `extra` bytes of the kernel's own (K10: one half, K <=
-// 222; K11, K14: two halves up to K = 208); T = 4 reads them from the
-// global table.  Warps: enough for every channel pair, and two a 32-row M
+// P, Q and tr and `extra` bytes of the kernel's own (K10, K12: one half,
+// K <= 222; K11, K13, K14: two halves up to K = 208); T = 4 reads them
+// from the global table.  Warps: enough for every channel pair, and two a 32-row M
 // tile up to RNS_MMA_MAX_WARPS.
 inline int rns_mma_config(int K, int B, int tile, int halves, size_t extra,
                           RnsMmaLaunch& c) {
@@ -153,18 +153,18 @@ inline int rns_mma_config(int K, int B, int tile, int halves, size_t extra,
 
 // The tile a kernel with `extra` bytes of its own takes at K unless told
 // otherwise: 8 where the weights fit in shared memory beside one half
-// (K <= 222 for K10, K11 and K14), else 4
+// (K <= 222 for K10-K14), else 4
 inline int rns_mma_tile(int K, size_t extra) {
     return rns_mma_bytes(K, true, 1) + extra <= RNS_MMA_SMEM_MAX ? 8 : 4;
 }
 
-// K10's launch: one half, at `tile` (0: rns_mma_tile's)
+// K10's (and K12's) launch: one half, at `tile` (0: rns_mma_tile's)
 inline int rns_tape_config(int K, int B, int tile, RnsMmaLaunch& c) {
     return rns_mma_config(K, B, tile ? tile : rns_mma_tile(K, 0), 1, 0, c);
 }
 
-// The launch of a kernel that pairs its products (K11, K14) with `extra`
-// bytes of its own, at `tile` (0: rns_mma_tile's): two halves where they
+// The launch of a kernel that pairs its products (K11, K13, K14) with
+// `extra` bytes of its own, at `tile` (0: rns_mma_tile's): two halves where they
 // fit beside the resident weights, else one at T = 8 (208 < K <= 222 at
 // extra <= 384); T = 4 always takes two
 inline int rns_paired_config(int K, int B, int tile, size_t extra,

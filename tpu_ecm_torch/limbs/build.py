@@ -73,9 +73,11 @@ SIGNATURES = {
     "tpuecm_rns_tape_geometry": [_I, _I, _I, _P],
     "tpuecm_rns_chain": [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _P],
     "tpuecm_rns_chain_geometry": [_I, _I, _I, _P],
-    "tpuecm_rns_prefix": [_P, _P, _P, _I, _P, _P, _I, _I, _P],
+    "tpuecm_rns_prefix": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _P],
+    "tpuecm_rns_prefix_geometry": [_I, _I, _I, _P],
     "tpuecm_rns_apply_inverse": [_P, _P, _P, _P, _P, _I, _P, _P, _I, _I,
-                                 _P],
+                                 _I, _P],
+    "tpuecm_rns_apply_inverse_geometry": [_I, _I, _I, _P],
     "tpuecm_rns_replay": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
     "tpuecm_rns_replay_gather": [_P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _I,
                                  _I, _I, _P],

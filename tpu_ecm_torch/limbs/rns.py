@@ -1,7 +1,7 @@
 """RNS (residue number system) Montgomery arithmetic: the twin of
 tpu_ecm/limbs/rns.py, and the plain version of the RNS arithmetic cores of
-the CUDA kernels (csrc/rns_mma.cuh for K10, K11 and K14,
-csrc/rns_arith.cuh for K12, K13 and K15).
+the CUDA kernels (csrc/rns_mma.cuh for K10-K14, csrc/rns_arith.cuh for
+K15).
 
 A value is held as its residues in 2K+1 channels, planes [..., 2K+1, B]
 with the curve axis last: rows [0, K) are base A = {p_1..p_K}, rows

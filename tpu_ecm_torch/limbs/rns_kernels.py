@@ -7,12 +7,12 @@ kernel on the current stream for CUDA tensors (never the plain version),
 raises for anything else, and counts its launches in kernels.launches.
 Planes are int32 [..., 2K+1, B] residue planes, curve axis last; the plain
 version of K10 is rns_exec.run_tape.  K10 (at tape_geometry's tile), K11
-(at chain_geometry's tile and halves) and K14 (at gather_geometry's) run
-on the tensor-core core csrc/rns_mma.cuh, K12, K13 and K15 on
-csrc/rns_arith.cuh.  Every kernel
-gives the plain version's residues exactly (K15 too: both multiply acc by
-one difference per entry, in entry order; K14: both multiply each step's
-differences in the same pairwise tree).
+(at chain_geometry's tile and halves), K12 (at prefix_geometry's), K13 (at
+apply_inverse_geometry's) and K14 (at gather_geometry's) run on the
+tensor-core core csrc/rns_mma.cuh, K15 on csrc/rns_arith.cuh.  Every
+kernel gives the plain version's residues exactly (K15 too: both multiply
+acc by one difference per entry, in entry order; K14: both multiply each
+step's differences in the same pairwise tree).
 """
 
 from __future__ import annotations
@@ -42,6 +42,7 @@ class TapeGeometry(NamedTuple):
 
 
 class ChainGeometry(NamedTuple):
+    """The launch of K11, K12 or K13."""
     tile: int          # curves a block (T)
     halves: int        # products a pass (2: paired, mma_mul2)
     threads: int
@@ -95,6 +96,29 @@ def chain_geometry(K: int, b: int, lib=None, tile: int = 0
     it (global fragments).  A `tile` other than 0 asks for that tile's
     launch."""
     g = _geometry("tpuecm_rns_chain_geometry", K, b, tile, 6, lib)
+    return ChainGeometry(*g[:5], bool(g[5]))
+
+
+def prefix_geometry(K: int, b: int, lib=None, tile: int = 0
+                    ) -> ChainGeometry:
+    """K12's launch at K and B curves, as
+    csrc/rns_batch_inverse.cu:rns_prefix_config picks it
+    (tpuecm_rns_prefix_geometry): K10's, one product a pass (T = 8 with
+    the weights resident up to K = 222, T = 4 past it).  A `tile` other
+    than 0 asks for that tile's launch."""
+    g = _geometry("tpuecm_rns_prefix_geometry", K, b, tile, 6, lib)
+    return ChainGeometry(*g[:5], bool(g[5]))
+
+
+def apply_inverse_geometry(K: int, b: int, lib=None, tile: int = 0
+                           ) -> ChainGeometry:
+    """K13's launch at K and B curves, as
+    csrc/rns_batch_inverse.cu:rns_apply_inverse_config picks it
+    (tpuecm_rns_apply_inverse_geometry): K11's, two halves (a row's two
+    products of the old suffix in one pass) up to K = 208, one where only
+    one fits beside the resident weights (208 < K <= 222), and two at
+    T = 4 past it.  A `tile` other than 0 asks for that tile's launch."""
+    g = _geometry("tpuecm_rns_apply_inverse_geometry", K, b, tile, 6, lib)
     return ChainGeometry(*g[:5], bool(g[5]))
 
 
@@ -188,8 +212,9 @@ def prefix(zs: torch.Tensor, one: torch.Tensor, rc: RnsCtx) -> torch.Tensor:
         return prefix_plain(zs, one, rc)
     out = torch.empty_like(zs)
     _done("rns_prefix", build.library().tpuecm_rns_prefix(
-        zs.data_ptr(), one.data_ptr(), out.data_ptr(), count, *_ctx_args(rc),
-        b, _stream()))
+        zs.data_ptr(), one.data_ptr(), out.data_ptr(), count,
+        rc.tab.data_ptr(), rc.wmma.data_ptr(), rc.K, b,
+        prefix_geometry(rc.K, b).tile, _stream()))
     return out
 
 
@@ -209,7 +234,8 @@ def apply_inverse(xs: torch.Tensor, zs: torch.Tensor, pres: torch.Tensor,
     out = torch.empty_like(xs)
     _done("rns_apply_inverse", build.library().tpuecm_rns_apply_inverse(
         xs.data_ptr(), zs.data_ptr(), pres.data_ptr(), total_inv.data_ptr(),
-        out.data_ptr(), count, *_ctx_args(rc), b, _stream()))
+        out.data_ptr(), count, rc.tab.data_ptr(), rc.wmma.data_ptr(), rc.K,
+        b, apply_inverse_geometry(rc.K, b).tile, _stream()))
     return out
 
 

@@ -238,7 +238,8 @@ class Stage2Result:
 # Pa group rows and replay entries per kernel call, by device kind.  The
 # CPU pair is the JAX package's CPU pair (so the tests compare like with
 # like).  On CUDA the group is the largest power of two up to
-# PA_GROUP["cuda"] that fits the card's free memory (pa_group_for_memory);
+# PA_GROUP["cuda"] that fits the card's free memory (pa_group_for_memory,
+# device_free_bytes);
 # the replay block, the most entries of one kernel call, is fixed here,
 # not tuned (PERF.md).
 PA_GROUP = {"cpu": 512, "cuda": 4096}
@@ -259,6 +260,16 @@ GROUP_PLANES = 8
 # bytes it plans to fill (the rest is allocator slack)
 PA_GROUP_MIN = 64
 MEM_HEADROOM = 0.9
+
+
+def device_free_bytes(device) -> int:
+    """Bytes a new allocation on the card can take: the driver's free
+    memory and what the caching allocator holds reserved but unused, so
+    the memory rule gives a job the same Pa group whatever ran before it
+    in the process."""
+    free, _total = torch.cuda.mem_get_info(device)
+    return (free + torch.cuda.memory_reserved(device)
+            - torch.cuda.memory_allocated(device))
 
 
 def pa_group_for_memory(plane_bytes: int, num_pb: int, free_bytes: int,
@@ -443,9 +454,9 @@ class Stage2Runner:
         self.pa_group = PA_GROUP[kind]
         self.replay_block = REPLAY_BLOCK[kind]
         if kind == "cuda":
-            free, _total = torch.cuda.mem_get_info(pt.device)
             self.pa_group = pa_group_for_memory(
-                self.ops.rows * b * 4, sp.num_pb, free)
+                self.ops.rows * b * 4, sp.num_pb,
+                device_free_bytes(pt.device))
         # replay entries pack pa << 16 | pb
         if self.pa_group + 1 > 1 << 16 or sp.num_pb > 1 << 16:
             raise ValueError("Pa group or Pb table exceeds 2^16 rows")

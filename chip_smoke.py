@@ -33,22 +33,24 @@ result and its seconds; any failure raises and exits non-zero.
               plain version at these depths runs in blocks of
               kernels.PLAIN_REPLAY_BLOCK entries, a multiple of 4, so its
               quadruples are the kernel's); K8's slabs, slab height, shared
-              memory, ptxas report and ms per live entry beside K6's at
-              both main-path depths, K6 on K8's own entries (digits equal
-              to K8's), and at M1277 K8 with 6-row slabs without and with
+              memory, ptxas report and ms per live entry beside K6's (on
+              the lane core; K8 one thread a curve) at both main-path
+              depths, K6 on K8's own entries (digits equal to K8's), and
+              at M1277 K8 with 6-row slabs without and with
               a 50% shared-carveout preference (_resident_probe);
               RNS K10-K15 at N256/B=128 on short stacks and at the
               2397-bit row-21 geometry (K=200, 401 residue rows)/B=1024
               (a 256-op tape over three launches, the Pa group the memory
               rule picks, the rns job's 963-row Pb table and first replay
               calls); residues equal, every one;
-              the lane-core kernels' (K1-K5's and K9's) lines at both
+              the lane-core kernels' (K1-K7's and K9's) lines at both
               main-path depths give their geometry (lanes a curve, digits
               a lane, curves a block, blocks, resident and launched warps
               per SM), their instantiation's ptxas report (registers,
-              stack frame, spills) and their share of the bound, K5's
-              also its ms per live entry, and K2's, K3's, K4's and K9's
-              their ms beside the one-thread kernel's (_lanes_line);
+              stack frame, spills) and their share of the bound, K5's,
+              K6's and K7's also their ms per live entry, and K2's-K7's
+              and K9's their ms beside the one-thread kernel's
+              (_lanes_line);
               K10's line (_k10_line) gives its tile, threads, blocks,
               shared memory a block, whether its weights are resident,
               its ptxas report, its share of the bound and its ms beside
@@ -208,6 +210,10 @@ LANE_KERNELS = {
     "apply_inverse": ("K4", "apply_inverse_lanes_kernel",
                       "tpuecm_apply_inverse_occupancy"),
     "replay": ("K5", "replay_lanes_kernel", "tpuecm_replay_occupancy"),
+    "replay_gather": ("K6", "replay_gather_lanes_kernel",
+                      "tpuecm_replay_gather_occupancy"),
+    "replay_parow": ("K7", "replay_parow_lanes_kernel",
+                     "tpuecm_replay_parow_occupancy"),
     "ed_tape": ("K9", "ed_tape_lanes_kernel", "tpuecm_ed_tape_occupancy"),
 }
 # K5 on the one-thread core (csrc/arith.cuh) before it moved to the lane
@@ -216,6 +222,14 @@ LANE_KERNELS = {
 # 700 W)
 K5_ONE_THREAD = {"flagship": (2591.990, 0.03955),
                  "M1277": (10594.312, 0.21363)}
+# K6 and K7 on the one-thread core before they moved to the lane core, on
+# this smoke's first replay call at each main-path depth in their mode:
+# ms per call and per live entry (PERF.md section 6, NVIDIA H100 80GB
+# HBM3, 700 W)
+K6_ONE_THREAD = {"flagship": (2919.128, 0.04454),
+                 "M1277": (11343.829, 0.22874)}
+K7_ONE_THREAD = {"flagship": (2856.605, 0.04672),
+                 "M1277": (11886.074, 0.23968)}
 # K9 on the one-thread core before it moved to the lane core: ms per
 # 256-op Edwards tape over three launches at each main-path depth (the
 # flagship's from this smoke's phase 2, M1277's from tools/ed_tape_time.py;
@@ -929,10 +943,11 @@ def _graphed_products():
 
 
 def _resident_line(label, record, depth, nw, k6_same: float) -> str:
-    """K8's first call at a main-path depth beside K6 on the same entries
-    (k6_same ms per live entry) and on its own first call: K8's slabs,
-    slab height, dynamic shared memory per block, ms per live entry, and
-    what ptxas reported for it (registers, stack frame)."""
+    """K8's first call at a main-path depth (one thread per curve) beside
+    K6 (on the lane core) on the same entries (k6_same ms per live entry)
+    and on its own first call: K8's slabs, slab height, dynamic shared
+    memory per block, ms per live entry, and what ptxas reported for it
+    (registers, stack frame)."""
     from tpu_ecm_torch.limbs import kernels
     call = depth["calls"]["resident"]
     r8, r6 = record["replay_resident"], record["replay_gather"]
@@ -942,12 +957,12 @@ def _resident_line(label, record, depth, nw, k6_same: float) -> str:
     r8.update(cap=call.cap, slabs=slabs,
               smem_bytes=kernels.slab_bytes(call.cap, nw),
               k6_ms_per_entry_same=k6_same)
-    return (f"K8 at {label}: {r8['entries']} live entries in {r8['slots']} "
-            f"slots, {slabs} slabs of cap={call.cap} rows, "
-            f"{r8['smem_bytes']} bytes of dynamic shared memory per block; "
-            f"{r8['ms_per_entry']:.5f} ms per live entry (K6 on the same "
-            f"entries {k6_same:.5f}, on its own first call "
-            f"{r6['ms_per_entry']:.5f}); ptxas: "
+    return (f"K8 (one thread a curve) at {label}: {r8['entries']} live "
+            f"entries in {r8['slots']} slots, {slabs} slabs of cap="
+            f"{call.cap} rows, {r8['smem_bytes']} bytes of dynamic shared "
+            f"memory per block; {r8['ms_per_entry']:.5f} ms per live entry "
+            f"(lane-core K6 on the same entries {k6_same:.5f}, on its own "
+            f"first call {r6['ms_per_entry']:.5f}); ptxas: "
             + "; ".join(_ptxas_lines("replay_resident_kernel")))
 
 
@@ -1027,13 +1042,13 @@ def _lanes_ptxas(kernel: str) -> dict:
 
 
 def _lanes_line(name, label, r, nw, b, rows) -> str:
-    """A lane-core kernel's (K1-K5's, K9's) geometry at nw digits and B
+    """A lane-core kernel's (K1-K7's, K9's) geometry at nw digits and B
     curves (lanes a curve, curves a block, blocks, resident warps per SM
     the card allows and warps per SM the launch gives), its
     instantiation's ptxas report and its share of the bound, added to its
-    record r; K5's line also gives its ms per live entry, and K2's, K3's
-    and K4's (on `rows` rows) and K9's their ms, beside the one-thread
-    kernel's."""
+    record r; K5's, K6's and K7's lines also give their ms per live entry,
+    and K2's, K3's and K4's (on `rows` rows) and K9's their ms, beside the
+    one-thread kernel's."""
     import ctypes
     import torch
     from tpu_ecm_torch.limbs import build, kernels
@@ -1061,8 +1076,10 @@ def _lanes_line(name, label, r, nw, b, rows) -> str:
             f"{x.get('spill_store_bytes')}/{x.get('spill_load_bytes')} "
             f"bytes spill stores/loads; {r['ms']:.3f} ms against the bound "
             f"{r['bound_ms']:.4f}: {100 * r['share_of_bound']:.2f}% of it")
-    if name == "replay":
-        old_ms, old_per = K5_ONE_THREAD[label]
+    if name in ("replay", "replay_gather", "replay_parow"):
+        old_ms, old_per = {"replay": K5_ONE_THREAD,
+                           "replay_gather": K6_ONE_THREAD,
+                           "replay_parow": K7_ONE_THREAD}[name][label]
         line += (f"; {r['entries']} live entries, {r['ms_per_entry']:.6f} ms "
                  f"per live entry (the one-thread kernel: {old_per:.5f} on "
                  f"the same call, {old_ms:.3f} ms; {old_ms / r['ms']:.2f}x)")

@@ -1,7 +1,8 @@
 """Tests that need an NVIDIA GPU (marker `cuda`; they skip without one):
 the fifteen CUDA kernels against their plain PyTorch versions (the digit
-kernels in REDC and fold modes; K1-K5 and K9 also at ragged batches
-and at every instantiation's edge nw, and a refused launch; K10-K14 at
+kernels in REDC and fold modes; K1-K7 and K9 also at ragged batches
+and at every instantiation's edge nw, and a refused launch, K6 and K7
+their ptxas reports; K10-K14 at
 ragged batches, at their K edges, a refused launch and their ptxas
 reports, K11 also at counts 1, 2 and G - 1, K12 and K13 at counts 1, 2
 and G), the golden sweep
@@ -253,6 +254,106 @@ def test_replay_refused_launch_raises(cuda, monkeypatch):
         kernels.replay(acc, tab, tab, np.asarray([1, 1 << 16 | 1],
                                                  np.int32), d)
     assert kernels.launches["replay"] == 0
+
+
+def _k6k7_against_plain(ctx, b: int, entries: int, seed: int):
+    """K6 and K7 on the gather and parow calls of a random replay block
+    (chip_smoke._random_calls: v-sorted live entries over an 11-row Pa
+    group and 13 Pb rows in 16-entry steps; K6's ending in pads (G, 0),
+    K7's short steps holding pads pb = 0) against
+    kernels.replay_gather_plain and replay_parow_plain on the same card
+    tensors, digit for digit, one launch each."""
+    import numpy as np
+
+    import chip_smoke
+    from tpu_ecm_torch.limbs import kernels, layout, torch_ops
+    from tpu_ecm_torch.stage2 import exec as s2
+    d = torch_ops.device_ctx(ctx, "cuda")
+    rng = np.random.default_rng(seed)
+    nw, rows, pb_rows, e = ctx.p.nw, 11, 13, s2.REPLAY_E
+    r = lambda *shape: chip_smoke._rand_planes(rng, ctx, shape + (nw, b))
+    one = torch.from_numpy(layout.broadcast_int(ctx.r_mod_n, ctx.p.w, nw,
+                                                b)).cuda()
+    acc, pa_ext, pbx = r(), torch.cat([r(rows), one[None]]), r(pb_rows)
+    pbx[0] = 0
+    calls = chip_smoke._random_calls(rng, rows, pb_rows, entries)
+    pairs, steps = calls["gather"], calls["parow"]
+    assert (steps[:, 1:] == 0).any() and (pairs[-5:] == [rows, 0]).all()
+    want6 = kernels.replay_gather_plain(acc, pa_ext, pbx, pairs, e, d)
+    want7 = kernels.replay_parow_plain(acc, pa_ext, pbx, steps, one, d)
+    kernels.reset_launches()
+    got6 = kernels.replay_gather(acc, pa_ext, pbx, pairs, d, e=e)
+    got7 = kernels.replay_parow(acc, pa_ext, pbx, steps, one, d)
+    torch.cuda.synchronize()
+    assert kernels.launches["replay_gather"] == 1
+    assert kernels.launches["replay_parow"] == 1
+    assert torch.equal(got6, want6)
+    assert torch.equal(got7, want7)
+
+
+@pytest.mark.parametrize("fold", [False, True], ids=["redc", "fold"])
+@pytest.mark.parametrize("b", [1, 33, 100])
+def test_gather_ragged_batches(cuda, fold, b):
+    """K6 and K7 at batches that leave the last block part empty (B = 1,
+    33, 100), at the flagship's N416 (REDC, 8 lanes a curve) and at M1277
+    (the fold, 16 lanes), against their plain versions digit for digit."""
+    import chip_smoke
+    from tpu_ecm_torch import params
+    ctx = (params.make_monty(chip_smoke.M1277, mersenne=(1277, 1)) if fold
+           else params.make_monty(chip_smoke.N416))
+    _k6k7_against_plain(ctx, b, 96, b)
+
+
+@pytest.mark.parametrize("nw,fold", [
+    (nw, fold) for nw in TAPE_EDGE_NW for fold in (False, True)
+    if nw > 2 or not fold])
+def test_gather_nw_edges(cuda, nw, fold):
+    """K6 and K7 at the edges of their instantiations (limbs/kernels.py:
+    tape_geometry, shared with K1) in both modes, at B = 5, against their
+    plain versions."""
+    _k6k7_against_plain(_ctx_at_nw(nw, fold), 5, 48 + 16 * (nw % 2), nw)
+
+
+@pytest.mark.parametrize("name", ["replay_gather", "replay_parow"])
+def test_gather_refused_launch_raises(cuda, monkeypatch, name):
+    """A geometry that no instantiation of K6 or K7 takes (9 digits a
+    lane) is refused by the C entry point, the wrapper raises, and no
+    launch is counted."""
+    import numpy as np
+
+    import chip_smoke
+    from tpu_ecm_torch import params
+    from tpu_ecm_torch.limbs import kernels, torch_ops
+    ctx = params.make_monty(chip_smoke.N416)
+    d = torch_ops.device_ctx(ctx, "cuda")
+    acc = torch.zeros((ctx.p.nw, 32), dtype=torch.int32, device=cuda)
+    tab = torch.zeros((2, ctx.p.nw, 32), dtype=torch.int32, device=cuda)
+    monkeypatch.setattr(kernels, "tape_geometry",
+                        lambda nw, b: (4, 9, 32, 1))
+    kernels.reset_launches()
+    with pytest.raises(RuntimeError, match="launch failed"):
+        if name == "replay_gather":
+            kernels.replay_gather(acc, tab, tab,
+                                  np.ones((16, 2), np.int32), d, e=16)
+        else:
+            kernels.replay_parow(acc, tab, tab, np.ones((1, 17), np.int32),
+                                 acc, d)
+    assert kernels.launches[name] == 0
+
+
+def test_gather_ptxas_no_stack_or_spills(cuda):
+    """nvcc -Xptxas -v reports no stack frame and no spills for K6 and K7
+    at every digit count D = 2..8."""
+    import chip_smoke
+    from tpu_ecm_torch.limbs import build, kernels
+    build.library()
+    for kernel in ("replay_gather_lanes_kernel",
+                   "replay_parow_lanes_kernel"):
+        report = chip_smoke._lanes_ptxas(kernel)
+        assert set(report) == set(kernels.TAPE_DIGITS), (kernel, report)
+        for digits, x in report.items():
+            assert (x["stack_bytes"], x["spill_store_bytes"],
+                    x["spill_load_bytes"]) == (0, 0, 0), (kernel, digits, x)
 
 
 def _k9_against_plain(ctx, b: int, ops: int, seed: int):

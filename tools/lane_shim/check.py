@@ -1,6 +1,7 @@
 """Run the lane core of tpu_ecm_torch/csrc/arith_lanes.cuh (K1's
 arithmetic) and the kernel bodies of K2 (csrc/chain.cu), K3 and K4
-(csrc/batch_inverse.cu), K5 (csrc/replay.cu) and K9 (csrc/ed_tape.cu), and
+(csrc/batch_inverse.cu), K5 (csrc/replay.cu), K6 and K7
+(csrc/replay_gather.cu) and K9 (csrc/ed_tape.cu), and
 K10's, K11's, K12's, K13's and K14's (csrc/rns_tape.cu, csrc/rns_chain.cu,
 csrc/rns_batch_inverse.cu, csrc/rns_replay_gather.cu, on the tensor-core
 core csrc/rns_mma.cuh), on the CPU and hold them against their plain
@@ -11,12 +12,14 @@ which runs every CUDA thread as a std::thread and shuffles through a
 per-warp buffer between barriers (see its header).  lanes_check.cpp's
 entry points run a product step per curve (a*b, a*a, or a*b written over
 a's slot, each paired with b*b) and the DUP and ADD programs,
-lanes_replay runs K5 on one call, lanes_ed_tape K9 on one Edwards tape,
+lanes_replay runs K5 on one call, lanes_replay_gather K6 or K7 on one
+call, lanes_ed_tape K9 on one Edwards tape,
 lanes_chain K2 on one chain, lanes_prefix K3 and lanes_apply_inverse K4
 on one stack; they are compared digit for digit with limbs/torch_ops.mulmod /
 sqrmod, curve/ops.xdbl / xadd, limbs/kernels.replay_plain,
+replay_gather_plain, replay_parow_plain,
 curve/edops.run_tape, limbs/kernels.chain_plain, prefix_plain and
-apply_inverse_plain on CPU tensors.  K3's, K4's and K5's cp.async copies
+apply_inverse_plain on CPU tensors.  K3's-K7's cp.async copies
 land at once and, in a second run, at their wait
 (cuda_pipeline_primitives.h).  K10's to K14's bodies are built apart
 (rns_check.cpp, with mma.h standing in for nvcuda::wmma) and held residue
@@ -68,6 +71,8 @@ SOURCES = (os.path.join(HERE, "cuda_runtime.h"),
            os.path.join(build.CSRC, "arith.cuh"),
            os.path.join(build.CSRC, "arith_lanes.cuh"),
            os.path.join(build.CSRC, "replay.cu"),
+           os.path.join(build.CSRC, "replay_gather.cu"),
+           os.path.join(build.CSRC, "replay_tree.cuh"),
            os.path.join(build.CSRC, "ed_tape.cu"),
            os.path.join(build.CSRC, "chain.cu"),
            os.path.join(build.CSRC, "batch_inverse.cu"))
@@ -154,6 +159,9 @@ def load(path: str) -> ctypes.CDLL:
                                         I, I, I, I, I, I, I]
     lib.lanes_chain.restype = lib.lanes_prefix.restype = I
     lib.lanes_apply_inverse.restype = I
+    lib.lanes_replay_gather.argtypes = [P, P, P, P, P, P, I, I, P, P, I, I,
+                                        I, I, I, I, I, I, I, I, I, I]
+    lib.lanes_replay_gather.restype = I
     return lib
 
 
@@ -266,6 +274,103 @@ def compare_replay(lib, ctx, b: int, count: int, lanes=None,
         res.append((f"nw={nw} L={lanes} D={digits} B={b} K5 count={count}"
                     f" copies {('at once', 'at their wait')[late]}",
                     torch.equal(got, want)))
+    return res
+
+
+def gather_lanes_call(ctx, b: int, e: int, steps: int, seed: int = 0,
+                      sort: bool = True, wide: bool = False):
+    """A K6 and a K7 call's inputs on CPU tensors: acc, pa_ext (G = 5 rows
+    and the pad row G), pbx (7 rows, row 0 zero), `one` (R mod n in REDC
+    mode, 1 in the fold, 2^24 moved from digit 1 into digit 0: the same
+    value in a form that a lazy pass changes and whose products' columns
+    wrap; also pa_ext[G]), K6's pairs [steps*e, 2] and K7's steps
+    [steps, 1 + e].
+    acc and the rows are reduced values (_values) or, when `wide`, every
+    digit random below 2^(w+6): values past R, whose products are not
+    near-canonical (a REDC or fold output of values below about 2n is
+    nearly always the canonical one, whatever the association), and
+    differences whose columns wrap without their lazy pass.
+    K6: v-sorted Pa runs that change inside steps (pa = i*G // live), or
+    random rows when not `sort`, random Pb rows, the last three entries
+    pads (G, 0).  K7: a step's pa sorted (or not) at random, its Pb rows
+    random with pads pb = 0 inside steps (e > 1), the last step a whole
+    pad step (pa = G, every pb 0)."""
+    d = torch_ops.device_ctx(ctx, "cpu")
+    rng = np.random.default_rng(seed)
+    g, pb_rows, p = 5, 7, ctx.p
+    if wide:
+        acc, *rows = torch.from_numpy(rng.integers(
+            0, 1 << (p.w + 6), (1 + g + pb_rows, p.nw, b), dtype=np.int32))
+    else:
+        acc, *rows = _values(ctx, d, rng, 1 + g + pb_rows, b)
+    one = torch.from_numpy(layout.broadcast_int(ctx.r_mod_n, p.w, p.nw, b))
+    one[0] += 1 << 24
+    one[1] -= 1 << (24 - p.w)
+    pa_ext = torch.stack(rows[:g] + [one]).contiguous()
+    pbx = torch.stack(rows[g:]).contiguous()
+    pbx[0] = 0
+    n = steps * e
+    live = max(n - 3, 0)
+    pairs = np.full((n, 2), (g, 0), np.int32)
+    pairs[:live, 0] = (np.arange(live) * g // max(live, 1) if sort
+                       else rng.integers(0, g, live))
+    pairs[:live, 1] = rng.integers(1, pb_rows, live)
+    st = np.zeros((steps, 1 + e), np.int32)
+    pa = rng.integers(0, g, steps)
+    st[:, 0] = np.sort(pa) if sort else pa
+    st[:, 1:] = rng.integers(1, pb_rows, (steps, e))
+    if e > 1:
+        st[:, 1:][rng.random((steps, e)) < 0.25] = 0
+    if steps:
+        st[-1] = [g] + [0] * e
+    return d, acc, pa_ext, pbx, one, pairs, st
+
+
+def run_replay_gather(lib, d, acc, pa_ext, pbx, idx, one, e: int,
+                      lanes: int, digits: int, parow: int,
+                      late: int) -> torch.Tensor:
+    """K6's (parow 0, idx pairs) or K7's (parow 1, idx steps) kernel body
+    on one call, into an output filled with -7 first."""
+    got = torch.full_like(acc, -7)
+    idx = np.ascontiguousarray(idx, dtype=np.int32)
+    nsteps = idx.shape[0] // e if not parow else idx.shape[0]
+    if lib.lanes_replay_gather(acc.data_ptr(), got.data_ptr(),
+                               pa_ext.data_ptr(), pbx.data_ptr(),
+                               idx.ctypes.data, one.data_ptr(), nsteps, e,
+                               *_mod(d), int(acc.shape[-1]), lanes, digits,
+                               parow, late):
+        raise ValueError(f"no instantiation for D={digits} or E={e}")
+    return got
+
+
+def compare_replay_gather(lib, ctx, b: int, e: int, steps: int, lanes=None,
+                          seed: int = 0, sort: bool = True,
+                          wide: bool = False) -> list:
+    """(what, equal) of K6's and K7's kernel body on a gather_lanes_call
+    (sorted or not, wide or not) of `steps` steps of e entries at B curves
+    against
+    kernels.replay_gather_plain and replay_parow_plain, their copies
+    landing at once and at their wait, at tape_geometry's lanes or at
+    `lanes`."""
+    nw = ctx.p.nw
+    if lanes is None:
+        lanes, digits, _, _ = kernels.tape_geometry(nw, b)
+    else:
+        digits = max(2, -(-nw // lanes))
+    d, acc, pa_ext, pbx, one, pairs, st = gather_lanes_call(
+        ctx, b, e, steps, seed, sort, wide)
+    want = (kernels.replay_gather_plain(acc, pa_ext, pbx, pairs, e, d),
+            kernels.replay_parow_plain(acc, pa_ext, pbx, st, one, d))
+    head = (f"nw={nw} L={lanes} D={digits} B={b} E={e} steps={steps}"
+            f"{'' if sort else ' unsorted'}{' wide' if wide else ''}")
+    res = []
+    for parow, idx in ((0, pairs), (1, st)):
+        for late in (0, 1):
+            got = run_replay_gather(lib, d, acc, pa_ext, pbx, idx, one, e,
+                                    lanes, digits, parow, late)
+            res.append((f"{head} {('K6', 'K7')[parow]} copies "
+                        f"{('at once', 'at their wait')[late]}",
+                        torch.equal(got, want[parow])))
     return res
 
 
@@ -689,6 +794,9 @@ REPLAY_CASES = (
     ((1 << 201) + 1, (201, -1), None, 10, 8),
 )
 REPLAY_COUNTS = (0, 3, 8, 9, 10, 11)
+# K6's and K7's cases: REPLAY_CASES at every E a step may take, each over
+# a few steps (E = 16, the main path's, over three), and nsteps = 0
+GATHER_LANES_STEPS = {1: 7, 2: 5, 4: 5, 8: 3, 16: 3}
 # K9's cases (modulus, mersenne, force_w, B, lanes, ops): REDC at the
 # flagship's nw = 36 with norm_inputs on and off (w = 10, nw = 43), the
 # fold at M127, at a pseudo-Mersenne 2^200 - c of three digits of c and at
@@ -795,6 +903,11 @@ def main() -> int:
         ctx = params.make_monty(n, mersenne=mers, force_w=fw)
         for count in REPLAY_COUNTS:
             for what, ok in compare_replay(lib, ctx, b, count, lanes):
+                print(f"{what}: {'equal' if ok else 'DIFFER'}", flush=True)
+                bad += not ok
+        for e, steps in GATHER_LANES_STEPS.items():
+            for what, ok in compare_replay_gather(lib, ctx, b, e, steps,
+                                                  lanes):
                 print(f"{what}: {'equal' if ok else 'DIFFER'}", flush=True)
                 bad += not ok
     return 1 if bad else 0

@@ -7,6 +7,10 @@
 //                in = [x, z, x2, z2, xd, zd] with s, into out = [x, z];
 //   lanes_replay: K5's kernel body (csrc/replay.cu) on one call, its Pb
 //                copies landing at once (late = 0) or at their wait (1);
+//   lanes_replay_gather: K6's (parow = 0: idx [T, 2] pairs) or K7's
+//                (parow = 1: idx [S, 1 + E] steps, with `one`) kernel body
+//                (csrc/replay_gather.cu) on one call of nsteps steps of E
+//                entries, its copies landing as K5's;
 //   lanes_ed_tape: K9's kernel body (csrc/ed_tape.cu) on one tape, over
 //                acc [4, NW, B] in place with the table [Tp, 3, NW, B];
 //   lanes_chain: K2's kernel body (csrc/chain.cu), count rows from the
@@ -17,7 +21,8 @@
 //                pres [count, NW, B] and total_inv [NW, B] into out.
 //   K3's and K4's cp.async copies land at once (late = 0) or at their
 //   wait (1), as K5's.
-// Each returns 0, or 1 for a digit count with no instantiation.
+// Each returns 0, or 1 for a digit count with no instantiation (or a
+// step shape the kernel refuses).
 #include <cuda_runtime.h>
 
 #include "arith_lanes.cuh"
@@ -25,6 +30,7 @@
 #include "chain.cu"
 #include "ed_tape.cu"
 #include "replay.cu"
+#include "replay_gather.cu"
 
 namespace {
 
@@ -81,6 +87,22 @@ void replay_body(const int* acc_in, int* acc_out, const int* pa_ext,
     __shared__ Mod m;
     replay_lanes<D>(m, smem_words, acc_in, acc_out, pa_ext, pbx, idx,
                     TPUECM_MOD_ARGS, B, L);
+}
+
+template <int D>
+void replay_gather_body(const int* acc_in, int* acc_out, const int* pa_ext,
+                        const int* pbx, const int* idx, const int* one,
+                        int nsteps, int E, TPUECM_MOD_PARAMS, int B, int L,
+                        int parow) {
+    __shared__ Mod m;
+    if (parow)
+        replay_gather_lanes<D, true>(m, smem_words, acc_in, acc_out, pa_ext,
+                                     pbx, idx, one, nsteps, E,
+                                     TPUECM_MOD_ARGS, B, L);
+    else
+        replay_gather_lanes<D, false>(m, smem_words, acc_in, acc_out, pa_ext,
+                                      pbx, idx, one, nsteps, E,
+                                      TPUECM_MOD_ARGS, B, L);
 }
 
 template <int D>
@@ -153,6 +175,21 @@ extern "C" int lanes_replay(const int* acc_in, int* acc_out,
     return run_lanes(B, L, D, [&](auto d) {
         replay_body<decltype(d)::value>(acc_in, acc_out, pa_ext, pbx, idx,
                                         TPUECM_MOD_ARGS, B, L);
+    });
+}
+
+extern "C" int lanes_replay_gather(const int* acc_in, int* acc_out,
+                                   const int* pa_ext, const int* pbx,
+                                   const int* idx, const int* one,
+                                   int nsteps, int E, TPUECM_MOD_PARAMS,
+                                   int B, int L, int D, int parow,
+                                   int late) {
+    if (!step_args_ok(nsteps, E)) return 1;
+    emu_copy_late = late != 0;
+    return run_lanes(B, L, D, [&](auto d) {
+        replay_gather_body<decltype(d)::value>(acc_in, acc_out, pa_ext, pbx,
+                                               idx, one, nsteps, E,
+                                               TPUECM_MOD_ARGS, B, L, parow);
     });
 }
 

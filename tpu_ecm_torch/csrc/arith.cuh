@@ -1,5 +1,5 @@
-// Modular digit arithmetic for one curve per thread (the gather-form
-// replays K6-K8): the CUDA twin of tpu_ecm/limbs/pallas_ops.py:_make_arith
+// Modular digit arithmetic for one curve per thread (the resident-slab
+// replay K8): the CUDA twin of tpu_ecm/limbs/pallas_ops.py:_make_arith
 // (and of limbs/torch_ops.py, its plain version in this package).  Its
 // Mod, load_mod and mod_args_ok also serve the lane core arith_lanes.cuh.
 //
@@ -206,7 +206,7 @@ __device__ inline void fold_cols(int* out, const int* a, const int* b,
 }
 
 // Modular product (a*b/R or a*b mod 2^e - c) of pre-safe operands: every
-// caller (K6-K8) multiplies products and differences that took
+// caller (K8) multiplies products and differences that took
 // norm_inputs' pass, so no entry pass is taken here.
 __device__ inline void mulmod(int* out, const int* a, const int* b,
                               const Mod& m) {

@@ -76,20 +76,21 @@ __host__ __device__ inline int lanes_slot_words(int L, int D) {
     return L * D + 2 * L;
 }
 
-// Shared-memory words of one curve (its slots, then the columns sT of
+// Shared-memory words of one curve (its S slots, then the columns sT of
 // 2*L*D words for each of a step's TPUECM_PAIR products), padded so that a
 // curve's buffers start L banks after the previous curve's: the groups of
-// a warp then read distinct banks.
-__host__ __device__ inline int lanes_curve_words(int L, int D) {
-    const int words = TPUECM_SLOTS * lanes_slot_words(L, D)
-                      + TPUECM_PAIR * 2 * L * D;
+// a warp then read distinct banks.  S is TPUECM_SLOTS but for kernels that
+// hold more values (K6, K7: csrc/replay_gather.cu).
+__host__ __device__ inline int lanes_curve_words(int L, int D,
+                                                 int S = TPUECM_SLOTS) {
+    const int words = S * lanes_slot_words(L, D) + TPUECM_PAIR * 2 * L * D;
     return words + ((L - words % 32) % 32 + 32) % 32;
 }
 
-__host__ inline size_t lanes_smem_bytes(int L, int D) {
+__host__ inline size_t lanes_smem_bytes(int L, int D, int S = TPUECM_SLOTS) {
     return sizeof(int) * (size_t)(lanes_n_words(L, D)
                                   + (TPUECM_TAPE_BLOCK / L)
-                                        * lanes_curve_words(L, D));
+                                        * lanes_curve_words(L, D, S));
 }
 
 // The lanes per curve a launch accepts: a power of two from 4 to 32.
@@ -140,11 +141,11 @@ struct Group {
     __device__ __forceinline__ int* slot(int i) const { return V + i * SS; }
 };
 
-// Sets up the block's padded n and this lane's group, its buffers zeroed
-// (a slot's pads stay zero, and so do its digits at and above nw); call
-// with every thread of the block after load_mod (it ends in
-// __syncthreads).
-template <int D>
+// Sets up the block's padded n and this lane's group of S slots, its
+// buffers zeroed (a slot's pads stay zero, and so do its digits at and
+// above nw); call with every thread of the block after load_mod (it ends
+// in __syncthreads).
+template <int D, int S = TPUECM_SLOTS>
 __device__ __forceinline__ Group make_group(int* smem, int L, const Mod& m) {
     const int LD = L * D, nlen = L + 2 * LD;
     for (int i = threadIdx.x; i < nlen; i += blockDim.x)
@@ -155,10 +156,10 @@ __device__ __forceinline__ Group make_group(int* smem, int L, const Mod& m) {
     g.LD = LD;
     g.SS = lanes_slot_words(L, D);
     int* curve = smem + lanes_n_words(L, D)
-                 + (threadIdx.x / L) * lanes_curve_words(L, D);
-    for (int i = g.l; i < TPUECM_SLOTS * g.SS; i += L) curve[i] = 0;
+                 + (threadIdx.x / L) * lanes_curve_words(L, D, S);
+    for (int i = g.l; i < S * g.SS; i += L) curve[i] = 0;
     g.V = curve + L;
-    g.sT = curve + TPUECM_SLOTS * g.SS;
+    g.sT = curve + S * g.SS;
     g.nP = smem;
     g.c = m.c;
     g.nw = m.nw;
@@ -640,14 +641,14 @@ __device__ __forceinline__ void run_steps(const int* prog, int steps,
 #ifdef __CUDACC__
 // Launches an instantiation of a lane-core kernel over B curves at L lanes
 // a curve (TPUECM_TAPE_BLOCK / L curves a block) with lanes_smem_bytes(L,
-// D) of dynamic shared memory, which it allows first (above 48 KB a
+// D, S) of dynamic shared memory, which it allows first (above 48 KB a
 // block's must be); returns the refusal or cudaGetLastError().
-template <int D, typename... P, typename... A>
+template <int D, int S = TPUECM_SLOTS, typename... P, typename... A>
 __host__ inline int launch_lanes(void (*kernel)(P...), int L, int B,
                                  cudaStream_t stream, A... args) {
     const int per_block = TPUECM_TAPE_BLOCK / L;
     const int blocks = (B + per_block - 1) / per_block;
-    const size_t smem = lanes_smem_bytes(L, D);
+    const size_t smem = lanes_smem_bytes(L, D, S);
     const cudaError_t rc = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (rc != cudaSuccess) {
@@ -658,25 +659,27 @@ __host__ inline int launch_lanes(void (*kernel)(P...), int L, int B,
     return (int)cudaGetLastError();
 }
 
-// Resident blocks per SM of an instantiation of a lane-core kernel at L
-// lanes a curve; call after a launch of it, which allows its shared
-// memory.
-template <int D, typename... P>
+// Resident blocks per SM of an instantiation of a lane-core kernel of S
+// slots at L lanes a curve; call after a launch of it, which allows its
+// shared memory.
+template <int D, int S = TPUECM_SLOTS, typename... P>
 __host__ inline int lanes_occupancy(void (*kernel)(P...), int L,
                                     int* blocks_per_sm) {
     return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        blocks_per_sm, kernel, TPUECM_TAPE_BLOCK, lanes_smem_bytes(L, D));
+        blocks_per_sm, kernel, TPUECM_TAPE_BLOCK, lanes_smem_bytes(L, D, S));
 }
 
 // Defines extern "C" int name(int lanes, int digits, int* blocks_per_sm):
-// resident blocks per SM of kernel<digits> at `lanes` lanes a curve
-// (chip_smoke.py prints them beside the kernel's times).
-#define TPUECM_LANES_OCCUPANCY(name, kernel)                                 \
+// resident blocks per SM of kernel<digits> (S slots a curve) at `lanes`
+// lanes a curve (chip_smoke.py prints them beside the kernel's times).
+#define TPUECM_LANES_OCCUPANCY_SLOTS(name, kernel, S)                        \
     extern "C" int name(int lanes, int digits, int* blocks_per_sm) {         \
         if (!lanes_ok(lanes)) return (int)cudaErrorInvalidValue;             \
         return with_lane_digits(digits, [&](auto d) {                        \
             constexpr int D = decltype(d)::value;                            \
-            return lanes_occupancy<D>(kernel<D>, lanes, blocks_per_sm);      \
+            return lanes_occupancy<D, S>(kernel<D>, lanes, blocks_per_sm);   \
         });                                                                  \
     }
+#define TPUECM_LANES_OCCUPANCY(name, kernel)                                 \
+    TPUECM_LANES_OCCUPANCY_SLOTS(name, kernel, TPUECM_SLOTS)
 #endif

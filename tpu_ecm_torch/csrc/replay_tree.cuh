@@ -1,7 +1,9 @@
-// The pairwise tree of the gather-form replay kernels (K6, K7 in
-// replay_gather.cu, K8 in replay_resident.cu): the E differences of a step
-// multiply as ((d0 d1)(d2 d3))..., the Pallas kernels' tree
-// (pallas_ops.py:703-708, 807-810), before the root goes into acc once.
+// The pairwise tree of the one-thread gather-form replay, K8
+// (replay_resident.cu): the E differences of a step multiply as
+// ((d0 d1)(d2 d3))..., the Pallas kernels' tree (pallas_ops.py:703-708,
+// 807-810), before the root goes into acc once.  K6 and K7 on the lane
+// core (replay_gather.cu) walk the same tree in paired passes and take
+// step_args_ok from here.
 //
 // The tree is reduced with a stack of log2(E)+1 partial products: a new
 // difference is pushed, and while the two on top have equal height they

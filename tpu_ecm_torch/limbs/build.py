@@ -61,8 +61,12 @@ SIGNATURES = {
     "tpuecm_apply_inverse_occupancy": [_I, _I, _IP],
     "tpuecm_replay": [_P, _P, _P, _P, _P, *_MOD, _I, _I, _I, _P],
     "tpuecm_replay_occupancy": [_I, _I, _IP],
-    "tpuecm_replay_gather": [_P, _P, _P, _P, _P, _I, _I, *_MOD, _I, _P],
-    "tpuecm_replay_parow": [_P, _P, _P, _P, _P, _P, _I, _I, *_MOD, _I, _P],
+    "tpuecm_replay_gather": [_P, _P, _P, _P, _P, _I, _I, *_MOD, _I, _I, _I,
+                             _P],
+    "tpuecm_replay_gather_occupancy": [_I, _I, _IP],
+    "tpuecm_replay_parow": [_P, _P, _P, _P, _P, _P, _I, _I, *_MOD, _I, _I,
+                            _I, _P],
+    "tpuecm_replay_parow_occupancy": [_I, _I, _IP],
     "tpuecm_replay_resident": [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I,
                                *_MOD, _I, _P],
     "tpuecm_replay_resident_smem": [_IP, _IP],

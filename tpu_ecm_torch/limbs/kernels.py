@@ -2,9 +2,9 @@
 the registry of every kernel of the port (the RNS engine's six wrappers
 are in limbs/rns_kernels.py and count their launches here too).  The digit
 kernels take both reductions of csrc/arith.cuh from one build: REDC for a
-generic n, the fold for a special form 2^e - c (ctx.is_mersenne).  K1-K5
+generic n, the fold for a special form 2^e - c (ctx.is_mersenne).  K1-K7
 and K9 run on its lane twin csrc/arith_lanes.cuh, several lanes per curve
-(tape_geometry); K6-K8 one thread per curve.
+(tape_geometry); K8 one thread per curve.
 
 Each wrapper checks device, dtype, shape and contiguity, then routes on
 where its tensors lie: on the CPU it runs the kernel's plain PyTorch
@@ -89,9 +89,9 @@ launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 # tape entries per stage-1 kernel launch (K1, K9): keeps every launch
 # short
 TAPE_SLICE = 1 << 16
-# The geometry of the lane-core kernels K1-K5 and K9 (csrc/tape.cu,
-# csrc/chain.cu, csrc/batch_inverse.cu, csrc/replay.cu, csrc/ed_tape.cu on
-# csrc/arith_lanes.cuh):
+# The geometry of the lane-core kernels K1-K7 and K9 (csrc/tape.cu,
+# csrc/chain.cu, csrc/batch_inverse.cu, csrc/replay.cu,
+# csrc/replay_gather.cu, csrc/ed_tape.cu on csrc/arith_lanes.cuh):
 # a group of `lanes` threads works on one curve, each lane holding
 # `digits` digits of every operand in registers.  The lane counts they
 # take, the digit counts they are instantiated for (the dispatch of each),
@@ -201,15 +201,15 @@ def _done(name: str, rc: int) -> None:
 
 def tape_geometry(nw: int, b: int):
     """(lanes, digits, curves_per_block, blocks) of the lane-core kernels
-    (K1-K5, K9) at nw digits and B curves: the fewest lanes per curve
+    (K1-K7, K9) at nw digits and B curves: the fewest lanes per curve
     (TAPE_LANES) that hold nw digits at most TAPE_DIGITS[-1] digits a lane,
     digits = ceil(nw / lanes) (at least TAPE_DIGITS[0]), TAPE_BLOCK threads
     a block."""
     if not 2 <= nw <= build.NW_MAX:
-        raise ValueError(f"no lane-core (K1-K5, K9) instantiation "
+        raise ValueError(f"no lane-core (K1-K7, K9) instantiation "
                          f"covers nw={nw} (2 <= nw <= {build.NW_MAX})")
     if b < 1:
-        raise ValueError(f"lane core (K1-K5, K9): batch must be "
+        raise ValueError(f"lane core (K1-K7, K9): batch must be "
                          f">= 1, got {b}")
     for lanes in TAPE_LANES:
         digits = max(-(-nw // lanes), TAPE_DIGITS[0])
@@ -372,8 +372,9 @@ def replay_gather(acc: torch.Tensor, pa_ext: torch.Tensor, pbx: torch.Tensor,
                   idx: np.ndarray, ctx: DeviceCtx, *, e: int) -> torch.Tensor:
     """K6: acc * prod over the entries (pa, pb) of idx [T, 2] of
     (pa_ext[pa] - pbx[pb]), in steps of e entries whose differences
-    multiply in a pairwise tree before acc (T a multiple of e).  Returns a
-    new [NW, B] plane, digit for digit the plain version's."""
+    multiply in a pairwise tree before acc (T a multiple of e), at
+    tape_geometry's lanes and digits per curve.  Returns a new [NW, B]
+    plane, digit for digit the plain version's."""
     nw, b = ctx.p.nw, int(acc.shape[-1])
     pa_rows, pb_rows = int(pa_ext.shape[0]), int(pbx.shape[0])
     _check("replay_gather", "acc", acc, (nw, b), ctx)
@@ -382,11 +383,13 @@ def replay_gather(acc: torch.Tensor, pa_ext: torch.Tensor, pbx: torch.Tensor,
     idx = check_pairs("replay_gather", idx, e, pa_rows, pb_rows)
     if _on_cpu("replay_gather", ctx):
         return replay_gather_plain(acc, pa_ext, pbx, idx, e, ctx)
+    lanes, digits, _per_block, _blocks = tape_geometry(nw, b)
     out = torch.empty_like(acc)
     dev = torch.from_numpy(idx).to(acc.device)
     _done("replay_gather", build.library().tpuecm_replay_gather(
         acc.data_ptr(), out.data_ptr(), pa_ext.data_ptr(), pbx.data_ptr(),
-        dev.data_ptr(), idx.shape[0] // e, e, *_mod(ctx), b, _stream()))
+        dev.data_ptr(), idx.shape[0] // e, e, *_mod(ctx), b, lanes, digits,
+        _stream()))
     return out
 
 
@@ -395,8 +398,9 @@ def replay_parow(acc: torch.Tensor, pa_ext: torch.Tensor, pbx: torch.Tensor,
                  ) -> torch.Tensor:
     """K7: acc * prod over the steps [S, 1 + E] rows [pa, pb_0..pb_{E-1}]
     of the tree product of the E values (pa_ext[pa] - pbx[pb_k]), where
-    pb_k == 0 stands for `one` (a pad).  Returns a new [NW, B] plane, digit
-    for digit the plain version's."""
+    pb_k == 0 stands for `one` (a pad), at tape_geometry's lanes and digits
+    per curve.  Returns a new [NW, B] plane, digit for digit the plain
+    version's."""
     nw, b = ctx.p.nw, int(acc.shape[-1])
     pa_rows, pb_rows = int(pa_ext.shape[0]), int(pbx.shape[0])
     _check("replay_parow", "acc", acc, (nw, b), ctx)
@@ -415,12 +419,13 @@ def replay_parow(acc: torch.Tensor, pa_ext: torch.Tensor, pbx: torch.Tensor,
         raise ValueError("replay_parow: step row outside pa_ext / pbx")
     if _on_cpu("replay_parow", ctx):
         return replay_parow_plain(acc, pa_ext, pbx, steps, one, ctx)
+    lanes, digits, _per_block, _blocks = tape_geometry(nw, b)
     out = torch.empty_like(acc)
     dev = torch.from_numpy(steps).to(acc.device)
     _done("replay_parow", build.library().tpuecm_replay_parow(
         acc.data_ptr(), out.data_ptr(), pa_ext.data_ptr(), pbx.data_ptr(),
         dev.data_ptr(), one.data_ptr(), steps.shape[0], e, *_mod(ctx), b,
-        _stream()))
+        lanes, digits, _stream()))
     return out
 
 

@@ -32,25 +32,21 @@ result and its seconds; any failure raises and exits non-zero.
               curves; digits equal for K1-K9 (K5's
               plain version at these depths runs in blocks of
               kernels.PLAIN_REPLAY_BLOCK entries, a multiple of 4, so its
-              quadruples are the kernel's); K8's slabs, slab height, shared
-              memory, ptxas report and ms per live entry beside K6's (on
-              the lane core; K8 one thread a curve) at both main-path
-              depths, K6 on K8's own entries (digits equal to K8's), and
-              at M1277 K8 with 6-row slabs without and with
-              a 50% shared-carveout preference (_resident_probe);
+              quadruples are the kernel's); K6 on K8's own entries
+              (digits equal to K8's, its ms per live entry in K8's line);
               RNS K10-K15 at N256/B=128 on short stacks and at the
               2397-bit row-21 geometry (K=200, 401 residue rows)/B=1024
               (a 256-op tape over three launches, the Pa group the memory
               rule picks, the rns job's 963-row Pb table and first replay
               calls); residues equal, every one;
-              the lane-core kernels' (K1-K7's and K9's) lines at both
-              main-path depths give their geometry (lanes a curve, digits
-              a lane, curves a block, blocks, resident and launched warps
-              per SM), their instantiation's ptxas report (registers,
-              stack frame, spills) and their share of the bound, K5's,
-              K6's and K7's also their ms per live entry, and K2's-K7's
-              and K9's their ms beside the one-thread kernel's
-              (_lanes_line);
+              the lane-core kernels' (K1-K9's) lines at both main-path
+              depths give their geometry (lanes a curve, digits a lane,
+              curves a block, blocks, resident and launched warps per SM),
+              their instantiation's ptxas report (registers, stack frame,
+              spills) and their share of the bound, K5's-K8's also their
+              ms per live entry, K8's its slabs, slab height and shared
+              memory a block, and K2's-K9's their ms beside the
+              one-thread kernel's (_lanes_line);
               K10's line (_k10_line) gives its tile, threads, blocks,
               shared memory a block, whether its weights are resident,
               its ptxas report, its share of the bound and its ms beside
@@ -171,12 +167,6 @@ SHORT = dict(tape_ops=256, tape_slice=None, rows=64, pb_rows=97,
              entries=256, ed_ops=64, cap=8)
 RNS_SHORT = dict(tape_ops=32, tape_slice=None, rows=16, pb_rows=29,
                  entries=64)
-# K8's slab height in phase 2's probe at M1277: 7 rows of 15,104 bytes
-# (106 KB) against the 14 rows (226 KB) the card allows; with half of the
-# SM's 228 KB shared carveout preferred, the driver's next capacity up
-# (132 KB) leaves ~124 KB of the 256 KB array to L1
-PROBE_SLAB_ROWS = 6
-PROBE_CARVEOUT = 50
 # curves the plain versions run on at M1277's main-path depths (curves are
 # independent: the kernel's first PLAIN_CURVES columns are compared)
 PLAIN_CURVES = 128
@@ -214,6 +204,8 @@ LANE_KERNELS = {
                       "tpuecm_replay_gather_occupancy"),
     "replay_parow": ("K7", "replay_parow_lanes_kernel",
                      "tpuecm_replay_parow_occupancy"),
+    "replay_resident": ("K8", "replay_resident_lanes_kernel",
+                        "tpuecm_replay_resident_occupancy"),
     "ed_tape": ("K9", "ed_tape_lanes_kernel", "tpuecm_ed_tape_occupancy"),
 }
 # K5 on the one-thread core (csrc/arith.cuh) before it moved to the lane
@@ -230,6 +222,12 @@ K6_ONE_THREAD = {"flagship": (2919.128, 0.04454),
                  "M1277": (11343.829, 0.22874)}
 K7_ONE_THREAD = {"flagship": (2856.605, 0.04672),
                  "M1277": (11886.074, 0.23968)}
+# K8 on the one-thread core (32 curves a block, slabs of 49 and 14 rows)
+# before it moved to the lane core, on this smoke's first resident call at
+# each main-path depth: ms per call and per live entry (PERF.md section 6,
+# NVIDIA H100 80GB HBM3, 700 W)
+K8_ONE_THREAD = {"flagship": (2881.121, 0.04397),
+                 "M1277": (28962.963, 0.58402)}
 # K9 on the one-thread core before it moved to the lane core: ms per
 # 256-op Edwards tape over three launches at each main-path depth (the
 # flagship's from this smoke's phase 2, M1277's from tools/ed_tape_time.py;
@@ -540,16 +538,13 @@ def _kernel_cases(rng, ctx, b, depth=SHORT, plain_b=None, same=None):
     call: the replay kernels read depth["calls"] (the main path's first
     replay call) or, without it, random entries.  A dict `same` gets
     same["replay_resident"]: K6 on K8's call, its entries mapped back to
-    pbx rows (pads to the zero row 0), which gives K8's digits; and
-    same["resident_at"](cap): K8 on the call's live entries cut into
-    slabs of cap rows, in one launch."""
+    pbx rows (pads to the zero row 0), which gives K8's digits."""
     import numpy as np
     import torch
     from tpu_ecm_torch.curve import edops, edwards, ops, prac
     from tpu_ecm_torch.limbs import kernels, layout
     from tpu_ecm_torch.limbs.torch_ops import device_ctx
     from tpu_ecm_torch.primes import primes_range
-    from tpu_ecm_torch.stage2 import exec as s2
     d = device_ctx(ctx, "cuda")
     nw = ctx.p.nw
     rows, entries, pb_rows = depth["rows"], depth["entries"], depth["pb_rows"]
@@ -658,16 +653,6 @@ def _kernel_cases(rng, ctx, b, depth=SHORT, plain_b=None, same=None):
                            kernels.pbx_rows(res.entries, res.slabs, e)], 1)
         same["replay_resident"] = lambda: kernels.replay_gather(
             k["acc"], k["pa_ext"], k["pbx"], on_pbx, d, e=e)
-        live = on_pbx[res.entries[:, 1] > 0].astype(np.int32)
-
-        def resident_at(cap):
-            call = next(s2.replay_calls("resident", live,
-                                        e * (live.shape[0] + pb_rows), rows,
-                                        cap))[0]
-            return kernels.replay_resident(k["acc"], k["pa_ext"], k["pbx"],
-                                           call.entries, call.slabs, cap, d,
-                                           e=e)
-        same["resident_at"] = resident_at
     if etape is not None:
         cases["ed_tape"] = (
             lambda: _sliced_tape(kernels, kernels.ed_tape, k["eacc"], etape,
@@ -942,57 +927,6 @@ def _graphed_products():
         graphs.clear()
 
 
-def _resident_line(label, record, depth, nw, k6_same: float) -> str:
-    """K8's first call at a main-path depth (one thread per curve) beside
-    K6 (on the lane core) on the same entries (k6_same ms per live entry)
-    and on its own first call: K8's slabs, slab height, dynamic shared
-    memory per block, ms per live entry, and what ptxas reported for it
-    (registers, stack frame)."""
-    from tpu_ecm_torch.limbs import kernels
-    call = depth["calls"]["resident"]
-    r8, r6 = record["replay_resident"], record["replay_gather"]
-    if label == "M1277":
-        r8, r6 = r8["fold"], r6["fold"]
-    slabs = int(len(set(call.slabs[:, 0].tolist())))
-    r8.update(cap=call.cap, slabs=slabs,
-              smem_bytes=kernels.slab_bytes(call.cap, nw),
-              k6_ms_per_entry_same=k6_same)
-    return (f"K8 (one thread a curve) at {label}: {r8['entries']} live "
-            f"entries in {r8['slots']} slots, {slabs} slabs of cap="
-            f"{call.cap} rows, {r8['smem_bytes']} bytes of dynamic shared "
-            f"memory per block; {r8['ms_per_entry']:.5f} ms per live entry "
-            f"(lane-core K6 on the same entries {k6_same:.5f}, on its own "
-            f"first call {r6['ms_per_entry']:.5f}); ptxas: "
-            + "; ".join(_ptxas_lines("replay_resident_kernel")))
-
-
-def _resident_probe(record, resident_at, nw) -> str:
-    """K8 at M1277 on its first call's live entries with slabs of
-    PROBE_SLAB_ROWS rows, under the driver's own split of the SM's
-    L1/shared array and then with PROBE_CARVEOUT percent of it preferred
-    as shared memory, which leaves the rest to L1, where the fold's local
-    memory lives (the preference is reset afterwards)."""
-    from tpu_ecm_torch.limbs import build, kernels
-    r = record["replay_resident"]["fold"]
-    lib = build.library()
-    probe = dict(cap=PROBE_SLAB_ROWS, carveout=PROBE_CARVEOUT,
-                 smem_bytes=kernels.slab_bytes(PROBE_SLAB_ROWS, nw))
-    for key, pct in (("ms_per_entry", -1),
-                     ("ms_per_entry_carveout", PROBE_CARVEOUT)):
-        if lib.tpuecm_replay_resident_carveout(pct) != 0:
-            raise RuntimeError(f"K8: carveout {pct} refused")
-        ms = _timed(lambda: resident_at(PROBE_SLAB_ROWS), 1)[1]
-        probe[key] = ms / r["entries"]
-    if lib.tpuecm_replay_resident_carveout(-1) != 0:
-        raise RuntimeError("K8: carveout reset refused")
-    r["probe"] = probe
-    return (f"K8 at M1277 with slabs of {PROBE_SLAB_ROWS} rows "
-            f"({probe['smem_bytes']} bytes of shared memory per block): "
-            f"{probe['ms_per_entry']:.5f} ms per live entry, "
-            f"{probe['ms_per_entry_carveout']:.5f} with {PROBE_CARVEOUT}% "
-            f"of the L1/shared array preferred as shared memory")
-
-
 def _ptxas_lines(kernel: str) -> list:
     """What nvcc -Xptxas -v reported for one kernel (its stack frame,
     spills, registers and static shared memory), from the build log."""
@@ -1042,20 +976,22 @@ def _lanes_ptxas(kernel: str) -> dict:
 
 
 def _lanes_line(name, label, r, nw, b, rows) -> str:
-    """A lane-core kernel's (K1-K7's, K9's) geometry at nw digits and B
-    curves (lanes a curve, curves a block, blocks, resident warps per SM
-    the card allows and warps per SM the launch gives), its
-    instantiation's ptxas report and its share of the bound, added to its
-    record r; K5's, K6's and K7's lines also give their ms per live entry,
-    and K2's, K3's and K4's (on `rows` rows) and K9's their ms, beside the
-    one-thread kernel's."""
+    """A lane-core kernel's (K1-K9's) geometry at nw digits and B curves
+    (lanes a curve, curves a block, blocks, resident warps per SM the card
+    allows, K8's at its slab of r["cap"] rows, and warps per SM the launch
+    gives), its instantiation's ptxas report and its share of the bound,
+    added to its record r; K5's-K8's lines also give their ms per live
+    entry, and K2's, K3's and K4's (on `rows` rows) and K9's their ms,
+    beside the one-thread kernel's; K8's its slabs, slab height, shared
+    memory a block and K6's ms per live entry on its entries."""
     import ctypes
     import torch
     from tpu_ecm_torch.limbs import build, kernels
     k, kernel, occupancy = LANE_KERNELS[name]
     lanes, digits, per_block, blocks = kernels.tape_geometry(nw, b)
     per_sm = ctypes.c_int()
-    if getattr(build.library(), occupancy)(lanes, digits,
+    slab = (r["cap"],) if name == "replay_resident" else ()
+    if getattr(build.library(), occupancy)(lanes, digits, *slab,
                                            ctypes.byref(per_sm)) != 0:
         raise RuntimeError(f"{k}: occupancy query refused")
     warps = kernels.TAPE_BLOCK // 32
@@ -1076,13 +1012,20 @@ def _lanes_line(name, label, r, nw, b, rows) -> str:
             f"{x.get('spill_store_bytes')}/{x.get('spill_load_bytes')} "
             f"bytes spill stores/loads; {r['ms']:.3f} ms against the bound "
             f"{r['bound_ms']:.4f}: {100 * r['share_of_bound']:.2f}% of it")
-    if name in ("replay", "replay_gather", "replay_parow"):
+    if name in ("replay", "replay_gather", "replay_parow",
+                "replay_resident"):
         old_ms, old_per = {"replay": K5_ONE_THREAD,
                            "replay_gather": K6_ONE_THREAD,
-                           "replay_parow": K7_ONE_THREAD}[name][label]
+                           "replay_parow": K7_ONE_THREAD,
+                           "replay_resident": K8_ONE_THREAD}[name][label]
         line += (f"; {r['entries']} live entries, {r['ms_per_entry']:.6f} ms "
                  f"per live entry (the one-thread kernel: {old_per:.5f} on "
                  f"the same call, {old_ms:.3f} ms; {old_ms / r['ms']:.2f}x)")
+    if name == "replay_resident":
+        line += (f"; {r['slots']} slots in {r['slabs']} slabs of "
+                 f"{r['cap']} rows, {r['smem_bytes']} bytes of shared "
+                 f"memory a block; lane-core K6 on the same entries "
+                 f"{r['k6_ms_per_entry_same']:.6f} ms per live entry")
     if name == "ed_tape":
         old_ms = K9_ONE_THREAD[label]
         line += (f"; the one-thread kernel: {old_ms:.3f} ms on a 256-op "
@@ -1198,7 +1141,8 @@ def phase_kernels(record):
                               ("M1277", M1277, (1277, 1), 2048)):
         ctx = _make_ctx(n, mers)
         nw = ctx.p.nw
-        cap = kernels.resident_slab_rows(nw, "cuda")
+        smem = kernels.resident_smem(nw, "cuda")
+        cap = kernels.resident_slab_rows(nw, b, "cuda")
         depth, plain_b = {
             "flagship": (main_path_depth(nw, nw, b, FLAGSHIP, ed_ops=256,
                                          cap=cap), None),
@@ -1234,17 +1178,18 @@ def phase_kernels(record):
                     _record(ms, plain_ms, bound, err, slots.get(name)),
                     plain_curves=plain_b, depth=shown)
         if label in ("flagship", "M1277"):
+            call = depth["calls"]["resident"]
+            r8 = record["replay_resident"]
+            r8 = r8 if label == "flagship" else r8["fold"]
+            r8.update(cap=call.cap,
+                      slabs=int(np.unique(call.slabs[:, 0]).size),
+                      smem_bytes=smem.static + smem.block_bytes(call.cap),
+                      k6_ms_per_entry_same=same["replay_resident"])
             for name in LANE_KERNELS:
                 r = record[name] if label == "flagship" else \
                     record[name]["fold"]
                 print("  " + _lanes_line(name, label, r, nw, b,
                                          depth["rows"]), flush=True)
-            print("  " + _resident_line(label, record, depth, nw,
-                                        same["replay_resident"]),
-                  flush=True)
-        if label == "M1277":
-            print("  " + _resident_probe(record, same["resident_at"], nw),
-                  flush=True)
         del cases
         torch.cuda.empty_cache()
     from tpu_ecm_torch.limbs import rns

@@ -3,8 +3,9 @@ versions of K1-K5, held against the JAX package: the stage-1 tape
 bit-identical to jax.jit(ops.run_tape) (M61) and to the Pallas tape kernel
 in interpret mode (M89), chain / prefix / apply-inverse bit-identical to
 the Pallas executors, the replay equal mod M, and the port's Stage2Runner
-equal to the JAX runner.  The CUDA kernels take the same fold from csrc/arith.cuh;
-tests/test_torch_gpu.py holds them to these plain versions on the card."""
+equal to the JAX runner.  The CUDA kernels take the same fold from
+csrc/arith_lanes.cuh; tests/test_torch_gpu.py holds them to these plain
+versions on the card."""
 
 import numpy as np
 import pytest

@@ -1,7 +1,7 @@
 """Tests that need an NVIDIA GPU (marker `cuda`; they skip without one):
 the fifteen CUDA kernels against their plain PyTorch versions (the digit
-kernels in REDC and fold modes; K1-K7 and K9 also at ragged batches
-and at every instantiation's edge nw, and a refused launch, K6 and K7
+kernels in REDC and fold modes; K1-K9 also at ragged batches
+and at every instantiation's edge nw, and a refused launch, K6-K8
 their ptxas reports; K10-K14 at
 ragged batches, at their K edges, a refused launch and their ptxas
 reports, K11 also at counts 1, 2 and G - 1, K12 and K13 at counts 1, 2
@@ -256,6 +256,31 @@ def test_replay_refused_launch_raises(cuda, monkeypatch):
     assert kernels.launches["replay"] == 0
 
 
+# the Pa group and Pb table rows of the gather-form replays' card tests
+REPLAY_ROWS, REPLAY_PB_ROWS = 11, 13
+
+
+def _replay_tables(ctx, b: int, seed: int):
+    """(card ctx, rng, acc, pa_ext, pbx, one) of a gather-form replay on
+    the card: random reduced planes over a REPLAY_ROWS-row Pa group with
+    the one row after it and REPLAY_PB_ROWS Pb rows, row 0 zero."""
+    import numpy as np
+
+    import chip_smoke
+    from tpu_ecm_torch.limbs import layout, torch_ops
+    d = torch_ops.device_ctx(ctx, "cuda")
+    rng = np.random.default_rng(seed)
+    nw = ctx.p.nw
+    r = lambda *shape: chip_smoke._rand_planes(rng, ctx, shape + (nw, b))
+    one = torch.from_numpy(layout.broadcast_int(ctx.r_mod_n, ctx.p.w, nw,
+                                                b)).cuda()
+    acc = r()
+    pa_ext = torch.cat([r(REPLAY_ROWS), one[None]])
+    pbx = r(REPLAY_PB_ROWS)
+    pbx[0] = 0
+    return d, rng, acc, pa_ext, pbx, one
+
+
 def _k6k7_against_plain(ctx, b: int, entries: int, seed: int):
     """K6 and K7 on the gather and parow calls of a random replay block
     (chip_smoke._random_calls: v-sorted live entries over an 11-row Pa
@@ -263,20 +288,12 @@ def _k6k7_against_plain(ctx, b: int, entries: int, seed: int):
     K7's short steps holding pads pb = 0) against
     kernels.replay_gather_plain and replay_parow_plain on the same card
     tensors, digit for digit, one launch each."""
-    import numpy as np
-
     import chip_smoke
-    from tpu_ecm_torch.limbs import kernels, layout, torch_ops
+    from tpu_ecm_torch.limbs import kernels
     from tpu_ecm_torch.stage2 import exec as s2
-    d = torch_ops.device_ctx(ctx, "cuda")
-    rng = np.random.default_rng(seed)
-    nw, rows, pb_rows, e = ctx.p.nw, 11, 13, s2.REPLAY_E
-    r = lambda *shape: chip_smoke._rand_planes(rng, ctx, shape + (nw, b))
-    one = torch.from_numpy(layout.broadcast_int(ctx.r_mod_n, ctx.p.w, nw,
-                                                b)).cuda()
-    acc, pa_ext, pbx = r(), torch.cat([r(rows), one[None]]), r(pb_rows)
-    pbx[0] = 0
-    calls = chip_smoke._random_calls(rng, rows, pb_rows, entries)
+    d, rng, acc, pa_ext, pbx, one = _replay_tables(ctx, b, seed)
+    rows, e = REPLAY_ROWS, s2.REPLAY_E
+    calls = chip_smoke._random_calls(rng, rows, REPLAY_PB_ROWS, entries)
     pairs, steps = calls["gather"], calls["parow"]
     assert (steps[:, 1:] == 0).any() and (pairs[-5:] == [rows, 0]).all()
     want6 = kernels.replay_gather_plain(acc, pa_ext, pbx, pairs, e, d)
@@ -1065,12 +1082,12 @@ def test_replay_modes_on_card(cuda, tmp_path, engine, mode):
 
 
 def test_resident_refused_launch_raises(cuda):
-    """K8's slab is sized from the card (opt-in shared memory per block
-    less the kernel's static shared memory): a slab one row taller is
-    refused by the wrapper, and by the C entry point, whose error does not
-    leak into the next launch, which runs and equals the plain version."""
-    import ctypes
-
+    """K8's tallest slab is sized from the card (opt-in shared memory per
+    block less the kernel's static shared memory and its slots, in rows of
+    the block's curves at tape_geometry's lanes and digits), and one block
+    of B = 64 takes it: a slab one row taller is refused by the wrapper,
+    and by the C entry point, whose error does not leak into the next
+    launch, which runs and equals the plain version."""
     import numpy as np
 
     import chip_smoke
@@ -1079,12 +1096,13 @@ def test_resident_refused_launch_raises(cuda):
     ctx = params.make_monty(chip_smoke.N71)
     d = torch_ops.device_ctx(ctx, "cuda")
     nw, b = ctx.p.nw, 64
-    cap = kernels.resident_slab_rows(nw, cuda)
-    st, optin = ctypes.c_int(), ctypes.c_int()
-    assert build.library().tpuecm_replay_resident_smem(
-        ctypes.byref(st), ctypes.byref(optin)) == 0
-    assert kernels.slab_bytes(cap, nw) <= optin.value - st.value \
-        < kernels.slab_bytes(cap + 1, nw)
+    lanes, digits, _per_block, _blocks = kernels.tape_geometry(nw, b)
+    sm = kernels.resident_smem(nw, cuda)
+    cap = sm.max_rows
+    assert kernels.resident_slab_rows(nw, b, cuda) == cap
+    assert sm.row == 4 * kernels.TAPE_BLOCK * digits
+    assert sm.static + sm.block_bytes(cap) <= sm.optin \
+        < sm.static + sm.block_bytes(cap + 1)
     rng = np.random.default_rng(5)
     r = lambda *shape: chip_smoke._rand_planes(rng, ctx, shape + (nw, b))
     acc, pa, pbx = r(), r(3), r(cap + 2)
@@ -1098,7 +1116,7 @@ def test_resident_refused_launch_raises(cuda):
     rc = build.library().tpuecm_replay_resident(
         acc.data_ptr(), out.data_ptr(), pa.data_ptr(), pbx.data_ptr(),
         cap + 2, dev.data_ptr(), dsl.data_ptr(), 1, cap + 1, 4,
-        *kernels._mod(d), b, kernels._stream())
+        *kernels._mod(d), b, lanes, digits, kernels._stream())
     assert rc != 0
     kernels.reset_launches()
     got = kernels.replay_resident(acc, pa, pbx, ent, slabs, cap, d, e=4)
@@ -1106,6 +1124,114 @@ def test_resident_refused_launch_raises(cuda):
     want = kernels.replay_resident_plain(acc, pa, pbx, ent, slabs, cap, 4,
                                          d)
     assert torch.equal(got, want) and kernels.launches["replay_resident"] == 1
+
+
+@pytest.mark.parametrize("modulus,b,per_sm", [("N416", 2048, 1),
+                                               ("M1277", 2048, 2),
+                                               ("N416", 4224, 2),
+                                               ("M1277", 4224, 2)])
+def test_resident_slab_rows_rule(cuda, modulus, b, per_sm):
+    """K8's default slab height is the tallest at which an SM holds the
+    blocks that put the whole launch on the card at once: one block an SM
+    at the flagship's 128 blocks (the tallest slab), two at M1277's 256
+    and at B = 4224 (M1277's 528 blocks would need four, which no slab
+    allows beside the slots)."""
+    import chip_smoke
+    from tpu_ecm_torch import params
+    from tpu_ecm_torch.limbs import kernels
+    mers = (1277, 1) if modulus == "M1277" else None
+    nw = params.make_monty(getattr(chip_smoke, modulus), mersenne=mers).p.nw
+    cap = kernels.resident_slab_rows(nw, b, cuda)
+    assert kernels.resident_blocks_per_sm(nw, cap, cuda) == per_sm
+    if per_sm == 1:
+        assert cap == kernels.resident_smem(nw, cuda).max_rows
+    else:
+        assert kernels.resident_blocks_per_sm(nw, cap + 1, cuda) < per_sm
+    assert kernels.resident_blocks_per_sm(nw, 1, cuda) < 4
+
+
+def test_resident_bad_geometry_refused(cuda, monkeypatch):
+    """A geometry that no instantiation of K8 takes (9 digits a lane) is
+    refused by the C entry points, the wrapper raises, and no launch is
+    counted."""
+    import numpy as np
+
+    import chip_smoke
+    from tpu_ecm_torch import params
+    from tpu_ecm_torch.limbs import kernels, torch_ops
+    ctx = params.make_monty(chip_smoke.N416)
+    d = torch_ops.device_ctx(ctx, "cuda")
+    acc = torch.zeros((ctx.p.nw, 32), dtype=torch.int32, device=cuda)
+    tab = torch.zeros((2, ctx.p.nw, 32), dtype=torch.int32, device=cuda)
+    monkeypatch.setattr(kernels, "tape_geometry",
+                        lambda nw, b: (4, 9, 32, 1))
+    kernels.reset_launches()
+    with pytest.raises(RuntimeError, match="failed"):
+        kernels.replay_resident(acc, tab, tab, np.ones((16, 2), np.int32),
+                                np.asarray([[0, 0, 1]], np.int32), 1, d,
+                                e=16)
+    assert kernels.launches["replay_resident"] == 0
+
+
+def _k8_against_plain(ctx, b: int, entries: int, seed: int, cap: int = 4):
+    """K8 on the resident call of a random replay block
+    (chip_smoke._random_calls with slabs of cap rows: v-sorted live entries
+    over an 11-row Pa group and 13 Pb rows in 16-entry steps, four slabs,
+    the last one row, each slab's part padded with (G, 0)) against
+    kernels.replay_resident_plain on the same card tensors, digit for
+    digit, one launch."""
+    import chip_smoke
+    from tpu_ecm_torch.limbs import kernels
+    from tpu_ecm_torch.stage2 import exec as s2
+    d, rng, acc, pa_ext, pbx, _one = _replay_tables(ctx, b, seed)
+    e = s2.REPLAY_E
+    res = chip_smoke._random_calls(rng, REPLAY_ROWS, REPLAY_PB_ROWS, entries,
+                                   cap)["resident"]
+    assert res.slabs.shape[0] > 1 and (res.entries[:, 1] == 0).any()
+    want = kernels.replay_resident_plain(acc, pa_ext, pbx, res.entries,
+                                         res.slabs, cap, e, d)
+    kernels.reset_launches()
+    got = kernels.replay_resident(acc, pa_ext, pbx, res.entries, res.slabs,
+                                  cap, d, e=e)
+    torch.cuda.synchronize()
+    assert kernels.launches["replay_resident"] == 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("fold", [False, True], ids=["redc", "fold"])
+@pytest.mark.parametrize("b", [1, 33, 100])
+def test_resident_ragged_batches(cuda, fold, b):
+    """K8 at batches that leave the last block part empty (B = 1, 33, 100),
+    at the flagship's N416 (REDC, 8 lanes a curve) and at M1277 (the fold,
+    16 lanes), against its plain version digit for digit."""
+    import chip_smoke
+    from tpu_ecm_torch import params
+    ctx = (params.make_monty(chip_smoke.M1277, mersenne=(1277, 1)) if fold
+           else params.make_monty(chip_smoke.N416))
+    _k8_against_plain(ctx, b, 96, b)
+
+
+@pytest.mark.parametrize("nw,fold", [
+    (nw, fold) for nw in TAPE_EDGE_NW for fold in (False, True)
+    if nw > 2 or not fold])
+def test_resident_nw_edges(cuda, nw, fold):
+    """K8 at the edges of its instantiations (limbs/kernels.py:
+    tape_geometry, shared with K1) in both modes, at B = 5, against its
+    plain version."""
+    _k8_against_plain(_ctx_at_nw(nw, fold), 5, 48 + 16 * (nw % 2), nw)
+
+
+def test_resident_ptxas_no_stack_or_spills(cuda):
+    """nvcc -Xptxas -v reports no stack frame and no spills for K8 at
+    every digit count D = 2..8."""
+    import chip_smoke
+    from tpu_ecm_torch.limbs import build, kernels
+    build.library()
+    report = chip_smoke._lanes_ptxas("replay_resident_lanes_kernel")
+    assert set(report) == set(kernels.TAPE_DIGITS), report
+    for digits, x in report.items():
+        assert (x["stack_bytes"], x["spill_store_bytes"],
+                x["spill_load_bytes"]) == (0, 0, 0), (digits, x)
 
 
 def test_wrappers_reject_mixed_devices(cuda):

@@ -1,7 +1,8 @@
 """Run the lane core of tpu_ecm_torch/csrc/arith_lanes.cuh (K1's
 arithmetic) and the kernel bodies of K2 (csrc/chain.cu), K3 and K4
 (csrc/batch_inverse.cu), K5 (csrc/replay.cu), K6 and K7
-(csrc/replay_gather.cu) and K9 (csrc/ed_tape.cu), and
+(csrc/replay_gather.cu), K8 (csrc/replay_resident.cu) and K9
+(csrc/ed_tape.cu), and
 K10's, K11's, K12's, K13's and K14's (csrc/rns_tape.cu, csrc/rns_chain.cu,
 csrc/rns_batch_inverse.cu, csrc/rns_replay_gather.cu, on the tensor-core
 core csrc/rns_mma.cuh), on the CPU and hold them against their plain
@@ -13,13 +14,14 @@ per-warp buffer between barriers (see its header).  lanes_check.cpp's
 entry points run a product step per curve (a*b, a*a, or a*b written over
 a's slot, each paired with b*b) and the DUP and ADD programs,
 lanes_replay runs K5 on one call, lanes_replay_gather K6 or K7 on one
-call, lanes_ed_tape K9 on one Edwards tape,
+call, lanes_replay_resident K8 on one call, lanes_ed_tape K9 on one
+Edwards tape,
 lanes_chain K2 on one chain, lanes_prefix K3 and lanes_apply_inverse K4
 on one stack; they are compared digit for digit with limbs/torch_ops.mulmod /
 sqrmod, curve/ops.xdbl / xadd, limbs/kernels.replay_plain,
-replay_gather_plain, replay_parow_plain,
+replay_gather_plain, replay_parow_plain, replay_resident_plain,
 curve/edops.run_tape, limbs/kernels.chain_plain, prefix_plain and
-apply_inverse_plain on CPU tensors.  K3's-K7's cp.async copies
+apply_inverse_plain on CPU tensors.  K3's-K8's cp.async copies
 land at once and, in a second run, at their wait
 (cuda_pipeline_primitives.h).  K10's to K14's bodies are built apart
 (rns_check.cpp, with mma.h standing in for nvcuda::wmma) and held residue
@@ -72,7 +74,8 @@ SOURCES = (os.path.join(HERE, "cuda_runtime.h"),
            os.path.join(build.CSRC, "arith_lanes.cuh"),
            os.path.join(build.CSRC, "replay.cu"),
            os.path.join(build.CSRC, "replay_gather.cu"),
-           os.path.join(build.CSRC, "replay_tree.cuh"),
+           os.path.join(build.CSRC, "replay_passes.cuh"),
+           os.path.join(build.CSRC, "replay_resident.cu"),
            os.path.join(build.CSRC, "ed_tape.cu"),
            os.path.join(build.CSRC, "chain.cu"),
            os.path.join(build.CSRC, "batch_inverse.cu"))
@@ -162,6 +165,10 @@ def load(path: str) -> ctypes.CDLL:
     lib.lanes_replay_gather.argtypes = [P, P, P, P, P, P, I, I, P, P, I, I,
                                         I, I, I, I, I, I, I, I, I, I]
     lib.lanes_replay_gather.restype = I
+    lib.lanes_replay_resident.argtypes = [P, P, P, P, I, P, P, I, I, I, P,
+                                          P, I, I, I, I, I, I, I, I, I, I,
+                                          I]
+    lib.lanes_replay_resident.restype = I
     return lib
 
 
@@ -769,6 +776,100 @@ GATHER_CASES = ((256, 9, 16, 3), (256, 12, 2, 3), (256, 9, 1, 5),
                 (2397, 9, 16, 2), (2700, 3, 16, 2))
 
 
+def resident_lanes_call(ctx, b: int, e: int, steps: int, cap: int = 4,
+                        seed: int = 0, sort: bool = True,
+                        wide: bool = False):
+    """A K8 call's inputs on CPU tensors: gather_lanes_call's acc, pa_ext
+    (G = 5 rows and the pad row G, the moved `one`) and its reduced or
+    wide values, a Pb table of 2*cap + max(cap // 2, 1) rows (row 0 zero),
+    so three slabs of cap rows, the last short (past cap = 1), and the
+    call's entries [T, 2]
+    (pa, slab row u) and segments [3, 3] (lo, first step, steps): `steps`
+    steps of e entries over each slab, u random in 1..rows of its slab,
+    pa in v-sorted runs that change inside steps ((i+1)*G // (live+1)) or
+    random when not `sort`, the last three live entries pads (G, 0) and a
+    whole pad step ending the last segment."""
+    d, acc, pa_ext, pbx, one, _pairs, _st = gather_lanes_call(
+        ctx, b, e, 1, seed, sort, wide)
+    rng = np.random.default_rng(seed + 1)
+    g, pb_rows = pa_ext.shape[0] - 1, 2 * cap + max(cap // 2, 1)
+    if wide:
+        pbx = torch.from_numpy(rng.integers(
+            0, 1 << (ctx.p.w + 6), (pb_rows, ctx.p.nw, b), dtype=np.int32))
+    else:
+        pbx = torch.stack(_values(ctx, d, rng, pb_rows, b)).contiguous()
+    pbx[0] = 0
+    segs = np.asarray([[lo, h * steps, steps + (h == 2)]
+                       for h, lo in enumerate(range(0, pb_rows, cap))],
+                      np.int32)
+    n = int(segs[:, 2].sum()) * e
+    live = n - e - 3
+    ent = np.full((n, 2), (g, 0), np.int32)
+    ent[:live, 0] = ((np.arange(live) + 1) * g // (live + 1) if sort
+                     else rng.integers(0, g, live))
+    for lo, s0, ns in segs:
+        a, z = s0 * e, min((s0 + ns) * e, live)
+        ent[a:z, 1] = rng.integers(1, min(cap, pb_rows - lo) + 1, z - a)
+    return d, acc, pa_ext, pbx, ent, segs
+
+
+def run_replay_resident(lib, d, acc, pa_ext, pbx, ent, segs, cap: int,
+                        e: int, lanes: int, digits: int,
+                        late: int) -> torch.Tensor:
+    """K8's kernel body on one call, into an output filled with -7
+    first."""
+    got = torch.full_like(acc, -7)
+    ent = np.ascontiguousarray(ent, dtype=np.int32)
+    segs = np.ascontiguousarray(segs, dtype=np.int32)
+    if lib.lanes_replay_resident(acc.data_ptr(), got.data_ptr(),
+                                 pa_ext.data_ptr(), pbx.data_ptr(),
+                                 int(pbx.shape[0]), ent.ctypes.data,
+                                 segs.ctypes.data, segs.shape[0], cap, e,
+                                 *_mod(d), int(acc.shape[-1]), lanes, digits,
+                                 late):
+        raise ValueError(f"no instantiation for D={digits}, E={e} or "
+                         f"cap={cap}")
+    return got
+
+
+def compare_replay_resident(lib, ctx, b: int, e: int, steps: int,
+                            lanes=None, seed: int = 0, sort: bool = True,
+                            wide: bool = False, cap: int = 4) -> list:
+    """(what, equal) of K8's kernel body on a resident_lanes_call against
+    kernels.replay_resident_plain, its slab fills landing at once and at
+    their wait, at tape_geometry's lanes or at `lanes`."""
+    nw = ctx.p.nw
+    if lanes is None:
+        lanes, digits, _, _ = kernels.tape_geometry(nw, b)
+    else:
+        digits = max(2, -(-nw // lanes))
+    d, acc, pa_ext, pbx, ent, segs = resident_lanes_call(
+        ctx, b, e, steps, cap, seed, sort, wide)
+    want = kernels.replay_resident_plain(acc, pa_ext, pbx, ent, segs, cap, e,
+                                         d)
+    head = (f"nw={nw} L={lanes} D={digits} B={b} E={e} steps={steps} "
+            f"cap={cap}{'' if sort else ' unsorted'}{' wide' if wide else ''}"
+            " K8")
+    return [(f"{head} fills {('at once', 'at their wait')[late]}",
+             torch.equal(run_replay_resident(lib, d, acc, pa_ext, pbx, ent,
+                                             segs, cap, e, lanes, digits,
+                                             late), want))
+            for late in (0, 1)]
+
+
+def ctx_at_nw(nw: int):
+    """A REDC context with exactly nw digits at the largest radix whose
+    column bound holds there: a random odd N of w*(nw-1) - 4 bits."""
+    import random
+    w = next(w for w in range(13, 5, -1)
+             if params._digit_bound_fixed_point(w, nw, True) < 0.95 * 2**31)
+    bits = w * (nw - 1) - 4
+    n = random.Random(nw).getrandbits(bits) | 1 | (1 << (bits - 1))
+    ctx = params.make_monty(n, force_w=w)
+    assert ctx.p.nw == nw
+    return ctx
+
+
 N416 = (205688069665150755269371147819668813122841983204197482918578443
         * 411376139330301510538742295639337626245683966408394965837157771)
 # (modulus, mersenne, force_w, B, lanes): REDC with norm_inputs on and
@@ -797,6 +898,9 @@ REPLAY_COUNTS = (0, 3, 8, 9, 10, 11)
 # K6's and K7's cases: REPLAY_CASES at every E a step may take, each over
 # a few steps (E = 16, the main path's, over three), and nsteps = 0
 GATHER_LANES_STEPS = {1: 7, 2: 5, 4: 5, 8: 3, 16: 3}
+# K8's cases: REPLAY_CASES at every E, each over three slab segments of
+# these steps (the last segment one whole pad step longer)
+RESIDENT_LANES_STEPS = {1: 3, 2: 2, 4: 2, 8: 1, 16: 1}
 # K9's cases (modulus, mersenne, force_w, B, lanes, ops): REDC at the
 # flagship's nw = 36 with norm_inputs on and off (w = 10, nw = 43), the
 # fold at M127, at a pseudo-Mersenne 2^200 - c of three digits of c and at
@@ -908,6 +1012,11 @@ def main() -> int:
         for e, steps in GATHER_LANES_STEPS.items():
             for what, ok in compare_replay_gather(lib, ctx, b, e, steps,
                                                   lanes):
+                print(f"{what}: {'equal' if ok else 'DIFFER'}", flush=True)
+                bad += not ok
+        for e, steps in RESIDENT_LANES_STEPS.items():
+            for what, ok in compare_replay_resident(lib, ctx, b, e, steps,
+                                                    lanes):
                 print(f"{what}: {'equal' if ok else 'DIFFER'}", flush=True)
                 bad += not ok
     return 1 if bad else 0

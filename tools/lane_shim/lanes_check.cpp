@@ -9,8 +9,12 @@
 //                copies landing at once (late = 0) or at their wait (1);
 //   lanes_replay_gather: K6's (parow = 0: idx [T, 2] pairs) or K7's
 //                (parow = 1: idx [S, 1 + E] steps, with `one`) kernel body
-//                (csrc/replay_gather.cu) on one call of nsteps steps of E
+//                (csrc/replay_passes.cuh) on one call of nsteps steps of E
 //                entries, its copies landing as K5's;
+//   lanes_replay_resident: K8's kernel body (csrc/replay_resident.cu) on
+//                one call: entries [T, 2] (pa, slab row) in nslabs slab
+//                segments [nslabs, 3] of cap rows, its slab fills landing
+//                as K5's copies;
 //   lanes_ed_tape: K9's kernel body (csrc/ed_tape.cu) on one tape, over
 //                acc [4, NW, B] in place with the table [Tp, 3, NW, B];
 //   lanes_chain: K2's kernel body (csrc/chain.cu), count rows from the
@@ -22,7 +26,7 @@
 //   K3's and K4's cp.async copies land at once (late = 0) or at their
 //   wait (1), as K5's.
 // Each returns 0, or 1 for a digit count with no instantiation (or a
-// step shape the kernel refuses).
+// step shape the kernel refuses, or a slab past the shared buffer).
 #include <cuda_runtime.h>
 
 #include "arith_lanes.cuh"
@@ -31,6 +35,7 @@
 #include "ed_tape.cu"
 #include "replay.cu"
 #include "replay_gather.cu"
+#include "replay_resident.cu"
 
 namespace {
 
@@ -96,13 +101,24 @@ void replay_gather_body(const int* acc_in, int* acc_out, const int* pa_ext,
                         int parow) {
     __shared__ Mod m;
     if (parow)
-        replay_gather_lanes<D, true>(m, smem_words, acc_in, acc_out, pa_ext,
-                                     pbx, idx, one, nsteps, E,
-                                     TPUECM_MOD_ARGS, B, L);
+        replay_gather_lanes<D, RG_PAROW>(m, smem_words, acc_in, acc_out,
+                                         pa_ext, pbx, idx, one, nsteps, E,
+                                         TPUECM_MOD_ARGS, B, L);
     else
-        replay_gather_lanes<D, false>(m, smem_words, acc_in, acc_out, pa_ext,
-                                      pbx, idx, one, nsteps, E,
-                                      TPUECM_MOD_ARGS, B, L);
+        replay_gather_lanes<D, RG_GATHER>(m, smem_words, acc_in, acc_out,
+                                          pa_ext, pbx, idx, one, nsteps, E,
+                                          TPUECM_MOD_ARGS, B, L);
+}
+
+template <int D>
+void replay_resident_body(const int* acc_in, int* acc_out, const int* pa_ext,
+                          const int* pbx, int pb_rows, const int* idx,
+                          const int* slabs, int nslabs, int cap, int E,
+                          TPUECM_MOD_PARAMS, int B, int L) {
+    __shared__ Mod m;
+    replay_resident_lanes<D>(m, smem_words, acc_in, acc_out, pa_ext, pbx,
+                             pb_rows, idx, slabs, nslabs, cap, E,
+                             TPUECM_MOD_ARGS, B, L);
 }
 
 template <int D>
@@ -190,6 +206,23 @@ extern "C" int lanes_replay_gather(const int* acc_in, int* acc_out,
         replay_gather_body<decltype(d)::value>(acc_in, acc_out, pa_ext, pbx,
                                                idx, one, nsteps, E,
                                                TPUECM_MOD_ARGS, B, L, parow);
+    });
+}
+
+extern "C" int lanes_replay_resident(const int* acc_in, int* acc_out,
+                                     const int* pa_ext, const int* pbx,
+                                     int pb_rows, const int* idx,
+                                     const int* slabs, int nslabs, int cap,
+                                     int E, TPUECM_MOD_PARAMS, int B, int L,
+                                     int D, int late) {
+    if (!step_args_ok(nslabs, E) || cap < 1
+        || resident_smem_bytes(L, D, cap) > sizeof smem_words)
+        return 1;
+    emu_copy_late = late != 0;
+    return run_lanes(B, L, D, [&](auto d) {
+        replay_resident_body<decltype(d)::value>(
+            acc_in, acc_out, pa_ext, pbx, pb_rows, idx, slabs, nslabs, cap, E,
+            TPUECM_MOD_ARGS, B, L);
     });
 }
 

@@ -1,6 +1,14 @@
-// Modular digit arithmetic with several lanes per curve: the lane twin of
-// arith.cuh (one thread per curve), giving the same digits as it and as
-// limbs/torch_ops.py, its plain version.
+// Modular digit arithmetic with several lanes per curve, the one core of
+// every digit kernel (K1-K9): the CUDA twin of
+// tpu_ecm/limbs/pallas_ops.py:_make_arith, giving the same digits as
+// limbs/torch_ops.py, its plain version.  Mod, load_mod and the modulus
+// arguments come from arith.cuh.
+//
+// A value is nw signed base-2^w digits (int32).  In device memory every
+// plane is [NW, B] with the curve axis B last, so digit j of consecutive
+// curves sits at consecutive addresses.  All sums are taken in uint32,
+// which wraps like JAX's int32 (signed overflow is undefined in C++);
+// right shifts are taken on int32 and are arithmetic.
 //
 // A group of L lanes (a power of two, 4 to 32, inside one warp) works on
 // one curve.  A curve's values live in slots of shared memory (struct
@@ -32,11 +40,12 @@
 //    high digits at offset k0 = e/w from sT, the last into nw rows, then
 //    two lazy passes.
 //
-// Why the digits equal the one-thread core's: every column is its exact
-// integer sum mod 2^32, because the sums are taken in uint32 and wrap.  The
+// Why the digits equal the plain version's (torch_ops.mulmod, after
+// jnp_ops' digit-serial REDC and fold): every column is its exact integer
+// sum mod 2^32, because the sums are taken in uint32 and wrap.  The
 // quotient, the carry, the lazy passes and the fold read only that value,
 // so any split of a column's addends across lanes, and any order, gives the
-// same digits.  Right shifts are taken on int32 (arithmetic), as there.
+// same digits.
 //
 // Every lane of a warp runs every shuffle (full mask) and every
 // __syncwarp: loops have the same trip counts on all lanes, and a lane
@@ -80,7 +89,7 @@ __host__ __device__ inline int lanes_slot_words(int L, int D) {
 // 2*L*D words for each of a step's TPUECM_PAIR products), padded so that a
 // curve's buffers start L banks after the previous curve's: the groups of
 // a warp then read distinct banks.  S is TPUECM_SLOTS but for kernels that
-// hold more values (K6, K7: csrc/replay_gather.cu).
+// hold more values (K6-K8: csrc/replay_passes.cuh).
 __host__ __device__ inline int lanes_curve_words(int L, int D,
                                                  int S = TPUECM_SLOTS) {
     const int words = S * lanes_slot_words(L, D) + TPUECM_PAIR * 2 * L * D;
@@ -225,9 +234,10 @@ __device__ __forceinline__ int lazy_digit(int x, int below, int row,
     return row < rows ? (int)((uint32_t)lo + (uint32_t)(below >> g.w)) : 0;
 }
 
-// One lazy pass over `rows` digits in the block layout (lazy_rows of
-// arith.cuh): the digit below a lane's first is the top digit of the lane
-// below, one shuffle.  Every new digit is formed from the old ones, in an
+// One lazy pass over `rows` digits in the block layout: x_j := (x_j mod
+// 2^w) + (x_{j-1} >> w), the top digit kept unsplit (jnp_ops._lazy_pass).
+// The digit below a lane's first is the top digit of the lane below, one
+// shuffle.  Every new digit is formed from the old ones, in an
 // ascending loop the compiler unrolls.
 template <int D>
 __device__ __forceinline__ void lazy_lanes(int* x, int rows, const Group& g) {
@@ -270,7 +280,7 @@ __device__ __forceinline__ void lazy2_lanes(int* lo, int* hi, int rows,
 }
 
 // dst = a + b or a - b on this lane's digits, then norm_inputs mode's
-// lazy pass (norm1 of arith.cuh).  Each lane reads and writes only its own
+// lazy pass (pallas_ops norm1, torch_ops._norm_out).  Each lane reads and writes only its own
 // digits, so dst may be a or b.
 template <int D>
 __device__ __forceinline__ void addsub_slots(int* dst, const int* a,
@@ -347,7 +357,7 @@ __device__ __forceinline__ void cols_to_rows(uint32_t* lo, uint32_t* hi,
 }
 
 // REDC of each product's cyclic columns into out[p] (block layout), then
-// two lazy passes (mont_cols of arith.cuh).  The columns go to rows (lo,
+// two lazy passes (jnp_ops._redc).  The columns go to rows (lo,
 // hi), and the quotient chain runs in blocks of D columns: the owner of
 // block o (lane o) broadcasts its D columns, complete with every earlier
 // quotient (D shuffles, independent of one another); every lane forms the
@@ -442,7 +452,7 @@ __device__ __forceinline__ void redc_lanes(int (&out)[P][D],
     }
 }
 
-// This lane's part of one fold (fold_rows of arith.cuh) of the old rows of
+// This lane's part of one fold (jnp_ops._fold_once) of the old rows of
 // each product in its sT, rows i at `row` into acc: acc starts from t_i
 // (mod 2^e) and gets sign * |c|_l * hi_{i-l} for each digit l of |c|, hi_j
 // being (t[k0+j] >> s) + ((t[k0+j+1] & (2^s-1)) << (w-s)).  The loop over
@@ -509,8 +519,8 @@ __device__ __forceinline__ void fold_lanes_once(int (&lo)[P][D],
         }
 }
 
-// The fold of each product's cyclic columns into out[p] (fold_cols of
-// arith.cuh): three rounds of two lazy passes and one fold, the last into
+// The fold of each product's cyclic columns into out[p] (pallas_ops
+// fold_list, jnp_ops._mersenne_reduce): three rounds of two lazy passes and one fold, the last into
 // nw rows, then two lazy passes.
 template <int D, int P>
 __device__ __forceinline__ void fold_lanes(int (&out)[P][D],
@@ -640,15 +650,16 @@ __device__ __forceinline__ void run_steps(const int* prog, int steps,
 
 #ifdef __CUDACC__
 // Launches an instantiation of a lane-core kernel over B curves at L lanes
-// a curve (TPUECM_TAPE_BLOCK / L curves a block) with lanes_smem_bytes(L,
-// D, S) of dynamic shared memory, which it allows first (above 48 KB a
-// block's must be); returns the refusal or cudaGetLastError().
-template <int D, int S = TPUECM_SLOTS, typename... P, typename... A>
-__host__ inline int launch_lanes(void (*kernel)(P...), int L, int B,
-                                 cudaStream_t stream, A... args) {
+// a curve (TPUECM_TAPE_BLOCK / L curves a block) with smem bytes of
+// dynamic shared memory, which it allows first (above 48 KB a block's must
+// be); returns the refusal (a size past the card's limit:
+// cudaErrorInvalidValue, cleared) or cudaGetLastError().
+template <typename... P, typename... A>
+__host__ inline int launch_lanes_smem(void (*kernel)(P...), int L, int B,
+                                      size_t smem, cudaStream_t stream,
+                                      A... args) {
     const int per_block = TPUECM_TAPE_BLOCK / L;
     const int blocks = (B + per_block - 1) / per_block;
-    const size_t smem = lanes_smem_bytes(L, D, S);
     const cudaError_t rc = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (rc != cudaSuccess) {
@@ -659,14 +670,23 @@ __host__ inline int launch_lanes(void (*kernel)(P...), int L, int B,
     return (int)cudaGetLastError();
 }
 
+// The same with the slots' lanes_smem_bytes(L, D, S), the kernel's all.
+template <int D, int S = TPUECM_SLOTS, typename... P, typename... A>
+__host__ inline int launch_lanes(void (*kernel)(P...), int L, int B,
+                                 cudaStream_t stream, A... args) {
+    return launch_lanes_smem(kernel, L, B, lanes_smem_bytes(L, D, S), stream,
+                             args...);
+}
+
 // Resident blocks per SM of an instantiation of a lane-core kernel of S
-// slots at L lanes a curve; call after a launch of it, which allows its
-// shared memory.
+// slots at L lanes a curve and `extra` dynamic bytes past them; call after
+// a launch of it, which allows its shared memory.
 template <int D, int S = TPUECM_SLOTS, typename... P>
 __host__ inline int lanes_occupancy(void (*kernel)(P...), int L,
-                                    int* blocks_per_sm) {
+                                    int* blocks_per_sm, size_t extra = 0) {
     return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        blocks_per_sm, kernel, TPUECM_TAPE_BLOCK, lanes_smem_bytes(L, D, S));
+        blocks_per_sm, kernel, TPUECM_TAPE_BLOCK,
+        lanes_smem_bytes(L, D, S) + extra);
 }
 
 // Defines extern "C" int name(int lanes, int digits, int* blocks_per_sm):

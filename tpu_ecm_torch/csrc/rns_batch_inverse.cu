@@ -41,10 +41,14 @@
 // A block's share of a row is small (T * (2K+1) * 4 bytes a plane), but
 // the stacks are far past L2 (6.7 GB a plane stack at row 21), so each
 // row costs an HBM round trip unless its loads are in flight before it is
-// needed.  At T = 8 they are issued a pass ahead, into registers (no room
-// for a shared-memory ring beside the resident weights): K12's z[i+1]
-// before row i's pass, K13's pres[i-1] and z[i-1] after row i's pair
-// (which consumed pres[i] and z[i]) and x[i-1] after row i's single pass.
+// needed.  At T = 8 they are issued a pass ahead (no room for a
+// shared-memory ring beside the resident weights): K12's z[i+1] into
+// registers before row i's pass; K13's pres[i-1], z[i-1] and x[i-1] into
+// L2 (prefetch_mv) when row i starts and into registers after row i's
+// single pass (loaded into registers between the pair and the single
+// pass, they kept five planes live there, and nvcc 12.9 spilled 8 bytes
+// at H = 2; loaded after it without the prefetch, each row waited on
+// HBM: PERF.md section 6).
 // At T = 4 (96 registers a thread at 17 warps) K13's early loads spilled
 // and both kernels ran faster with each row's loads at its start.
 // load_mv and store_mv share the thread map.  Every thread walks the same
@@ -93,9 +97,9 @@ __device__ __forceinline__ void rns_prefix_body(
 }
 
 // K13's body on one block (smem: rns_mma_bytes(K, T == 8, H) bytes).  At
-// T = 8 row i - 1's pres and z are loaded after row i's pair and its x
-// after row i's single pass; at T = 4 (96 registers a thread) each row's
-// three planes at the row's start.
+// T = 8 row i - 1's three planes are prefetched into L2 when row i starts
+// and loaded after row i's single pass; at T = 4 (96 registers a thread)
+// each row's three planes at the row's start.
 template <int T, int H>
 __device__ __forceinline__ void rns_apply_inverse_body(
         unsigned char* smem, const int* xs, const int* zs, const int* pres,
@@ -114,19 +118,24 @@ __device__ __forceinline__ void rns_apply_inverse_body(
         load_mv(x, xs + at, L);
     }
     for (int i = count - 1; i >= 0; --i, at -= row) {
+        if (ahead && i > 0) {
+            prefetch_mv(pres + at - row, L);
+            prefetch_mv(zs + at - row, L);
+            prefetch_mv(xs + at - row, L);
+        }
         if (!ahead) {
             load_mv(p, pres + at, L);
             load_mv(z, zs + at, L);
             load_mv(x, xs + at, L);
         }
         mma_mul_pair<T, H>(inv, suf, p, suf, suf, z, L);
+        mma_mul<T>(x, x, inv, L);
+        store_mv(out + at, x, L);
         if (ahead && i > 0) {
             load_mv(p, pres + at - row, L);
             load_mv(z, zs + at - row, L);
+            load_mv(x, xs + at - row, L);
         }
-        mma_mul<T>(x, x, inv, L);
-        store_mv(out + at, x, L);
-        if (ahead && i > 0) load_mv(x, xs + at - row, L);
     }
 }
 

@@ -374,6 +374,23 @@ __device__ __forceinline__ void load_mv(MV& v, const int* plane,
     load4(v.r, plane + (size_t)(L.K + L.c) * L.B, L.hasBr, L);
 }
 
+// Asks L2 for the rows load_mv(plane, L) reads, so that a later load_mv
+// finds them there without holding registers meanwhile (no-op on the
+// CPU).
+__device__ __forceinline__ void prefetch_mv(const int* plane,
+                                            const MmaCtx& L) {
+#ifdef __CUDA_ARCH__
+    if (L.cb < L.B) {
+        if (L.hasA)
+            asm volatile("prefetch.global.L2 [%0];" ::"l"(
+                plane + (size_t)L.c * L.B + L.cb));
+        if (L.hasBr)
+            asm volatile("prefetch.global.L2 [%0];" ::"l"(
+                plane + (size_t)(L.K + L.c) * L.B + L.cb));
+    }
+#endif
+}
+
 __device__ __forceinline__ void store_mv(int* plane, const MV& v,
                                          const MmaCtx& L) {
     store4(plane + (size_t)L.c * L.B, v.a, L.hasA, L);

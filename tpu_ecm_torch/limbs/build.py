@@ -25,7 +25,7 @@ import threading
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "tpu_ecm_torch")
-HEADERS = ("arith.cuh", "arith_lanes.cuh", "replay_tree.cuh",
+HEADERS = ("arith.cuh", "arith_lanes.cuh", "replay_passes.cuh",
            "rns_arith.cuh", "rns_mma.cuh")
 SOURCES = ("tape.cu", "chain.cu", "batch_inverse.cu", "replay.cu",
            "replay_gather.cu", "replay_resident.cu", "ed_tape.cu",
@@ -68,9 +68,9 @@ SIGNATURES = {
                             _I, _P],
     "tpuecm_replay_parow_occupancy": [_I, _I, _IP],
     "tpuecm_replay_resident": [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I,
-                               *_MOD, _I, _P],
-    "tpuecm_replay_resident_smem": [_IP, _IP],
-    "tpuecm_replay_resident_carveout": [_I],
+                               *_MOD, _I, _I, _I, _P],
+    "tpuecm_replay_resident_smem": [_I, _I, _IP, _IP, _IP, _IP],
+    "tpuecm_replay_resident_occupancy": [_I, _I, _I, _IP],
     "tpuecm_ed_tape": [_P, _L, _P, _P, *_MOD, _I, _I, _I, _P],
     "tpuecm_ed_tape_occupancy": [_I, _I, _IP],
     "tpuecm_rns_tape": [_P, _L, _P, _P, _P, _P, _I, _I, _I, _P],

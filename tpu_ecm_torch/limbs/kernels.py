@@ -1,10 +1,9 @@
 """Wrappers of the nine CUDA kernels of the digit engine (csrc/*.cu), and
 the registry of every kernel of the port (the RNS engine's six wrappers
 are in limbs/rns_kernels.py and count their launches here too).  The digit
-kernels take both reductions of csrc/arith.cuh from one build: REDC for a
-generic n, the fold for a special form 2^e - c (ctx.is_mersenne).  K1-K7
-and K9 run on its lane twin csrc/arith_lanes.cuh, several lanes per curve
-(tape_geometry); K8 one thread per curve.
+kernels run on the lane core csrc/arith_lanes.cuh, several lanes per curve
+(tape_geometry), and take both reductions from one build: REDC for a
+generic n, the fold for a special form 2^e - c (ctx.is_mersenne).
 
 Each wrapper checks device, dtype, shape and contiguity, then routes on
 where its tensors lie: on the CPU it runs the kernel's plain PyTorch
@@ -23,7 +22,7 @@ and curve/edops.run_tape for K9.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+from typing import Dict, NamedTuple
 
 import numpy as np
 import torch
@@ -89,9 +88,10 @@ launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 # tape entries per stage-1 kernel launch (K1, K9): keeps every launch
 # short
 TAPE_SLICE = 1 << 16
-# The geometry of the lane-core kernels K1-K7 and K9 (csrc/tape.cu,
+# The geometry of the lane-core kernels K1-K9 (csrc/tape.cu,
 # csrc/chain.cu, csrc/batch_inverse.cu, csrc/replay.cu,
-# csrc/replay_gather.cu, csrc/ed_tape.cu on csrc/arith_lanes.cuh):
+# csrc/replay_gather.cu, csrc/replay_resident.cu, csrc/ed_tape.cu on
+# csrc/arith_lanes.cuh):
 # a group of `lanes` threads works on one curve, each lane holding
 # `digits` digits of every operand in registers.  The lane counts they
 # take, the digit counts they are instantiated for (the dispatch of each),
@@ -105,9 +105,6 @@ E_MAX = 16
 # replay entries whose differences the plain K6-K8, K14 and K15 form at
 # once (bounds their memory; a multiple of every E)
 PLAIN_REPLAY_BLOCK = 1024
-# curves per block of K8 (TPUECM_THREADS of csrc/arith.cuh): the width of
-# its shared-memory slab
-RESIDENT_TILE = 32
 
 
 def reset_launches() -> None:
@@ -201,15 +198,15 @@ def _done(name: str, rc: int) -> None:
 
 def tape_geometry(nw: int, b: int):
     """(lanes, digits, curves_per_block, blocks) of the lane-core kernels
-    (K1-K7, K9) at nw digits and B curves: the fewest lanes per curve
+    (K1-K9) at nw digits and B curves: the fewest lanes per curve
     (TAPE_LANES) that hold nw digits at most TAPE_DIGITS[-1] digits a lane,
     digits = ceil(nw / lanes) (at least TAPE_DIGITS[0]), TAPE_BLOCK threads
     a block."""
     if not 2 <= nw <= build.NW_MAX:
-        raise ValueError(f"no lane-core (K1-K7, K9) instantiation "
+        raise ValueError(f"no lane-core (K1-K9) instantiation "
                          f"covers nw={nw} (2 <= nw <= {build.NW_MAX})")
     if b < 1:
-        raise ValueError(f"lane core (K1-K7, K9): batch must be "
+        raise ValueError(f"lane core (K1-K9): batch must be "
                          f">= 1, got {b}")
     for lanes in TAPE_LANES:
         digits = max(-(-nw // lanes), TAPE_DIGITS[0])
@@ -429,27 +426,72 @@ def replay_parow(acc: torch.Tensor, pa_ext: torch.Tensor, pbx: torch.Tensor,
     return out
 
 
-def slab_bytes(cap: int, nw: int) -> int:
-    """K8's dynamic shared memory per block: cap + 1 slab rows (the zero
-    row first) of nw digits for RESIDENT_TILE curves."""
-    return (cap + 1) * nw * RESIDENT_TILE * 4
+class ResidentSmem(NamedTuple):
+    """K8's shared memory a block at tape_geometry's lanes and digits
+    (csrc/replay_resident.cu, tpuecm_replay_resident_smem): the kernel's
+    static bytes, its slots' dynamic bytes, one slab row's bytes (the
+    block's curves) and the device's opt-in limit a block."""
+    static: int
+    slots: int
+    row: int
+    optin: int
+
+    def block_bytes(self, cap: int) -> int:
+        """Dynamic bytes a block at a slab of cap rows: the slots, then
+        the zero row and cap rows."""
+        return self.slots + (cap + 1) * self.row
+
+    @property
+    def max_rows(self) -> int:
+        """The tallest slab a block holds beside its slots and static
+        memory, less the zero row."""
+        return (self.optin - self.static - self.slots) // self.row - 1
 
 
-def resident_slab_rows(nw: int, device) -> int:
-    """The Pb rows of K8's slab on `device`: the device's opt-in shared
-    memory per block less the kernel's static shared memory, in rows of
-    nw digits for RESIDENT_TILE curves, less the zero row."""
-    st, optin = ctypes.c_int(), ctypes.c_int()
+def resident_smem(nw: int, device) -> ResidentSmem:
+    """K8's shared memory at nw digits on `device` (the lanes and digits
+    depend on nw alone)."""
+    lanes, digits, _per_block, _blocks = tape_geometry(nw, 1)
+    out = [ctypes.c_int() for _ in range(4)]
     with torch.cuda.device(device):
         rc = build.library().tpuecm_replay_resident_smem(
-            ctypes.byref(st), ctypes.byref(optin))
+            lanes, digits, *map(ctypes.byref, out))
     if rc != 0:
         raise RuntimeError(f"replay_resident: shared-memory query failed, "
                            f"CUDA error {rc}")
-    cap = (optin.value - st.value) // slab_bytes(0, nw) - 1
-    if cap < 1:
-        raise ValueError(f"replay_resident: {optin.value} bytes of shared "
-                         f"memory per block hold no slab row at nw={nw}")
+    return ResidentSmem(*(v.value for v in out))
+
+
+def resident_blocks_per_sm(nw: int, cap: int, device) -> int:
+    """Blocks of K8 an SM of `device` holds at a slab of cap rows (the
+    card's occupancy calculator)."""
+    lanes, digits, _per_block, _blocks = tape_geometry(nw, 1)
+    per_sm = ctypes.c_int()
+    with torch.cuda.device(device):
+        rc = build.library().tpuecm_replay_resident_occupancy(
+            lanes, digits, cap, ctypes.byref(per_sm))
+    if rc != 0:
+        raise RuntimeError(f"replay_resident: occupancy query failed, CUDA "
+                           f"error {rc}")
+    return per_sm.value
+
+
+def resident_slab_rows(nw: int, b: int, device) -> int:
+    """The Pb rows of K8's slab at nw digits and B curves on `device`: the
+    tallest slab at which an SM holds ceil(blocks / SMs) blocks, the
+    launch in one wave, or as many blocks as any slab allows.  A taller
+    slab means fewer segments, but a wave more costs more
+    (tools/k8_time.py, PERF.md section 6)."""
+    top = resident_smem(nw, device).max_rows
+    if top < 1:
+        raise ValueError(f"replay_resident: the device's shared memory per "
+                         f"block holds no slab row at nw={nw}")
+    blocks = tape_geometry(nw, b)[3]
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    want = min(-(-blocks // sms), resident_blocks_per_sm(nw, 1, device))
+    cap = top
+    while cap > 1 and resident_blocks_per_sm(nw, cap, device) < want:
+        cap -= 1
     return cap
 
 
@@ -494,8 +536,8 @@ def replay_resident(acc: torch.Tensor, pa_ext: torch.Tensor,
     (pa_ext[pa] - slab[u]) in steps of e entries multiplied in a pairwise
     tree before acc, where the segment of slabs [S, 3] (lo, first step,
     steps) that holds the entry gives slab[0] = 0 and slab[u] = pbx[lo + u
-    - 1] for 1 <= u <= cap.  Returns a new [NW, B] plane, digit for digit
-    the plain version's."""
+    - 1] for 1 <= u <= cap, at tape_geometry's lanes and digits per curve.
+    Returns a new [NW, B] plane, digit for digit the plain version's."""
     nw, b = ctx.p.nw, int(acc.shape[-1])
     pa_rows, pb_rows = int(pa_ext.shape[0]), int(pbx.shape[0])
     _check("replay_resident", "acc", acc, (nw, b), ctx)
@@ -506,16 +548,17 @@ def replay_resident(acc: torch.Tensor, pa_ext: torch.Tensor,
     if _on_cpu("replay_resident", ctx):
         return replay_resident_plain(acc, pa_ext, pbx, entries, slabs, cap,
                                      e, ctx)
-    if cap > resident_slab_rows(nw, acc.device):
+    if cap > resident_smem(nw, acc.device).max_rows:
         raise ValueError(f"replay_resident: a slab of {cap} rows does not "
                          f"fit the shared memory of a block at nw={nw}")
+    lanes, digits, _per_block, _blocks = tape_geometry(nw, b)
     out = torch.empty_like(acc)
     dev_e = torch.from_numpy(entries).to(acc.device)
     dev_s = torch.from_numpy(slabs).to(acc.device)
     _done("replay_resident", build.library().tpuecm_replay_resident(
         acc.data_ptr(), out.data_ptr(), pa_ext.data_ptr(), pbx.data_ptr(),
         pb_rows, dev_e.data_ptr(), dev_s.data_ptr(), slabs.shape[0], cap, e,
-        *_mod(ctx), b, _stream()))
+        *_mod(ctx), b, lanes, digits, _stream()))
     return out
 
 

@@ -164,11 +164,12 @@ class DigitOps:
                                        call.slabs, call.cap, self.dctx,
                                        e=REPLAY_E)
 
-    def slab_rows(self) -> int:
-        """K8's default slab height: what a block's shared memory holds on
-        the card, PLAIN_SLAB_ROWS on the CPU."""
+    def slab_rows(self, b: int = 1) -> int:
+        """K8's default slab height at B curves: on the card the tallest
+        slab at which the launch's blocks are resident at once
+        (kernels.resident_slab_rows), PLAIN_SLAB_ROWS on the CPU."""
         if self.device.type == "cuda":
-            return kernels.resident_slab_rows(self.ctx.p.nw, self.device)
+            return kernels.resident_slab_rows(self.ctx.p.nw, b, self.device)
         return PLAIN_SLAB_ROWS
 
 
@@ -440,14 +441,14 @@ class Stage2Runner:
         self.ctx, self.sp = ctx, sp
         self.ops = ops if ops is not None else DigitOps(ctx, dctx)
         self.replay = replay_mode(replay, self.ops)
-        # K8's Pb rows per slab: the keyword (tests cut many slabs) or what
-        # the device holds (DigitOps.slab_rows)
-        self.slab_rows = None
-        if self.replay == "resident":
-            self.slab_rows = slab_rows or self.ops.slab_rows()
         self.pt = pt                  # stage-1 point [2, rows, B]
         self.s_const = s_const
         self.b = b = int(pt.shape[-1])
+        # K8's Pb rows per slab: the keyword (tests cut many slabs) or the
+        # device's rule at this batch (DigitOps.slab_rows)
+        self.slab_rows = None
+        if self.replay == "resident":
+            self.slab_rows = slab_rows or self.ops.slab_rows(b)
         kind = pt.device.type
         if kind not in PA_GROUP:
             raise ValueError(f"stage 2 runs on cpu or cuda, not {pt.device}")

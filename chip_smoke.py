@@ -52,10 +52,10 @@ result and its seconds; any failure raises and exits non-zero.
               its ptxas report, its share of the bound and its ms beside
               K10_BEFORE's; K11's, K12's and K13's (_rows_line) the same
               with their products a pass, rows and us a row, beside
-              K11_BEFORE's, K12_BEFORE's and K13_BEFORE's; K14's
-              (_k14_line) the same with its products a pass, its live
-              entries and the bytes its gathers move, beside
-              K14_BEFORE's;
+              K11_BEFORE's, K12_BEFORE's and K13_BEFORE's; K14's and
+              K15's (_rns_replay_line) the same with their products a
+              pass, their live entries and the bytes their row loads
+              move, beside K14_BEFORE's and K15_BEFORE's;
               the plain versions run their single-plane products from
               CUDA graphs (_graphed_products); the replay kernels' bounds
               count a product per live entry, and their lines give the
@@ -88,7 +88,7 @@ result and its seconds; any failure raises and exits non-zero.
               one batch, B1=25,000, B2=2,500,000 (cut 10x from B1=250,000,
               with B2 = 100*B1); save_b1.txt must hold a record per curve,
               K10-K13 and the replay kernel of the RNS engine's default
-              mode (K14) must have launched and no digit kernel
+              mode (K15) must have launched and no digit kernel
   6 mersenne  M1277 = 2^1277-1, the smallest Mersenne number with no known
               factor, at full width: 2048 Suyama curves from sigma 7000 in
               one batch, B1=10,000, B2=1,000,000; the fold must be on,
@@ -265,6 +265,12 @@ K14_BEFORE = {"row21": 1464.523}
 # NVIDIA H100 80GB HBM3, 700 W)
 K12_BEFORE = {"row21": 115.600}
 K13_BEFORE = {"row21": 286.174}
+# K15 on csrc/rns_arith.cuh (4 curves a block, one product at a time,
+# integer-pipe dots, `%` reductions, the Pa row reloaded every entry)
+# before it moved to the tensor cores: ms on the rns job's first replay
+# call at row 21 (K=200, B=1024, 65,536 entries; this smoke's phase 2,
+# PERF.md section 6, NVIDIA H100 80GB HBM3, 700 W)
+K15_BEFORE = {"row21": 1782.060}
 # The kernels whose line gives their ms per row (_rows_line): name ->
 # (label, geometry function of limbs/rns_kernels, kernel template, ms
 # before the redesign)
@@ -274,6 +280,15 @@ ROWS_KERNELS = {
                    K12_BEFORE),
     "rns_apply_inverse": ("K13", "apply_inverse_geometry",
                           "rns_apply_inverse_kernel", K13_BEFORE),
+}
+# The RNS replays, whose line gives their ms per live entry and the bytes
+# their row loads move (_rns_replay_line): name -> (label, geometry
+# function of limbs/rns_kernels, kernel template, ms before the redesign)
+RNS_REPLAY_KERNELS = {
+    "rns_replay_gather": ("K14", "gather_geometry",
+                          "rns_replay_gather_kernel", K14_BEFORE),
+    "rns_replay": ("K15", "replay_geometry", "rns_replay_kernel",
+                   K15_BEFORE),
 }
 
 
@@ -737,8 +752,9 @@ def synthetic_rns(K: int, seed: int, device):
 def _rns_kernel_cases(rng, gen, host, rc, b, depth=RNS_SHORT):
     """(cases, slots) for K10-K15 on one geometry, B curves and the stack
     sizes of `depth`: cases maps name -> (kernel call, plain call, bound),
-    slots each replay kernel to (live entries, entry slots), as
-    _kernel_cases."""
+    slots each replay kernel to (live entries, entry slots, rows loaded),
+    as _kernel_cases."""
+    import numpy as np
     import torch
     from tpu_ecm_torch.curve import prac
     from tpu_ecm_torch.limbs import rns_exec, rns_kernels
@@ -763,8 +779,12 @@ def _rns_kernel_cases(rng, gen, host, rc, b, depth=RNS_SHORT):
     idx, pairs = calls["stream"], calls["gather"]
     e = s2.REPLAY_E
     live = int((pairs[:, 1] > 0).sum())
-    slots = {"rns_replay": (int(idx[0]), int(idx[0])),
-               "rns_replay_gather": (live, pairs.shape[0])}
+    stream = idx[1:1 + int(idx[0])].view(np.uint32)
+    # each replay's live entries, entry slots and rows loaded: K14 two an
+    # entry slot, K15 a Pb row an entry and its Pa row where pa changes
+    slots = {"rns_replay": (stream.size, stream.size, stream.size + int(
+                 (np.diff(stream >> 16, prepend=-1) != 0).sum())),
+             "rns_replay_gather": (live, pairs.shape[0], 2 * pairs.shape[0])}
     acc = R()
     k = rns_kernels
     row = rc.rows * b * 4
@@ -788,8 +808,9 @@ def _rns_kernel_cases(rng, gen, host, rc, b, depth=RNS_SHORT):
             bound(rows * 3, _nbytes(xs, zs, pres, tinv) + rows * row)),
         "rns_replay": (lambda: k.replay(acc, pa_ext, pbx, idx, rc),
                        lambda: k.replay_plain(acc, pa_ext, pbx, idx, rc),
-                       bound(int(idx[0]),
-                             _nbytes(acc, pa_ext, pbx) + idx.nbytes + row)),
+                       bound(int(idx[0]), _rows_read(stream >> 16, row)
+                             + _rows_read(stream & 0xFFFF, row)
+                             + 4 * stream.size + 2 * row)),
         "rns_replay_gather": (
             lambda: k.replay_gather(acc, pa_ext, pbx, pairs, rc, e=e),
             lambda: k.replay_gather_plain(acc, pa_ext, pbx, pairs, e, rc),
@@ -863,13 +884,16 @@ def _compare(name, label, got, want):
 def _record(ms, plain_ms, bound, err, slots=None):
     """The record of one timed kernel, beside the plain version's time and
     the bound; a replay kernel's also holds its call's live entries, its
-    entry slots and its ms per live entry."""
+    entry slots and its ms per live entry, an RNS replay's the rows it
+    loads."""
     r = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
              bound_by=bound[1], library_ms=None)
     if len(bound) > 2:                  # an RNS kernel: the int32-only bound
         r["bound_int32_ms"] = bound[2]
     if slots is not None:
         r.update(entries=slots[0], slots=slots[1], ms_per_entry=ms / slots[0])
+    if slots is not None and len(slots) > 2:
+        r["row_loads"] = slots[2]
     return r
 
 
@@ -1093,25 +1117,28 @@ def _rows_line(name, label, r, K, b, rows) -> str:
             f"({old / r['ms']:.2f}x)")
 
 
-def _k14_line(label, r, K, b) -> str:
-    """K14's geometry at K and B curves (curves a block, products a pass,
-    threads, blocks, shared memory a block, whether the weights are
-    resident in it), its instantiation's ptxas report, its share of the
-    bound and the bytes its gathers move (two rows per entry slot, each
-    (2K+1)*4 bytes a curve), added to its record r, and its ms beside
-    K14_BEFORE's."""
+def _rns_replay_line(name, label, r, K, b) -> str:
+    """K14's or K15's geometry at K and B curves (curves a block, products
+    a pass, threads, blocks, shared memory a block, whether the weights
+    are resident in it), its instantiation's ptxas report, its share of
+    the bound and the bytes its row loads move (r["row_loads"] rows of
+    (2K+1)*4 bytes a curve: K14 two an entry slot, K15 a Pb row an entry
+    and a Pa row where pa changes), added to its record r, and its ms
+    beside the ms before its redesign (RNS_REPLAY_KERNELS)."""
     from tpu_ecm_torch.limbs import rns_kernels
-    g = rns_kernels.gather_geometry(K, b)
-    gathered = r["slots"] * 2 * (2 * K + 1) * b * 4
+    k, geometry, kernel, before = RNS_REPLAY_KERNELS[name]
+    g = getattr(rns_kernels, geometry)(K, b)
+    halves = getattr(g, "halves", 1)
+    ptxas = _lanes_ptxas(kernel)
+    gathered = r["row_loads"] * (2 * K + 1) * b * 4
     r.update(geometry=g._asdict(),
-             ptxas=_lanes_ptxas("rns_replay_gather_kernel")[
-                 (g.tile, g.halves)],
+             ptxas=ptxas.get((g.tile, halves), ptxas.get(g.tile)),
              share_of_bound=r["bound_ms"] / r["ms"],
              gathered_bytes=gathered,
              gathered_gb_per_s=gathered / r["ms"] / 1e6)
-    x, old = r["ptxas"], K14_BEFORE[label]
-    return (f"K14 at {label} (K={K}, B={b}): T={g.tile} curves a block, "
-            f"{g.halves} products a pass, {g.threads} threads, {g.blocks} "
+    x, old = r["ptxas"], before[label]
+    return (f"{k} at {label} (K={K}, B={b}): T={g.tile} curves a block, "
+            f"{halves} products a pass, {g.threads} threads, {g.blocks} "
             f"blocks, {g.smem} bytes of shared memory a block, weights "
             f"{'resident in it' if g.resident else 'from the global table'}"
             f"; ptxas: {x.get('registers')} registers, "
@@ -1121,7 +1148,7 @@ def _k14_line(label, r, K, b) -> str:
             f"{r['slots']} slots, {r['ms']:.3f} ms "
             f"({r['ms_per_entry']:.6f} per live entry) against the bound "
             f"{r['bound_ms']:.4f} ({r['bound_by']}): "
-            f"{100 * r['share_of_bound']:.2f}% of it; gathers "
+            f"{100 * r['share_of_bound']:.2f}% of it; row loads move "
             f"{gathered / 1e9:.1f} GB, {r['gathered_gb_per_s']:.0f} GB/s; "
             f"before: {old:.3f} ms ({old / r['ms']:.2f}x)")
 
@@ -1219,8 +1246,9 @@ def phase_kernels(record):
     for name in ROWS_KERNELS:
         print("  " + _rows_line(name, "row21", record[name], rc.K, 1024,
                                 depth["rows"]), flush=True)
-    print("  " + _k14_line("row21", record["rns_replay_gather"], rc.K, 1024),
-          flush=True)
+    for name in RNS_REPLAY_KERNELS:
+        print("  " + _rns_replay_line(name, "row21", record[name], rc.K,
+                                      1024), flush=True)
     print(f"  rns depths at row 21 (K={rc.K}, B=1024): {shown}", flush=True)
     print(f"  fold depths at M1277 (B=2048): {record['tape']['fold']['depth']}"
           f"; plain versions on the first {PLAIN_CURVES} curves", flush=True)
@@ -1779,8 +1807,8 @@ def main() -> int:
 
     # "launches" is the count of the kernel's main path: the flagship job
     # for the digit kernels of its default replay mode, the edwards job for
-    # K9, the rns job for RNS (with K14, its default replay), phase 8's run
-    # in its own mode for the other replay kernels (K6, K7, K15)
+    # K9, the rns job for RNS (with K15, its default replay), phase 8's run
+    # in its own mode for the other replay kernels (K6, K7, K8, K14)
     main_job = {k: f"replay_{e}_{m}" for e in ("digit", "rns")
                 for m, k in _ops(e).replay_kernels.items()}
     main_job.update(dict.fromkeys(_job_kernels("digit"), "flagship"))

@@ -2,10 +2,10 @@
 the fifteen CUDA kernels against their plain PyTorch versions (the digit
 kernels in REDC and fold modes; K1-K9 also at ragged batches
 and at every instantiation's edge nw, and a refused launch, K6-K8
-their ptxas reports; K10-K14 at
+their ptxas reports; K10-K15 at
 ragged batches, at their K edges, a refused launch and their ptxas
 reports, K11 also at counts 1, 2 and G - 1, K12 and K13 at counts 1, 2
-and G), the golden sweep
+and G, K15 at counts 0-3 at both tiles), the golden sweep
 and the reference's t35 acceptance sweep through the port, and the RNS engine's, the Mersenne
 fold's, the Edwards curves' and the stage-2 replay modes' finds through
 the driver on the card.
@@ -784,6 +784,116 @@ def test_rns_gather_ptxas_no_stack_or_spills(cuda):
     for key, x in report.items():
         assert (x["stack_bytes"], x["spill_store_bytes"],
                 x["spill_load_bytes"]) == (0, 0, 0), (key, x)
+
+
+def _k15_against_plain(rc, b: int, seed: int, count=None, tile=None):
+    """K15 on a stream call (chip_smoke._replay_idx: 292 v-sorted live
+    entries, 5 pads and 3 entries past the count, so past four of the
+    ring's 64-entry chunks; or, with `count` given, 11 slots of which the
+    first `count` are live, the rest read as entries past the count) over
+    random residues at B curves, one launch (at `tile` if given), against
+    rns_kernels.replay_plain on the same card tensors (its products from
+    CUDA graphs, chip_smoke._graphed_products), residue for residue."""
+    import numpy as np
+
+    import chip_smoke
+    from tpu_ecm_torch.limbs import kernels, rns_kernels
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    g, pb_rows = 11, 13
+    idx = chip_smoke._replay_idx(rng, g, pb_rows,
+                                 300 if count is None else 11)
+    if count is not None:
+        idx[0] = count
+    acc = chip_smoke._rand_residues(gen, rc, (rc.rows, b))
+    pa_ext = chip_smoke._rand_residues(gen, rc, (g + 1, rc.rows, b))
+    pbx = chip_smoke._rand_residues(gen, rc, (pb_rows, rc.rows, b))
+    pbx[0] = 0
+    with chip_smoke._graphed_products():
+        want = rns_kernels.replay_plain(acc, pa_ext, pbx, idx, rc)
+    kernels.reset_launches()
+    geometry = rns_kernels.replay_geometry
+    if tile:
+        rns_kernels.replay_geometry = lambda K, b: geometry(K, b, tile=tile)
+    try:
+        got = rns_kernels.replay(acc, pa_ext, pbx, idx, rc)
+    finally:
+        rns_kernels.replay_geometry = geometry
+    torch.cuda.synchronize()
+    assert kernels.launches["rns_replay"] == 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("b", [1, 7, 9, 1024])
+def test_rns_replay_batches(cuda, b):
+    """K15 at row 21's K=200 (8 curves a block, the weights in shared
+    memory, the next entry's rows loaded a pass ahead) at batches that
+    leave the last block part empty (B = 1, 7, 9; B % 4 != 0 takes the
+    scalar loads) and at the rns job's B = 1024, 297 entries."""
+    _ctx, rc = _row21_rc()
+    _k15_against_plain(rc, b, b)
+
+
+@pytest.mark.parametrize("count", [0, 1, 2, 3])
+@pytest.mark.parametrize("tile", [8, 4])
+def test_rns_replay_counts(cuda, count, tile):
+    """K15 at row 21's K=200, B = 9, at both tiles (T = 4 asked for),
+    on no entry (acc copied), one, two and three, with live entries in the
+    slots past the count."""
+    _ctx, rc = _row21_rc()
+    _k15_against_plain(rc, 9, 15 + count, count, tile)
+
+
+@pytest.mark.parametrize("K", [2, 222, 224, 520])
+def test_rns_replay_k_edges(cuda, K):
+    """K15 at the smallest K, at the last K whose weights fit in shared
+    memory beside the entry ring (222), one step past it (224: 4 curves a
+    block, the fragments from the global table) and at K_MAX = 520, on
+    synthetic tables (chip_smoke.synthetic_rns), B = 9."""
+    import chip_smoke
+    from tpu_ecm_torch.limbs import rns_kernels
+    g = rns_kernels.replay_geometry(K, 9)
+    assert g.resident == (K <= 222) and g.tile == (8 if K <= 222 else 4)
+    _k15_against_plain(chip_smoke.synthetic_rns(K, K, "cuda"), 9, K)
+
+
+def test_rns_replay_refused_launch_raises(cuda, monkeypatch):
+    """T = 8 at K = 224, whose weights do not fit in shared memory, is
+    refused by the C entry point, the wrapper raises, no launch is
+    counted, and the next launch runs (no sticky error)."""
+    import numpy as np
+
+    import chip_smoke
+    from tpu_ecm_torch.limbs import kernels, rns_kernels
+    rc = chip_smoke.synthetic_rns(224, 1, "cuda")
+    acc = torch.zeros((rc.rows, 8), dtype=torch.int32, device=cuda)
+    rows = torch.zeros((2, rc.rows, 8), dtype=torch.int32, device=cuda)
+    idx = np.asarray([1, 1 << 16 | 1], np.int32)
+    geometry = rns_kernels.replay_geometry
+    monkeypatch.setattr(rns_kernels, "replay_geometry",
+                        lambda K, b: rns_kernels.TapeGeometry(8, 512, 1, 0,
+                                                              True))
+    kernels.reset_launches()
+    with pytest.raises(RuntimeError, match="launch failed"):
+        rns_kernels.replay(acc, rows, rows, idx, rc)
+    assert kernels.launches["rns_replay"] == 0
+    monkeypatch.setattr(rns_kernels, "replay_geometry", geometry)
+    rns_kernels.replay(acc, rows, rows, idx, rc)
+    torch.cuda.synchronize()
+    assert kernels.launches["rns_replay"] == 1
+
+
+def test_rns_replay_ptxas_no_stack_or_spills(cuda):
+    """nvcc -Xptxas -v reports no stack frame and no spills for either
+    instantiation of K15 (T = 4, 8)."""
+    import chip_smoke
+    from tpu_ecm_torch.limbs import build
+    build.library()
+    report = chip_smoke._lanes_ptxas("rns_replay_kernel")
+    assert set(report) == {4, 8}
+    for tile, x in report.items():
+        assert (x["stack_bytes"], x["spill_store_bytes"],
+                x["spill_load_bytes"]) == (0, 0, 0), (tile, x)
 
 
 def _row21_rc():

@@ -369,10 +369,10 @@ def test_replay_mode_errors(tmp_path):
 
 
 @pytest.mark.parametrize("engine,want", [("digit", "stream"),
-                                         ("rns", "gather")])
+                                         ("rns", "stream")])
 def test_replay_default_follows_engine(tmp_path, engine, want):
     """With no replay= the driver and the runner take the engine's default
-    mode (stream on the digit engine, gather on RNS); a named mode wins."""
+    mode (stream on the digit engine and on RNS); a named mode wins."""
     d = driver.ECMDriver(_cfg(tmp_path, n=N71, curves=1, b1=100,
                               engine=engine))
     assert d.cfg.replay is None and d.replay == want

@@ -299,7 +299,7 @@ def test_convert_rns_ctx_round_trips_jax_state():
     leaves = {f: np.asarray(getattr(hj.dev, f)) for f in rns.TABLES}
     got = convert.rns_ctx(leaves, hj.K, hj.dev.mr_shift, "cpu")
     ref = rns.device_ctx(ht, "cpu")
-    for f in rns.TABLES + ("tab", "wpk", "wmma"):
+    for f in rns.TABLES + ("tab", "wmma"):
         assert torch.equal(getattr(got, f), getattr(ref, f)), f
     assert (got.K, got.mr_shift, got.rows) == (ref.K, ref.mr_shift, 49)
     with pytest.raises(ValueError, match="w1"):
@@ -315,17 +315,14 @@ def test_convert_rns_ctx_round_trips_jax_state():
 
 
 def test_kernel_tables_layout():
-    """tab and wpk as csrc/rns_arith.cuh reads them, and K10's padded u8
-    weight planes (rns.mma_weights) as csrc/rns_mma.cuh reads them."""
+    """tab and the padded u8 weight planes (rns.mma_weights) as
+    csrc/rns_mma.cuh reads them."""
     _ctx, _hj, ht = _hosts(N71)
-    tab, wpk = rns.kernel_tables(ht.tables, ht.K)
+    tab = rns.kernel_tables(ht.tables, ht.K)
     K, t = ht.K, ht.tables
-    assert tab.shape == (9 * K + 5,) and wpk.shape == (2, K // 2, K + 1)
+    assert tab.shape == (9 * K + 5,)
     assert tab[2 * K] == ht.mr and tab[9 * K + 4] == t["qinv_r"][0, 0]
     np.testing.assert_array_equal(tab[7 * K + 3:9 * K + 4], t["f_sub"][:, 0])
-    w = wpk.view(np.uint32)
-    np.testing.assert_array_equal(w[1] & 0xFFFF, t["w2"][0::2])
-    np.testing.assert_array_equal(w[0] >> 16, t["w1"][1::2])
     planes = rns.mma_weights(t, K)
     kpad, mpad = -(-K // 16) * 16, -(-(K + 1) // 32) * 32
     assert planes.shape == (4, mpad // 32, kpad // 16, 32, 16)

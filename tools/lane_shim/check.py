@@ -3,10 +3,10 @@ arithmetic) and the kernel bodies of K2 (csrc/chain.cu), K3 and K4
 (csrc/batch_inverse.cu), K5 (csrc/replay.cu), K6 and K7
 (csrc/replay_gather.cu), K8 (csrc/replay_resident.cu) and K9
 (csrc/ed_tape.cu), and
-K10's, K11's, K12's, K13's and K14's (csrc/rns_tape.cu, csrc/rns_chain.cu,
-csrc/rns_batch_inverse.cu, csrc/rns_replay_gather.cu, on the tensor-core
-core csrc/rns_mma.cuh), on the CPU and hold them against their plain
-versions.
+K10's, K11's, K12's, K13's, K14's and K15's (csrc/rns_tape.cu,
+csrc/rns_chain.cu, csrc/rns_batch_inverse.cu, csrc/rns_replay_gather.cu,
+csrc/rns_replay.cu, on the tensor-core core csrc/rns_mma.cuh), on the CPU
+and hold them against their plain versions.
 
 The CUDA source is built by g++ against cuda_runtime.h beside this file,
 which runs every CUDA thread as a std::thread and shuffles through a
@@ -23,13 +23,15 @@ replay_gather_plain, replay_parow_plain, replay_resident_plain,
 curve/edops.run_tape, limbs/kernels.chain_plain, prefix_plain and
 apply_inverse_plain on CPU tensors.  K3's-K8's cp.async copies
 land at once and, in a second run, at their wait
-(cuda_pipeline_primitives.h).  K10's to K14's bodies are built apart
+(cuda_pipeline_primitives.h).  K10's to K15's bodies are built apart
 (rns_check.cpp, with mma.h standing in for nvcuda::wmma) and held residue
 for residue against limbs/rns_exec.run_tape on a tape of every opcode,
 against rns_kernels.chain_plain on chains of 1 to 5 rows, against
-rns_kernels.prefix_plain and apply_inverse_plain on stacks of 1 to 5 rows
-and against rns_kernels.replay_gather_plain on calls of v-sorted entries and
-pads (K14's entry copies landing at once and at their wait), at a small
+rns_kernels.prefix_plain and apply_inverse_plain on stacks of 1 to 5 rows,
+against rns_kernels.replay_gather_plain on calls of v-sorted entries and
+pads (K14's entry copies landing at once and at their wait) and against
+rns_kernels.replay_plain on stream calls with pads and entries past the
+count (K15's entry copies landing at once and at their wait), at a small
 K, K=200 (the rns job's; its weights in shared memory), K=224 (past the
 shared-memory limit: the fragments load from the global table) and
 ragged batches.
@@ -82,11 +84,14 @@ SOURCES = (os.path.join(HERE, "cuda_runtime.h"),
 RNS_SOURCES = (os.path.join(HERE, "cuda_runtime.h"),
                os.path.join(HERE, "rns_check.cpp"),
                os.path.join(HERE, "mma.h"),
+               os.path.join(HERE, "cuda_pipeline_primitives.h"),
                os.path.join(build.CSRC, "rns_mma.cuh"),
+               os.path.join(build.CSRC, "rns_ring.cuh"),
                os.path.join(build.CSRC, "rns_tape.cu"),
                os.path.join(build.CSRC, "rns_chain.cu"),
                os.path.join(build.CSRC, "rns_batch_inverse.cu"),
-               os.path.join(build.CSRC, "rns_replay_gather.cu"))
+               os.path.join(build.CSRC, "rns_replay_gather.cu"),
+               os.path.join(build.CSRC, "rns_replay.cu"))
 SANITIZE = ("-O1", "-g", "-fsanitize=address,undefined")
 
 
@@ -138,6 +143,10 @@ def load_rns(path: str) -> ctypes.CDLL:
     lib.rns_gather_run.restype = I
     lib.tpuecm_rns_gather_geometry.argtypes = [I, I, I, P]
     lib.tpuecm_rns_gather_geometry.restype = I
+    lib.rns_replay_run.argtypes = [P, P, P, P, P, I, P, P, I, I, I, I]
+    lib.rns_replay_run.restype = I
+    lib.tpuecm_rns_replay_geometry.argtypes = [I, I, I, P]
+    lib.tpuecm_rns_replay_geometry.restype = I
     return lib
 
 
@@ -756,6 +765,72 @@ def compare_rns_gather(lib, rc, b: int, e: int, steps: int, seed: int = 0,
     return res
 
 
+def stream_call(rng, rc, b: int, count: int, pa: str = "sorted",
+                g: int = 5, pb_rows: int = 7, pads: int = 2, past: int = 3):
+    """A K15 call's inputs on CPU tensors: acc, pa_ext (g rows and the pad
+    row g), pbx (pb_rows rows, row 0 zero) of random residues, and idx
+    [1 + count + past]: the count, then count entries pa << 16 | pb whose
+    last `pads` (at most half of them) are pads g << 16 | 0 and whose live
+    entries take their Pa rows v-sorted over few rows (pa "sorted": rows
+    repeat), a new row at every entry (pa "every") or one row throughout
+    (pa "one"), then `past` entries past the count that name other rows
+    (read, they would change the product)."""
+    acc = rns_residues(rng, rc, (rc.rows, b))
+    pa_ext = rns_residues(rng, rc, (g + 1, rc.rows, b))
+    pbx = rns_residues(rng, rc, (pb_rows, rc.rows, b))
+    pbx[0] = 0
+    pads = min(pads, count // 2)
+    live = count - pads
+    rows = {"sorted": lambda: np.sort(rng.integers(0, g, live)),
+            "every": lambda: np.arange(live) % g,
+            "one": lambda: np.full(live, g - 1)}[pa]()
+    ent = np.concatenate([(rows << 16) | rng.integers(1, pb_rows, live),
+                          np.full(pads, g << 16),
+                          (rng.integers(0, g, past) << 16)
+                          | rng.integers(1, pb_rows, past)])
+    return acc, pa_ext, pbx, np.concatenate([[count], ent]).astype(np.int32)
+
+
+def rns_replay_shim(lib, acc, pa_ext, pbx, idx, rc, tile=None,
+                    late: int = 0) -> torch.Tensor:
+    """K15's kernel body on one call (idx as rns_kernels.replay takes it:
+    the count, then the entries, the slots past the count included), at
+    replay_geometry's tile or the one given, its entry copies landing at
+    once or (late) at their wait, into an output filled with -7 first."""
+    b = int(acc.shape[-1])
+    geo = rns_kernels.replay_geometry(rc.K, b, lib, tile or 0)
+    out = torch.full_like(acc, -7)
+    idx = np.ascontiguousarray(idx, dtype=np.int32)
+    code = lib.rns_replay_run(acc.data_ptr(), out.data_ptr(),
+                              pa_ext.data_ptr(), pbx.data_ptr(),
+                              idx[1:].ctypes.data, int(idx[0]),
+                              rc.tab.data_ptr(), rc.wmma.data_ptr(), rc.K, b,
+                              geo.tile, late)
+    if code:
+        raise ValueError(f"K15 refused K={rc.K} B={b} tile={geo.tile} "
+                         f"count={int(idx[0])}: {code}")
+    return out
+
+
+def compare_rns_replay(lib, rc, b: int, count: int, seed: int = 0,
+                       tile=None, lates=(0, 1), pa: str = "sorted") -> list:
+    """(what, equal) of K15's kernel body on a stream_call of `count`
+    entries at B curves against rns_kernels.replay_plain, at
+    replay_geometry's tile or the one given, its entry copies landing at
+    once (late 0) and at their wait (late 1)."""
+    rng = np.random.default_rng(seed)
+    acc, pa_ext, pbx, idx = stream_call(rng, rc, b, count, pa)
+    want = rns_kernels.replay_plain(acc, pa_ext, pbx, idx, rc)
+    geo = rns_kernels.replay_geometry(rc.K, b, lib, tile or 0)
+    res = []
+    for late in lates:
+        got = rns_replay_shim(lib, acc, pa_ext, pbx, idx, rc, tile, late)
+        res.append((f"K={rc.K} T={geo.tile} B={b} K15 count={count} "
+                    f"pa {pa}, copies {('at once', 'at their wait')[late]}",
+                    torch.equal(got, want)))
+    return res
+
+
 # K10's cases (bits of a random N, B): K=24 at ragged batches (B % 4 != 0:
 # the scalar loads; B % 8 == 4: a block's second curve group empty), K=200
 # (the rns job's, weights in shared memory) and K=224 (past the
@@ -774,6 +849,10 @@ RNS_BATCH_CASES = ((256, 9, 5), (256, 12, 1), (256, 9, 2), (2397, 9, 3),
 # steps
 GATHER_CASES = ((256, 9, 16, 3), (256, 12, 2, 3), (256, 9, 1, 5),
                 (2397, 9, 16, 2), (2700, 3, 16, 2))
+# K15's cases (bits of a random N, B, count): the same geometries, counts
+# 0, 1, 2, 3 and 260 (past four of the ring's 64-entry chunks)
+RNS_REPLAY_CASES = ((256, 9, 3), (256, 12, 2), (256, 9, 0), (256, 7, 1),
+                    (256, 9, 260), (2397, 9, 3), (2700, 3, 3))
 
 
 def resident_lanes_call(ctx, b: int, e: int, steps: int, cap: int = 4,
@@ -980,6 +1059,10 @@ def main() -> int:
     for bits, b, e, steps in GATHER_CASES:
         for what, ok in compare_rns_gather(rlib, rns_ctx_at(bits), b, e,
                                            steps):
+            print(f"{what}: {'equal' if ok else 'DIFFER'}", flush=True)
+            bad += not ok
+    for bits, b, count in RNS_REPLAY_CASES:
+        for what, ok in compare_rns_replay(rlib, rns_ctx_at(bits), b, count):
             print(f"{what}: {'equal' if ok else 'DIFFER'}", flush=True)
             bad += not ok
     for n, mers, fw, b, lanes in CASES:

@@ -1,8 +1,9 @@
 // Entry points that run the kernel bodies of K10 (tpu_ecm_torch/csrc/
 // rns_tape.cu), K11 (csrc/rns_chain.cu), K12 and K13
-// (csrc/rns_batch_inverse.cu) and K14 (csrc/rns_replay_gather.cu), all on
-// csrc/rns_mma.cuh, on the CPU through cuda_runtime.h and mma.h beside
-// this file, on host arrays laid out as the kernels' planes:
+// (csrc/rns_batch_inverse.cu), K14 (csrc/rns_replay_gather.cu) and K15
+// (csrc/rns_replay.cu), all on csrc/rns_mma.cuh, on the CPU through
+// cuda_runtime.h and mma.h beside this file, on host arrays laid out as
+// the kernels' planes:
 //   rns_tape_run:   K10's body over the [6, 2, 2K+1, B] file in place, at
 //                   rns_tape_config's geometry for `tile`;
 //   rns_chain_run:  K11's body on one chain of `count` rows, at
@@ -14,11 +15,14 @@
 //   rns_gather_run: K14's body on one call, at rns_gather_config's
 //                   geometry for `tile`, its cp.async copies landing at
 //                   once or (late) at their wait;
+//   rns_replay_run: K15's body on one call of `count` entries, at
+//                   rns_replay_config's geometry for `tile`, its cp.async
+//                   copies landing at once or (late) at their wait;
 //   rns_reduce:     red, mulc and chan on n inputs.
 // The sources' own geometry entry points (tpuecm_rns_tape_geometry,
 // tpuecm_rns_chain_geometry, tpuecm_rns_prefix_geometry,
-// tpuecm_rns_apply_inverse_geometry, tpuecm_rns_gather_geometry) are
-// exported as they are.  All but the last
+// tpuecm_rns_apply_inverse_geometry, tpuecm_rns_gather_geometry,
+// tpuecm_rns_replay_geometry) are exported as they are.  All but the last
 // return the launch's code (0, or cudaErrorInvalidValue for a K, B, tile
 // or call shape the kernel refuses).
 #include <cstdlib>
@@ -31,6 +35,7 @@
 
 #include "rns_batch_inverse.cu"
 #include "rns_chain.cu"
+#include "rns_replay.cu"
 #include "rns_replay_gather.cu"
 #include "rns_tape.cu"
 
@@ -143,6 +148,26 @@ extern "C" int rns_gather_run(const int* acc_in, int* acc_out,
                 smem, acc_in, acc_out, scratch, pa_ext, pbx, idx, nsteps, E,
                 tab, wmma, K, B);
         });
+    });
+}
+
+extern "C" int rns_replay_run(const int* acc_in, int* acc_out,
+                              const int* pa_ext, const int* pbx,
+                              const int* idx, int count, const int* tab,
+                              const unsigned char* wmma, int K, int B,
+                              int tile, int late) {
+    if (count < 0) return cudaErrorInvalidValue;
+    RnsMmaLaunch c;
+    const int rc = rns_replay_config(K, B, tile, c);
+    if (rc != cudaSuccess) return rc;
+    emu_copy_late = late;
+    return on_blocks(c, [&](unsigned char* smem) {
+        if (c.tile == 8)
+            rns_replay_body<8>(smem, acc_in, acc_out, pa_ext, pbx, idx,
+                               count, tab, wmma, K, B);
+        else
+            rns_replay_body<4>(smem, acc_in, acc_out, pa_ext, pbx, idx,
+                               count, tab, wmma, K, B);
     });
 }
 

@@ -1,8 +1,9 @@
 // RNS Montgomery arithmetic on the tensor cores for a tile of T curves a
 // block: the CUDA twin of limbs/rns.py:mont_mul/add/sub (the plain
-// version) that K10 (csrc/rns_tape.cu), K11 (csrc/rns_chain.cu), K12 and
-// K13 (csrc/rns_batch_inverse.cu) and K14 (csrc/rns_replay_gather.cu)
-// run.  K15 stays on csrc/rns_arith.cuh.
+// version), the RNS engine's one arithmetic core, which K10
+// (csrc/rns_tape.cu), K11 (csrc/rns_chain.cu), K12 and K13
+// (csrc/rns_batch_inverse.cu), K14 (csrc/rns_replay_gather.cu) and K15
+// (csrc/rns_replay.cu) run.
 //
 // A value is 2K+1 canonical residues: rows [0, K) base A, [K, 2K) base B,
 // row 2K the r channel m_r = 2^14; device planes are [2K+1, B], curve axis

@@ -47,18 +47,18 @@
 // memory between root passes (acc_out, scratch plane 0), and so at T = 4
 // (96 registers a thread at 17 warps) does a subtree pair while its
 // sibling pair is formed (planes 1-4: rns_gather_scratch).  The index
-// entries come through a ring in shared memory, two 16-entry chunks ahead
-// (cp.async), so a leaf pass's row loads wait on no index load.  Every
-// thread reads the same entries and walks the same schedule, as the
-// barriers of mma_mul require.
-#include <cuda_pipeline_primitives.h>
-
+// entries come through the entry ring of csrc/rns_ring.cuh, two 16-entry
+// chunks ahead (cp.async), so a leaf pass's row loads wait on no index
+// load.  Every thread reads the same entries and walks the same schedule,
+// as the barriers of mma_mul require.
 #include "rns_mma.cuh"
+#include "rns_ring.cuh"
 
 #define RNS_E_MAX 16
 #define RNS_CHUNK 16            // entries staged together (RNS_E_MAX)
-#define RNS_RING 3              // chunks staged: current, next, landing
-#define RNS_GATHER_SMEM (RNS_RING * RNS_CHUNK * 8)
+
+// (pa, pb) pairs in chunks of one largest step: 384 bytes
+using GatherRing = EntryRing<2, RNS_CHUNK>;
 
 // Scratch planes of (2K+1)*B int32 a call takes at tile T: the pending
 // root, and at T = 4 the stash of two subtree pairs
@@ -69,10 +69,8 @@ __host__ __device__ constexpr int rns_gather_scratch(int T) {
 struct GatherArgs {
     const int* pa;              // pa_ext [G + 1][2K + 1][B]
     const int* pb;              // pbx [Pb][2K + 1][B]
-    const int* idx;             // the call's entries [total][2]
-    int* ring;                  // shared [RNS_RING][RNS_CHUNK][2]
+    GatherRing ring;            // the call's entries [total][2]
     int* scratch;               // [rns_gather_scratch(T)][2K + 1][B]
-    int total;                  // entries
     uint32_t row;               // (2K + 1) * B
 };
 
@@ -80,21 +78,6 @@ struct GatherArgs {
 __device__ __forceinline__ const int* plane_at(const int* t, int r,
                                                const GatherArgs& g) {
     return t + (size_t)(uint32_t)r * g.row;
-}
-
-// Entry q of the call in the ring (q in the current or the next chunk)
-__device__ __forceinline__ int* ring_entry(const GatherArgs& g, int q) {
-    return g.ring + 2 * ((q / RNS_CHUNK) % RNS_RING * RNS_CHUNK
-                         + q % RNS_CHUNK);
-}
-
-// Chunk k of the entries into the ring, one entry (8 bytes) a thread,
-// committed as one cp.async group (empty past the call's end)
-__device__ __forceinline__ void stage_chunk(const GatherArgs& g, int k) {
-    const int q = k * RNS_CHUNK + (int)threadIdx.x;
-    if (threadIdx.x < RNS_CHUNK && q < g.total)
-        __pipeline_memcpy_async(ring_entry(g, q), g.idx + 2 * (size_t)q, 8);
-    __pipeline_commit();
 }
 
 // d = sub(pa_ext[e[0]], pbx[e[1]])
@@ -171,7 +154,7 @@ inline bool gather_args_ok(int nsteps, int E) {
 
 // K14's launch at `tile` (0: rns_mma_tile's beside the entry ring)
 inline int rns_gather_config(int K, int B, int tile, RnsMmaLaunch& c) {
-    return rns_paired_config(K, B, tile, RNS_GATHER_SMEM, c);
+    return rns_paired_config(K, B, tile, GatherRing::kBytes, c);
 }
 
 // The kernel body on one block (smem: the entry ring, then
@@ -184,24 +167,24 @@ __device__ __forceinline__ void rns_replay_gather_body(
         const int* pa_ext, const int* pbx, const int* idx, int nsteps, int E,
         const int* tab, const unsigned char* wmma, int K, int B) {
     MmaCtx L;
-    mma_setup<T, H>(L, smem + RNS_GATHER_SMEM, tab, wmma, K, B);
-    const GatherArgs g{pa_ext, pbx, idx, reinterpret_cast<int*>(smem),
-                       scratch, nsteps * E, (uint32_t)(2 * K + 1) * B};
-    stage_chunk(g, 0);
-    stage_chunk(g, 1);
+    mma_setup<T, H>(L, smem + GatherRing::kBytes, tab, wmma, K, B);
+    const GatherArgs g{pa_ext, pbx,
+                       {reinterpret_cast<int*>(smem), idx, nsteps * E},
+                       scratch, (uint32_t)(2 * K + 1) * B};
+    g.ring.stage(0);
+    g.ring.stage(1);
     {
         MV acc;
         load_mv(acc, acc_in, L);
         store_mv(acc_out, acc, L);
     }
-    __pipeline_wait_prior(0);
-    __syncthreads();
+    g.ring.land();
     int lg = 0;
     while ((1 << lg) < E) ++lg;
     for (int s = 0, c = 0; s < nsteps; ++c) {
-        stage_chunk(g, c + 2);
+        g.ring.stage(c + 2);
         for (int k = 0; k < RNS_CHUNK / E && s < nsteps; ++k, ++s) {
-            const int* e = ring_entry(g, s * E);
+            const int* e = g.ring.entry(s * E);
             MV acc, root;
             if (E == 1) {
                 gather_diff(root, e, g, L);
@@ -222,8 +205,7 @@ __device__ __forceinline__ void rns_replay_gather_body(
             }
             store_mv(scratch, root, L);
         }
-        __pipeline_wait_prior(0);       // chunk c + 2 landed
-        __syncthreads();
+        g.ring.land();                  // chunk c + 2 landed
     }
     if (E > 1 && nsteps > 0) {
         MV acc, root;

@@ -83,7 +83,7 @@ class RunConfig:
     # radix exists, RNS above the digit engine's bound)
     engine: str = "auto"
     # stage-2 replay mode (stage2/exec.py:REPLAY_MODES): None takes the
-    # engine's default (stream on digits, gather on RNS); "stream",
+    # engine's default (stream on both engines); "stream",
     # "gather", "parow" or "resident" choose one for tests and
     # measurements; a mode the engine has no kernel for raises
     replay: Optional[str] = None

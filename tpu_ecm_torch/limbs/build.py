@@ -26,7 +26,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "tpu_ecm_torch")
 HEADERS = ("arith.cuh", "arith_lanes.cuh", "replay_passes.cuh",
-           "rns_arith.cuh", "rns_mma.cuh")
+           "rns_mma.cuh", "rns_ring.cuh")
 SOURCES = ("tape.cu", "chain.cu", "batch_inverse.cu", "replay.cu",
            "replay_gather.cu", "replay_resident.cu", "ed_tape.cu",
            "rns_tape.cu", "rns_chain.cu", "rns_batch_inverse.cu",
@@ -82,7 +82,9 @@ SIGNATURES = {
     "tpuecm_rns_apply_inverse": [_P, _P, _P, _P, _P, _I, _P, _P, _I, _I,
                                  _I, _P],
     "tpuecm_rns_apply_inverse_geometry": [_I, _I, _I, _P],
-    "tpuecm_rns_replay": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
+    "tpuecm_rns_replay": [_P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I,
+                          _P],
+    "tpuecm_rns_replay_geometry": [_I, _I, _I, _P],
     "tpuecm_rns_replay_gather": [_P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _I,
                                  _I, _I, _P],
     "tpuecm_rns_gather_geometry": [_I, _I, _I, _P],

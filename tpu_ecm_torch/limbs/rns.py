@@ -1,7 +1,6 @@
 """RNS (residue number system) Montgomery arithmetic: the twin of
-tpu_ecm/limbs/rns.py, and the plain version of the RNS arithmetic cores of
-the CUDA kernels (csrc/rns_mma.cuh for K10-K14, csrc/rns_arith.cuh for
-K15).
+tpu_ecm/limbs/rns.py, and the plain version of the RNS arithmetic core of
+the CUDA kernels K10-K15 (csrc/rns_mma.cuh).
 
 A value is held as its residues in 2K+1 channels, planes [..., 2K+1, B]
 with the curve axis last: rows [0, K) are base A = {p_1..p_K}, rows
@@ -190,7 +189,7 @@ def make_rns(ctx: MontyCtx, cw: int = 12) -> RnsHost:
 class RnsCtx:
     """The constant tables of one modulus as int32 tensors on one device
     (the twin of rns.RnsCtx without its TPU-only split tables), plus the
-    arrays the CUDA kernels read (`tab`, `wpk`: kernel_tables; `wmma`:
+    arrays the CUDA kernels read (`tab`: kernel_tables; `wmma`:
     mma_weights)."""
     p: torch.Tensor          # [2K+1, 1] channel moduli, rows [A | B | r]
     c1: torch.Tensor         # [K, 1]
@@ -205,7 +204,6 @@ class RnsCtx:
     comp_a: torch.Tensor     # [K, 1]
     f_sub: torch.Tensor      # [2K+1, 1]
     tab: torch.Tensor        # flat per-row constants (kernel_tables)
-    wpk: torch.Tensor        # W1, W2 as packed 16-bit pairs (kernel_tables)
     wmma: torch.Tensor       # W1, W2 as padded u8 planes (mma_weights)
     K: int
     mr_shift: int
@@ -219,25 +217,16 @@ class RnsCtx:
         return self.p.device
 
 
-def kernel_tables(t: Dict[str, np.ndarray], K: int
-                  ) -> Tuple[np.ndarray, np.ndarray]:
-    """The kernels' view of the tables (csrc/rns_arith.cuh, RnsLane):
-
-    tab  int32 [9K+5]: p[0..2K] | c1[0..K) | pinv_br[0..K] | npinv_br[0..K]
-         | qdivinv[0..K) | qmod_ar[0..K) | f_sub[0..2K] | qinv_r
-    wpk  int32 [2, K/2, K+1]: wpk[m, i, j] = W[2i, j] | W[2i+1, j] << 16 for
-         W = w1 (m=0), w2 (m=1); every weight is below 2^14.
-    """
+def kernel_tables(t: Dict[str, np.ndarray], K: int) -> np.ndarray:
+    """The kernels' per-row constants (csrc/rns_mma.cuh, RNS_TAB_*):
+    int32 [9K+5]: p[0..2K] | c1[0..K) | pinv_br[0..K] | npinv_br[0..K] |
+    qdivinv[0..K) | qmod_ar[0..K) | f_sub[0..2K] | qinv_r."""
     if K % 2:
         raise ValueError(f"K={K} must be even")
-    tab = np.concatenate([
+    return np.concatenate([
         t["p"][:, 0], t["c1"][:, 0], t["pinv_br"][:, 0], t["npinv_br"][:, 0],
         t["qdivinv"][:, 0], t["qmod_ar"][:K, 0], t["f_sub"][:, 0],
         t["qinv_r"][:, 0]]).astype(np.int32)
-    wpk = np.stack([w[0::2].astype(np.uint32)
-                    | (w[1::2].astype(np.uint32) << 16)
-                    for w in (t["w1"], t["w2"])]).view(np.int32)
-    return tab, wpk
 
 
 def mma_weights(t: Dict[str, np.ndarray], K: int) -> np.ndarray:
@@ -262,7 +251,7 @@ def make_ctx(tables: Dict[str, np.ndarray], K: int, mr_shift: int,
              device) -> RnsCtx:
     """RnsCtx on `device` from numpy tables (make_rns's, or the leaves of a
     JAX RnsCtx through convert.rns_ctx)."""
-    tab, wpk = kernel_tables(tables, K)
+    tab = kernel_tables(tables, K)
     on = lambda a: torch.from_numpy(np.array(a, dtype=np.int32)).to(device)
     w = mma_weights(tables, K)
     # a tensor of its own: torch's allocators align it for the tensor-core
@@ -270,7 +259,7 @@ def make_ctx(tables: Dict[str, np.ndarray], K: int, mr_shift: int,
     wmma = torch.empty(w.shape, dtype=torch.uint8, device=device)
     wmma.copy_(torch.from_numpy(w))
     return RnsCtx(**{k: on(tables[k]) for k in TABLES}, tab=on(tab),
-                  wpk=on(wpk), wmma=wmma, K=K, mr_shift=mr_shift)
+                  wmma=wmma, K=K, mr_shift=mr_shift)
 
 
 def device_ctx(host: RnsHost, device) -> RnsCtx:

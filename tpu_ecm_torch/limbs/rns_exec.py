@@ -21,20 +21,21 @@ import torch
 from ..curve.ops import NUM_SLOTS, OP_ADD, OP_DUP
 from . import rns
 
-# curves one block of every RNS kernel works on (csrc/rns_arith.cuh
-# RNS_TILE)
-TILE = 4
+# curves a block of every RNS kernel at K <= 222 (csrc/rns_mma.cuh,
+# rns_mma_tile: the u8 weight planes resident in shared memory)
+TILE = 8
 
 
 def default_batch(device: torch.device) -> int:
-    """Curves per batch on a card.  Each RNS kernel runs one block per
-    TILE curves, and at K <= 232 a block keeps both extension matrices in
-    shared memory, so one block fills an SM: 2*SMs*TILE curves give every
-    SM two blocks (1056 on an H100 SXM), and a larger batch only adds
-    waves.  (K > 232 streams the matrices from L2 and takes the same
-    batch.)"""
+    """Curves per batch on a card.  Each RNS kernel (csrc/rns_mma.cuh) runs
+    one block per tile of TILE curves, and at K <= 222 a block keeps the
+    four u8 weight planes in shared memory (213,024 bytes at K = 200), so
+    one block fills an SM: SMs*TILE curves give every SM one block (1056 on
+    an H100 SXM), and a larger batch only adds waves.  (Past K = 222 a
+    block takes 4 curves and reads the weights from the global table; the
+    batch stays the same.)"""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return 2 * sms * TILE
+    return sms * TILE
 
 
 # ---------------------------------------------------------------------------

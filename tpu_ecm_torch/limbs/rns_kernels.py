@@ -6,13 +6,14 @@ shape and contiguity, runs the plain version for CPU tensors, launches the
 kernel on the current stream for CUDA tensors (never the plain version),
 raises for anything else, and counts its launches in kernels.launches.
 Planes are int32 [..., 2K+1, B] residue planes, curve axis last; the plain
-version of K10 is rns_exec.run_tape.  K10 (at tape_geometry's tile), K11
-(at chain_geometry's tile and halves), K12 (at prefix_geometry's), K13 (at
-apply_inverse_geometry's) and K14 (at gather_geometry's) run on the
-tensor-core core csrc/rns_mma.cuh, K15 on csrc/rns_arith.cuh.  Every
-kernel gives the plain version's residues exactly (K15 too: both multiply
-acc by one difference per entry, in entry order; K14: both multiply each
-step's differences in the same pairwise tree).
+version of K10 is rns_exec.run_tape.  All six run on the tensor-core core
+csrc/rns_mma.cuh, the RNS engine's one arithmetic core: K10 at
+tape_geometry's tile, K11 at chain_geometry's tile and halves, K12 at
+prefix_geometry's, K13 at apply_inverse_geometry's, K14 at
+gather_geometry's and K15 at replay_geometry's.  Every kernel gives the
+plain version's residues exactly (K15: both multiply acc by one difference
+per entry, in entry order; K14: both multiply each step's differences in
+the same pairwise tree).
 """
 
 from __future__ import annotations
@@ -135,6 +136,17 @@ def gather_geometry(K: int, b: int, lib=None, tile: int = 0
     return GatherGeometry(*g[:5], bool(g[5]), g[6])
 
 
+def replay_geometry(K: int, b: int, lib=None, tile: int = 0
+                    ) -> TapeGeometry:
+    """K15's launch at K and B curves, as csrc/rns_replay.cu:
+    rns_replay_config picks it (tpuecm_rns_replay_geometry): K12's, one
+    product a pass, with the 768-byte entry ring beside the core (T = 8
+    with the weights resident up to K = 222, T = 4 past it).  A `tile`
+    other than 0 asks for that tile's launch."""
+    g = _geometry("tpuecm_rns_replay_geometry", K, b, tile, 5, lib)
+    return TapeGeometry(*g[:4], bool(g[4]))
+
+
 def _on_cpu(name: str, rc: RnsCtx) -> bool:
     """True for the plain version (CPU tensors), False for the kernel."""
     kind = rc.device.type
@@ -146,10 +158,6 @@ def _on_cpu(name: str, rc: RnsCtx) -> bool:
         raise ValueError(f"{name}: K={rc.K} outside the kernels' even "
                          f"2 <= K <= {rns.K_MAX}")
     return False
-
-
-def _ctx_args(rc: RnsCtx):
-    return (rc.tab.data_ptr(), rc.wpk.data_ptr(), rc.K)
 
 
 def tape(pts: torch.Tensor, tape_np: np.ndarray, s_const: torch.Tensor,
@@ -260,10 +268,11 @@ def replay(acc: torch.Tensor, pa_ext: torch.Tensor, pbx: torch.Tensor,
     if _on_cpu("rns_replay", rc):
         return replay_plain(acc, pa_ext, pbx, idx, rc)
     out = torch.empty_like(acc)
-    dev = torch.from_numpy(idx).to(acc.device)
+    dev = torch.from_numpy(idx[1:1 + live.size]).to(acc.device)
     _done("rns_replay", build.library().tpuecm_rns_replay(
         acc.data_ptr(), out.data_ptr(), pa_ext.data_ptr(), pbx.data_ptr(),
-        dev.data_ptr(), *_ctx_args(rc), b, _stream()))
+        dev.data_ptr(), live.size, rc.tab.data_ptr(), rc.wmma.data_ptr(),
+        rc.K, b, replay_geometry(rc.K, b).tile, _stream()))
     return out
 
 

@@ -178,7 +178,9 @@ class RnsOps:
     K10-K15 (no shared-Pa-row replay: tpu_ecm has none for RNS)."""
 
     replay_kernels = {"stream": "rns_replay", "gather": "rns_replay_gather"}
-    default_replay = "gather"
+    # K15 takes 80% of K14's time a live entry on the rns job's first call
+    # (K=200, B=1024; PERF.md), as tpu_ecm streams (rns_exec.py:772)
+    default_replay = "stream"
 
     def __init__(self, host: rns.RnsHost, rc: rns.RnsCtx):
         self.host, self.rc = host, rc

@@ -113,6 +113,16 @@ result and its seconds; any failure raises and exits non-zero.
               replay kernel and no other, and the modes' (factor, stage,
               sigma) sets (with a stage-2 find) and paired/ptadds/numinv
               counters must be identical
+  9 surface   the rest of the single-process surface at phase 8's full
+              width: phase 8's digit job with cross="noinv" (its finds a
+              subset of the stream run's, with a stage-2 find; numinv 0;
+              K1 and K2 launched, K3-K8 not; its entries and stage-2
+              seconds printed); resume_stage2 of phase 8's digit and RNS
+              stream save_b1.txt (copies) to their B2 (the stream runs'
+              finds and paired counts; the engine's stage-2 kernels
+              launched, on RNS no digit kernel); stage 1 of the digit job
+              with full_prac=True (its residues the reduced rule set's as
+              points, K1 launched)
 
 The last three lines are the kernels' JSON record (with each kernel's
 bound: the larger of its multiply-adds over the card's int32 rate and its
@@ -1628,11 +1638,13 @@ def replay_n() -> int:
     return n
 
 
-def phase_replay(tmp, record):
+def phase_replay(tmp, record, runs):
     """The replay modes at full width (stop_on_factor=False): each run
     launches its mode's kernel and no other replay kernel, and the modes'
     (factor, stage, sigma) sets, with at least one stage-2 find, and their
-    paired, ptadds and numinv counters are identical."""
+    paired, ptadds and numinv counters are identical.  Each run's finds,
+    counters, stage-1 residues and a copy of its save_b1.txt go into
+    runs[(engine, mode)] for phase 9."""
     from tpu_ecm_torch.limbs import kernels
     lines = []
     for engine, n, j, modes in (
@@ -1650,6 +1662,7 @@ def phase_replay(tmp, record):
                         stop_on_factor=False)
             res = d.run()
             wall = time.time() - t0
+            t = res.timings
             counts = _launches(record, f"replay_{engine}_{mode}", names)
             own = _ops(engine).replay_kernels[mode]
             if not counts[own] or any(c for k, c in counts.items()
@@ -1660,7 +1673,13 @@ def phase_replay(tmp, record):
                            for h in res.factors},
                           tuple(res.counters[k]
                                 for k in ("paired", "ptadds", "numinv")))
-            t = res.timings
+            save = os.path.join(tmp, f"save_b1_{engine}_{mode}.txt")
+            shutil.copy(os.path.join(tmp, f"{engine}_{mode}", "save_b1.txt"),
+                        save)
+            runs[(engine, mode)] = dict(
+                n=n, job=j, finds=seen[mode][0], counters=res.counters,
+                residues=res.stage1_residues, save=save, wall=wall,
+                timings=t)
             lines.append(
                 f"{engine} {mode}: {j['curves'] / wall:.2f} curves/s, "
                 f"stage1 {t['stage1']:.2f} s, stage2_init "
@@ -1678,6 +1697,109 @@ def phase_replay(tmp, record):
                      f"curves, B1={j['b1']}, B2={j['b2']}): {len(ref[0])} "
                      f"finds ({sum(st == 2 for _f, st, _s in ref[0])} in "
                      f"stage 2), identical in {', '.join(modes)}")
+    return "; ".join(lines)
+
+
+def _finds_line(hits) -> str:
+    return (f"{len(hits)} finds ({sum(st == 2 for _f, st, _s in hits)} in "
+            f"stage 2)")
+
+
+def phase_surface(tmp, record, runs):
+    """The rest of the single-process surface at phase 8's full width:
+    noinv (cross="noinv") on phase 8's digit job, whose finds must be a
+    subset of the stream run's with a stage-2 find, no inversion, K1 and
+    K2 launched and K3-K8 not; resume_stage2 of phase 8's digit and RNS
+    stream save_b1.txt to their B2, with the stream runs' finds and paired
+    counts, the engine's stage-2 kernels launched and (RNS) no digit
+    kernel; and stage 1 of the digit job with full_prac=True, whose
+    residues must equal the reduced rule set's as points (X1*Z2 = X2*Z1
+    mod n: another chain, the same point) with K1 launched."""
+    from tpu_ecm_torch import driver
+    from tpu_ecm_torch.limbs import kernels
+    lines = []
+    ref = runs[("digit", "stream")]
+    n, j = ref["n"], ref["job"]
+
+    kernels.reset_launches()
+    t0 = time.time()
+    res = _run(os.path.join(tmp, "noinv"), n=n, curves=j["curves"],
+               b1=j["b1"], b2=j["b2"], sigma=j["sigma"], engine="digit",
+               cross="noinv", stop_on_factor=False)
+    wall = time.time() - t0
+    counts = _launches(record, "surface_noinv", (
+        "tape", "chain", "prefix", "apply_inverse", "replay",
+        "replay_gather", "replay_parow", "replay_resident"))
+    hits = {(h.factor, h.stage, h.sigma) for h in res.factors}
+    if (not counts["tape"] or not counts["chain"]
+            or any(c for k, c in counts.items() if k not in ("tape",
+                                                            "chain"))):
+        raise AssertionError(f"noinv launches: {counts}")
+    if (not hits <= ref["finds"] or not any(st == 2 for _f, st, _s in hits)
+            or res.counters["numinv"]):
+        raise AssertionError(f"noinv: finds {sorted(hits)} not a subset of "
+                             f"stream's with a stage-2 find, or numinv "
+                             f"{res.counters['numinv']}")
+    t = res.timings
+    lines.append(f"noinv: {res.counters['paired']} entries, stage1 "
+                 f"{t['stage1']:.2f} s, stage2_init {t['stage2_init']:.2f} "
+                 f"s, stage2 {t['stage2']:.2f} s (stream's "
+                 f"{ref['timings']['stage2']:.2f}), wall {wall:.2f} s, "
+                 f"{_finds_line(hits)} of stream's "
+                 f"{_finds_line(ref['finds'])}, numinv 0, launches {counts}")
+    print("  " + lines[-1], flush=True)
+
+    for engine in ("digit", "rns"):
+        r = runs[(engine, "stream")]
+        kernels.reset_launches()
+        t0 = time.time()
+        res = driver.resume_stage2(
+            r["save"], r["job"]["b2"], verbose=0, device="cuda",
+            engine=engine, results_path=os.path.join(tmp, f"resume_{engine}.txt"))
+        wall = time.time() - t0
+        names = _job_kernels(engine)
+        counts = _launches(record, f"surface_resume_{engine}", names)
+        stage2 = [k for k in names if k not in ("tape", "rns_tape")]
+        other = {k: c for k, c in kernels.launches.items()
+                 if c and k not in names}
+        hits = {(h.factor, h.stage, h.sigma) for h in res.factors}
+        if hits != r["finds"] or (res.counters["paired"]
+                                  != r["counters"]["paired"]):
+            raise AssertionError(
+                f"resume {engine}: finds missing {sorted(r['finds'] - hits)}"
+                f", extra {sorted(hits - r['finds'])}, paired "
+                f"{res.counters['paired']} against {r['counters']['paired']}")
+        if not all(counts[k] for k in stage2) or other:
+            raise AssertionError(f"resume {engine} launches: {counts}, "
+                                 f"others {other}")
+        t = res.timings
+        lines.append(f"resume {engine} ({res.curves_run} records to B2="
+                     f"{r['job']['b2']}): build {t['build']:.2f} s, "
+                     f"stage2_init {t['stage2_init']:.2f} s, stage2 "
+                     f"{t['stage2']:.2f} s, wall {wall:.2f} s, "
+                     f"{_finds_line(hits)} as phase 8's stream run, paired "
+                     f"{res.counters['paired']}, launches {counts}")
+        print("  " + lines[-1], flush=True)
+
+    kernels.reset_launches()
+    t0 = time.time()
+    res = _run(os.path.join(tmp, "full_prac"), n=n, curves=j["curves"],
+               b1=j["b1"], b2=j["b1"], sigma=j["sigma"], engine="digit",
+               full_prac=True, stop_on_factor=False)
+    wall = time.time() - t0
+    counts = _launches(record, "surface_full_prac", ("tape",))
+    pairs = list(zip(res.stage1_residues, ref["residues"]))
+    if (len(pairs) != j["curves"] or not counts["tape"]
+            or any(s1 != s2 or (x1 * z2 - x2 * z1) % n
+                   for (s1, x1, z1), (s2, x2, z2) in pairs)):
+        raise AssertionError("full PRAC: stage-1 residues differ from the "
+                             f"reduced rule set's, or K1 launches {counts}")
+    lines.append(f"full PRAC: stage 1 {res.timings['stage1']:.2f} s "
+                 f"(reduced: {ref['timings']['stage1']:.2f}), "
+                 f"{res.counters['ptadds']} adds and "
+                 f"{res.counters['ptdups']} doublings, {len(pairs)} "
+                 f"residues equal as points, wall "
+                 f"{wall:.2f} s, launches {counts}")
     return "; ".join(lines)
 
 
@@ -1797,10 +1919,13 @@ def main() -> int:
             return 0
         phase("kernels", lambda: phase_kernels(record))
         phase("oracle", lambda: phase_oracle(tmp))
+        runs = {}
         for name, fn in (("flagship", phase_flagship), ("rns", phase_rns),
                          ("mersenne", phase_mersenne),
                          ("edwards", phase_edwards),
-                         ("replay", phase_replay)):
+                         ("replay", lambda t, r: phase_replay(t, r, runs)),
+                         ("surface",
+                          lambda t, r: phase_surface(t, r, runs))):
             phase(name, lambda: fn(os.path.join(tmp, name), record))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)

@@ -210,7 +210,9 @@ def test_cli_runs_on_cpu(tmp_path, capsys, monkeypatch):
     assert rc == 0
     assert str(P35) in capsys.readouterr().out
     assert os.path.exists(tmp_path / "save_b1.txt")
-    assert cli.main(["-resume", "save_b1.txt", "1000"]) == 1
+    assert cli.main(["-device", "cpu", "-resume", "save_b1.txt",
+                     "1000"]) == 0
+    assert "resumed 2 curves" in capsys.readouterr().out
     rc = cli.main(["-device", "cpu", "2^101-1", "2", "100", "0", "100",
                    "900"])
     assert rc == 0 and "2^101-1" in capsys.readouterr().out

@@ -7,8 +7,9 @@ ragged batches, at their K edges, a refused launch and their ptxas
 reports, K11 also at counts 1, 2 and G - 1, K12 and K13 at counts 1, 2
 and G, K15 at counts 0-3 at both tiles), the golden sweep
 and the reference's t35 acceptance sweep through the port, and the RNS engine's, the Mersenne
-fold's, the Edwards curves' and the stage-2 replay modes' finds through
-the driver on the card.
+fold's, the Edwards curves', the stage-2 replay modes', the noinv form's
+and resume_stage2's finds through the driver on the card (and noinv's
+row-sliced products).
 
 The card has no JAX, so run them from the repository root without the
 JAX conftest:
@@ -1189,6 +1190,74 @@ def test_replay_modes_on_card(cuda, tmp_path, engine, mode):
     own = (DigitOps if engine == "digit" else RnsOps).replay_kernels
     assert kernels.launches[own[mode]] >= 1
     assert not any(kernels.launches[k] for m, k in own.items() if m != mode)
+
+
+def test_noinv_finds_on_card(cuda, tmp_path):
+    """cross="noinv" through the driver on the card: N71 finds P35 in
+    stage 2 at sigma 112, its finds are a subset of the inv run's, no
+    inversion runs, and K1 and K2 launch but no K3-K8."""
+    import chip_smoke
+    from tpu_ecm_torch import driver
+    from tpu_ecm_torch.limbs import kernels
+    kw = dict(n=chip_smoke.N71, curves=4, b1=300, b2=10000, sigma=110,
+              stop_on_factor=False)
+    inv = driver.ECMDriver(_run_cfg(tmp_path, **kw)).run()
+    kernels.reset_launches()
+    (tmp_path / "noinv").mkdir()
+    res = driver.ECMDriver(_run_cfg(tmp_path / "noinv", cross="noinv",
+                                    **kw)).run()
+    hits = {(h.factor, h.stage, h.sigma) for h in res.factors}
+    assert (chip_smoke.P35, 2, 112) in hits
+    assert hits <= {(h.factor, h.stage, h.sigma) for h in inv.factors}
+    assert res.counters["numinv"] == 0
+    assert kernels.launches["tape"] and kernels.launches["chain"]
+    assert not any(kernels.launches[k] for k in (
+        "prefix", "apply_inverse", "replay", "replay_gather",
+        "replay_parow", "replay_resident"))
+
+
+def test_noinv_row_slices_on_card(cuda):
+    """The noinv products (DigitOps.mul_planes) on card tensors at N416,
+    B=2048: cut into 7-row slices, in the slices the card's free memory
+    gives, and on the CPU, the digits are equal."""
+    import numpy as np
+
+    import chip_smoke
+    from tpu_ecm_torch import params
+    from tpu_ecm_torch.limbs import torch_ops
+    from tpu_ecm_torch.stage2.exec import DigitOps
+    ctx = params.make_monty(chip_smoke.N416)
+    rng = np.random.default_rng(3)
+    a, b = (chip_smoke._rand_planes(rng, ctx, (40, ctx.p.nw, 2048))
+            for _ in range(2))
+    ops = DigitOps(ctx, torch_ops.device_ctx(ctx, cuda))
+    assert ops._rows_per_product(2048) >= 1
+    whole = ops.mul_planes(a, b)
+    ops.row_slice = 7
+    sliced = ops.mul_planes(a, b)
+    cpu = DigitOps(ctx, torch_ops.device_ctx(ctx, "cpu")).mul_planes(
+        a.cpu(), b.cpu())
+    assert torch.equal(whole, sliced) and torch.equal(whole.cpu(), cpu)
+
+
+@pytest.mark.parametrize("engine", ["digit", "rns"])
+def test_resume_on_card(cuda, tmp_path, engine):
+    """resume_stage2 on the card: N71's stage-1 file (4 curves from sigma
+    110, B1=300) resumed to B2=10000 finds P35 at sigma 112 in stage 2,
+    through the engine's stage-2 kernels."""
+    import chip_smoke
+    from tpu_ecm_torch import driver
+    from tpu_ecm_torch.limbs import kernels
+    driver.ECMDriver(_run_cfg(tmp_path, n=chip_smoke.N71, curves=4, b1=300,
+                              b2=300, sigma=110, engine=engine)).run()
+    kernels.reset_launches()
+    res = driver.resume_stage2(str(tmp_path / "save_b1.txt"), 10000,
+                               verbose=0, device="cuda", engine=engine,
+                               results_path=str(tmp_path / "r.txt"))
+    assert (chip_smoke.P35, 2, 112) in {(h.factor, h.stage, h.sigma)
+                                        for h in res.factors}
+    assert all(kernels.launches[k] for k in chip_smoke._job_kernels(engine)
+               if k not in ("tape", "rns_tape"))
 
 
 def test_resident_refused_launch_raises(cuda):

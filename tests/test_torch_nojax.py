@@ -1,7 +1,8 @@
 """The machine with the GPU has no JAX, and the port imports nothing of the
 JAX package: every module of tpu_ecm_torch (and chip_smoke.py) must import,
-and the CLI must run to the N71 stage-2 find, with `import jax` and
-`import tpu_ecm` failing; and no source line of the port imports either."""
+and the CLI must run to the N71 stage-2 find and resume its save_b1.txt to
+the same find (-resume), with `import jax` and `import tpu_ecm` failing;
+and no source line of the port imports either."""
 
 import glob
 import os
@@ -29,6 +30,7 @@ for m in pkgutil.walk_packages(tpu_ecm_torch.__path__, "tpu_ecm_torch."):
         importlib.import_module(m.name)
 from tpu_ecm_torch.io import cli
 rc = cli.main(["-device", "cpu", "{N71}", "4", "300", "0", "10000", "110"])
+rc = rc or cli.main(["-device", "cpu", "-resume", "save_b1.txt", "10000"])
 loaded = [k for k, v in sys.modules.items()
           if v is not None and (k == "jax" or k.startswith(("jax.", "jaxlib"))
                                 or k == "tpu_ecm" or k.startswith("tpu_ecm."))]
@@ -45,6 +47,8 @@ def test_port_runs_without_jax(tmp_path):
     assert res.returncode == 0, res.stdout[-2000:] + res.stderr[-4000:]
     assert "found PRP11 factor 34359738421 in stage 2" in res.stdout
     assert (tmp_path / "save_b1.txt").exists()
+    assert ("final: PRP11 factor 34359738421 (stage 2, sigma 112)\n"
+            "resumed 4 curves") in res.stdout
 
 
 IMPORT_RE = re.compile(r"^\s*(from\s+(tpu_ecm|jax|jaxlib)(\.|\s)"

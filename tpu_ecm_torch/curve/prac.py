@@ -6,7 +6,12 @@ package's curve/ops.py; tests/test_torch_curve.py keeps the tapes equal.
 Re-derivation of the reference prac()/lucas_cost() (same golden-ratio
 candidate table, same active condition set 3/4/5/9 — the non-ORIG_PRAC
 variant, reference ecm.c:459-884) emitting a register-renamed
-instruction tape instead of executing point ops inline.  Pointer swaps in
+instruction tape instead of executing point ops inline.  `full=True`
+selects all nine rules instead (1, 2, 6, 7 and 8 added: the analog of the
+reference's ORIG_PRAC, tpu_ecm's RunConfig.full_prac); each extra rule
+keeps p = d*mult(A) + e*mult(B) with C = +-(A - B), and the default stays
+the reduced set, which is 0.08% cheaper on the B1=1e6 schedule at these
+weights.  Pointer swaps in
 the reference become virtual->physical renaming here, so the device sees a
 pure ADD/DUP stream (see curve/ops.py).
 
@@ -39,7 +44,7 @@ VAL = (0.61803398874989485, 0.72360679774997897, 0.58017872829546410,
        0.61807966846989581)
 
 
-def lucas_cost(n: int, v: float) -> float:
+def lucas_cost(n: int, v: float, full: bool = False) -> float:
     """Weighted mul count of the PRAC chain for n at ratio v (branch order
     identical to prac_tape)."""
     d = n
@@ -52,7 +57,13 @@ def lucas_cost(n: int, v: float) -> float:
     while d != e:
         if d < e:
             d, e = e, d
-        if (d + 3) // 4 <= e:
+        if full and 4 * d <= 5 * e and (d + e) % 3 == 0:
+            d, e = (2 * d - e) // 3, (2 * e - d) // 3
+            c += 3 * ADD_COST
+        elif full and 4 * d <= 5 * e and (d - e) % 6 == 0:
+            d = (d - e) // 2
+            c += ADD_COST + DUP_COST
+        elif (d + 3) // 4 <= e:
             d -= e
             c += ADD_COST
         elif (d + e) % 2 == 0:
@@ -61,6 +72,15 @@ def lucas_cost(n: int, v: float) -> float:
         elif d % 2 == 0:
             d //= 2
             c += ADD_COST + DUP_COST
+        elif full and d % 3 == 0:
+            d = d // 3 - e
+            c += 3 * ADD_COST + DUP_COST
+        elif full and (d + e) % 3 == 0:
+            d = (d - 2 * e) // 3
+            c += 3 * ADD_COST + DUP_COST
+        elif full and (d - e) % 3 == 0:
+            d = (d - e) // 3
+            c += 3 * ADD_COST + DUP_COST
         else:
             e //= 2
             c += ADD_COST + DUP_COST
@@ -69,13 +89,13 @@ def lucas_cost(n: int, v: float) -> float:
     return c
 
 
-def best_ratio(n: int) -> float:
+def best_ratio(n: int, full: bool = False) -> float:
     """argmin over the 10 candidates (strict-improvement tie-breaking as in
     reference ecm.c:574-582)."""
     cmin = ADD_COST * n
     besti = 0
     for i, v in enumerate(VAL):
-        c = lucas_cost(n, v)
+        c = lucas_cost(n, v, full=full)
         if c < cmin:
             cmin = c
             besti = i
@@ -90,7 +110,7 @@ class _RegFile:
     """
 
     def __init__(self):
-        self.v2p = {"A": None, "B": 0, "C": 0, "T": None}
+        self.v2p = {"A": None, "B": 0, "C": 0, "T": None, "T2": None}
 
     def slot(self, v: str) -> int:
         s = self.v2p[v]
@@ -122,10 +142,12 @@ class _RegFile:
             self.v2p[dst] = old[src]
 
 
-def prac_tape(p: int, out: List[Tuple[int, int, int, int, int]]) -> None:
-    """Append the PRAC chain for (prime) p to the tape.  P is slot 0 in and
-    out.  Mirrors reference ecm.c:565-884 step for step."""
-    v = best_ratio(p)
+def prac_tape(p: int, out: List[Tuple[int, int, int, int, int]],
+              full: bool = False) -> None:
+    """Append the PRAC chain for (prime) p to the tape, with the reduced
+    rule set or (full) all nine rules.  P is slot 0 in and out.  Mirrors
+    reference ecm.c:565-884 step for step."""
+    v = best_ratio(p, full=full)
     r = int(p * v + 0.5)
     d = p - r
     e = 2 * r - p
@@ -137,7 +159,26 @@ def prac_tape(p: int, out: List[Tuple[int, int, int, int, int]]) -> None:
         if d < e:
             d, e = e, d
             rf.rename({"A": "B", "B": "A"})
-        if (d + 3) // 4 <= e:
+        if full and 4 * d <= 5 * e and (d + e) % 3 == 0:
+            # condition 1: T = A+B (diff C); T2 = T+A (diff B);
+            # B = T+B (diff A); A = T2   [C unchanged: +-(A'-B') = +-(a-b)]
+            d, e = (2 * d - e) // 3, (2 * e - d) // 3
+            sa, sb, sc = rf.slot("A"), rf.slot("B"), rf.slot("C")
+            st = rf.write_target("T")
+            out.append((OP_ADD, st, sa, sb, sc))
+            st2 = rf.write_target("T2")
+            out.append((OP_ADD, st2, st, sa, sb))
+            dst = rf.write_target("B")
+            out.append((OP_ADD, dst, st, sb, sa))
+            rf.rename({"A": "T2"})
+        elif full and 4 * d <= 5 * e and (d - e) % 6 == 0:
+            # condition 2: B = A + B (diff C); A = 2A
+            d = (d - e) // 2
+            sa, sb, sc = rf.slot("A"), rf.slot("B"), rf.slot("C")
+            dst = rf.write_target("B")
+            out.append((OP_ADD, dst, sa, sb, sc))
+            out.append((OP_DUP, rf.write_target("A"), sa, 0, 0))
+        elif (d + 3) // 4 <= e:
             # condition 3: T = B + A (diff C); then rotate (B,T,C) <- (T,C,B)
             d -= e
             sb, sa, sc = rf.slot("B"), rf.slot("A"), rf.slot("C")
@@ -158,6 +199,47 @@ def prac_tape(p: int, out: List[Tuple[int, int, int, int, int]]) -> None:
             dst = rf.write_target("C")
             out.append((OP_ADD, dst, sc, sa, sb))
             out.append((OP_DUP, rf.write_target("A"), sa, 0, 0))
+        elif full and d % 3 == 0:
+            # condition 6: T = 2A; T2 = A+B (diff C); A = T+A (diff A);
+            # B = T+T2 (diff C) written onto T2's slot; C = old B
+            # (the new +-(A-B) = 3a-(3a+b) is the OLD b)
+            d = d // 3 - e
+            sa, sb, sc = rf.slot("A"), rf.slot("B"), rf.slot("C")
+            st = rf.write_target("T")
+            out.append((OP_DUP, st, sa, 0, 0))
+            st2 = rf.write_target("T2")
+            out.append((OP_ADD, st2, sa, sb, sc))
+            dst = rf.write_target("A")
+            out.append((OP_ADD, dst, st, sa, sa))
+            out.append((OP_ADD, st2, st, st2, sc))
+            rf.rename({"B": "T2", "C": "B"})
+        elif full and (d + e) % 3 == 0:
+            # condition 7: T = A+B (diff C); B = T+A (diff B); T2 = 2A;
+            # A = T2+A (diff A)
+            d = (d - 2 * e) // 3
+            sa, sb, sc = rf.slot("A"), rf.slot("B"), rf.slot("C")
+            st = rf.write_target("T")
+            out.append((OP_ADD, st, sa, sb, sc))
+            dst = rf.write_target("B")
+            out.append((OP_ADD, dst, st, sa, sb))
+            st2 = rf.write_target("T2")
+            out.append((OP_DUP, st2, sa, 0, 0))
+            dst = rf.write_target("A")
+            out.append((OP_ADD, dst, st2, sa, sa))
+        elif full and (d - e) % 3 == 0:
+            # condition 8: T = A+B (diff C); C = C+A (diff B); B = T;
+            # T2 = 2A; A = T2+A (diff A)
+            d = (d - e) // 3
+            sa, sb, sc = rf.slot("A"), rf.slot("B"), rf.slot("C")
+            st = rf.write_target("T")
+            out.append((OP_ADD, st, sa, sb, sc))
+            dst = rf.write_target("C")
+            out.append((OP_ADD, dst, sc, sa, sb))
+            rf.rename({"B": "T"})
+            st2 = rf.write_target("T2")
+            out.append((OP_DUP, st2, sa, 0, 0))
+            dst = rf.write_target("A")
+            out.append((OP_ADD, dst, st2, sa, sa))
         else:
             # condition 9: C = C + B (diff A); B = 2B
             e //= 2
@@ -293,15 +375,16 @@ def stage1_powers_of_two(b1: int) -> int:
 
 
 def stage1_tape(primes: Sequence[int], b1: int, *, include_two: bool = True,
-                allow_native: bool = True) -> np.ndarray:
+                allow_native: bool = True, full: bool = False) -> np.ndarray:
     """Full stage-1 tape: leading 2^k doublings (if include_two), then for
     each odd prime p <= primes in the list, PRAC(p) repeated per the prime-
     power rule `do {prac} while (c*q) < B1` (reference ecm.c:1824-1843).
 
     Dispatches to the C++ planner (native/planner.cpp, bit-identical
-    output) when available.
+    output) when available; it plans the reduced rule set only, so `full`
+    plans in Python.
     """
-    if allow_native:
+    if allow_native and not full:
         try:
             from ..native import lib as _native
             if _native.available():
@@ -319,7 +402,7 @@ def stage1_tape(primes: Sequence[int], b1: int, *, include_two: bool = True,
             continue
         c = 1
         while True:
-            prac_tape(q, ops)
+            prac_tape(q, ops, full=full)
             c *= q
             if c * q >= b1:
                 break

@@ -31,8 +31,14 @@ Phase structure per batch of B curves (B = the curve axis of every plane):
                                engine's default mode or the one
                                RunConfig.replay names: stream (K5 / K15),
                                gather (K6 / K14), parow (K7) or resident
-                               (K8; both digit engine only)
+                               (K8; both digit engine only); under
+                               RunConfig.cross="noinv" (digit engine) the
+                               Pb table and Pa groups stay projective and
+                               the replay runs on torch ops
   harvest  gcd checks          host, against the original input
+
+resume_stage2 runs phases 2-3 (and the leftover stage-1 gcd) from a
+stage-1 savefile instead of phases 0-1.
 """
 
 from __future__ import annotations
@@ -87,10 +93,20 @@ class RunConfig:
     # "gather", "parow" or "resident" choose one for tests and
     # measurements; a mode the engine has no kernel for raises
     replay: Optional[str] = None
+    # stage-2 cross-product form (stage2/exec.py:CROSS_FORMS): "inv"
+    # (batch inversion, the replay kernels) or "noinv" (projective rows,
+    # torch ops, digit engine only; replay must stay None)
+    cross: str = "inv"
+    # stage-1 PRAC rule set: False the reduced 3/4/5/9 set, True all nine
+    # rules (curve/prac.py; planned in Python)
+    full_prac: bool = False
 
 
 ENGINES = ("auto", "digit", "rns")
 CURVE_MODES = ("suyama", "edwards")
+# the savefile PROGRAM tag of Edwards records, whose SIGMA is an Edwards
+# seed (X, Z are on the equivalent Montgomery curve either way)
+ED_PROGRAM = "AVX-ECM-ED"
 
 
 @dataclasses.dataclass
@@ -243,7 +259,7 @@ class ECMDriver:
         else:
             self.ops = s2exec.DigitOps(
                 self.ctx, torch_ops.device_ctx(self.ctx, self.device))
-        self.replay = s2exec.replay_mode(cfg.replay, self.ops)
+        self.replay = s2exec.replay_mode(cfg.replay, self.ops, cfg.cross)
         self.stream = PrimeStream(cfg.prime_chunk or PrimeStream().chunk)
         # stage-2 pairmap cache: the (v, u) stream depends only on (chunk
         # bounds, B1, B2, D, U) — never on the curves — so it is planned
@@ -358,7 +374,8 @@ class ECMDriver:
         # ---- stage 1 ----
         t0 = time.time()
         for chunk, state in _stage1.run_stage1(state, self.ops.tape, cfg.b1,
-                                               self.stream):
+                                               self.stream,
+                                               full_prac=cfg.full_prac):
             for k in ("ptadds", "ptdups", "numprimes"):
                 self.counters[k] = (self.counters.get(k, 0)
                                     + getattr(chunk, k))
@@ -476,7 +493,7 @@ class ECMDriver:
                 self._add_time("ed_normalize", t1)
                 self._check_batch(w_c, sigmas, 1, bound, base_idx)
                 self._write_save(cfg.checkpoint_path, sigmas, u_c, w_c,
-                                 bound, program="AVX-ECM-ED")
+                                 bound, program=ED_PROGRAM)
         self.counters["numprimes"] = (self.counters.get("numprimes", 0)
                                       + nprimes)
         # Montgomery handoff
@@ -495,7 +512,7 @@ class ECMDriver:
                           1, cfg.b1, base_idx)
         self._check_batch(zs, sigmas, 1, cfg.b1, base_idx)
         self._write_save(cfg.save_b1_path, sigmas, xs, zs, cfg.b1,
-                         program="AVX-ECM-ED")
+                         program=ED_PROGRAM)
         residues = [(s, x, z) for s, x, z in zip(sigmas, xs, zs)]
         s_const = self.ops.pack([c.s_mont for c in curves])
         self._run_stage2(pts0, s_const, sigmas, base_idx)
@@ -572,7 +589,8 @@ class ECMDriver:
         sp = s2plan.make_stage2_params(cfg.b1, self.b2, nw=self.ctx.p.nw,
                                        batch=int(pts0.shape[-1]))
         runner = s2exec.Stage2Runner(self.ctx, None, sp, pts0, s_const,
-                                     ops=self.ops, replay=self.replay)
+                                     ops=self.ops, replay=self.replay,
+                                     cross=cfg.cross)
         runner.init()
         self._sync()
         self._add_time("stage2_init", t0)
@@ -633,3 +651,84 @@ class ECMDriver:
 def run_ecm(n: int, curves: int, b1: int, **kw) -> RunResult:
     cfg = RunConfig(n=n, curves=curves, b1=b1, **kw)
     return ECMDriver(cfg).run()
+
+
+def resume_stage2(path: str, b2: int, *,
+                  results_path: Optional[str] = "ecm_results.txt",
+                  verbose: int = 1, force_no_mersenne: bool = False,
+                  prime_chunk: Optional[int] = None,
+                  batch: Optional[int] = None, device: str = "cuda",
+                  engine: str = "auto", cross: str = "inv",
+                  replay: Optional[str] = None) -> RunResult:
+    """Stage 2 (only) from a stage-1 savefile (tpu_ecm/driver.py:1032-1149,
+    GMP-ECM's `ecm -resume`): every record's curve constant is rebuilt
+    from its SIGMA, its X and Z are lifted into the engine's Montgomery
+    form, the saved Z takes the leftover stage-1 gcd, and stage 2 runs to
+    B2.  Records run in groups of `batch` curves (default: the RNS
+    engine's card batch, rns_exec.default_batch; the whole file on the
+    digit engine); the kernels take any batch, so no group is padded.
+
+    Records tagged PROGRAM=AVX-ECM-ED carry an Edwards seed: their curve
+    is rebuilt by curve/edwards.py and stage 2 takes the Montgomery
+    constant 1/(1+d) of the Edwards run's handoff (tpu_ecm rebuilds a
+    Suyama curve from that seed, ROADMAP C.4).  A file that mixes inputs,
+    bounds or program tags raises, as do B2 <= B1, a SIGMA <= 5 and a
+    parameterization other than 0."""
+    with open(path) as f:
+        recs = list(savefile.parse_records(f))
+    if not recs:
+        raise ValueError(f"no savefile records in {path}")
+    ns, b1s = {r.n for r in recs}, {r.b1 for r in recs}
+    if len(ns) != 1 or len(b1s) != 1:
+        raise ValueError(f"savefile mixes inputs/bounds: N x{len(ns)}, "
+                         f"B1 x{len(b1s)}; split it first")
+    n, b1 = ns.pop(), b1s.pop()
+    if b2 <= b1:
+        raise ValueError(f"B2 ({b2}) must exceed the savefile B1 ({b1})")
+    if any(r.sigma <= 5 for r in recs):
+        raise ValueError("record without a usable SIGMA; cannot rebuild "
+                         "the curve constant")
+    if any(r.param != 0 for r in recs):
+        raise ValueError("only param-0 (sigma) records can be resumed; "
+                         "this file uses another GMP-ECM parameterization")
+    edwards_tag = {r.program == ED_PROGRAM for r in recs}
+    if len(edwards_tag) != 1:
+        raise ValueError(f"savefile mixes {ED_PROGRAM} records with other "
+                         "programs' (Edwards and Suyama seeds); split it "
+                         "first")
+    curve_mode = "edwards" if edwards_tag.pop() else "suyama"
+
+    d = ECMDriver(RunConfig(
+        n=n, curves=len(recs), b1=b1, b2=b2, results_path=results_path,
+        verbose=verbose, force_no_mersenne=force_no_mersenne,
+        prime_chunk=prime_chunk, save_b1_path=None, checkpoint_path=None,
+        stop_on_factor=False, curve_mode=curve_mode, device=device,
+        engine=engine, cross=cross, replay=replay))
+    if d._prp_input:
+        return d.run()
+    ctx = d.ctx
+    if batch is None:
+        batch = (rns_exec.default_batch(d.device)
+                 if d.engine == "rns" and d.device.type == "cuda"
+                 else len(recs))
+    build = (edwards.build_one_curve if curve_mode == "edwards"
+             else suyama.build_one_curve)
+    if verbose:
+        print(f"resuming {len(recs)} curves from {path} (B1={b1}) into "
+              f"stage 2 to B2={b2}"
+              + (f" in groups of {batch}" if len(recs) > batch else ""))
+    for base in range(0, len(recs), batch):
+        group = recs[base:base + batch]
+        sigmas = [r.sigma for r in group]
+        t0 = time.time()
+        state = d._init_state([suyama.CurveInit(
+            sigma=r.sigma, x_mont=ctx.to_mont_int(r.x % ctx.n_int),
+            z_mont=ctx.to_mont_int(r.z % ctx.n_int),
+            s_mont=build(ctx, r.sigma).s_mont) for r in group])
+        d._add_time("build", t0)
+        # leftover stage-1 factors first (gcd of the saved Z)
+        d._check_batch([r.z for r in group], sigmas, 1, b1, base)
+        d._run_stage2(state.pts[0], state.s_const, sigmas, base)
+    return RunResult(n=n, work_modulus=ctx.n_int, factors=d.factors,
+                     curves_run=len(recs), stage1_residues=[],
+                     timings=dict(d.timings), counters=dict(d.counters))

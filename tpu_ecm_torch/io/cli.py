@@ -5,6 +5,8 @@
     python -m tpu_ecm_torch -device cpu ...     (default: -device cuda)
     python -m tpu_ecm_torch -rns ... | -digit ...  (engine; default: auto)
     python -m tpu_ecm_torch -edwards ...        (a=-1 Edwards stage 1)
+    python -m tpu_ecm_torch [-device cpu] -resume <savefile> <B2>
+                                                (stage 2 from save_b1.txt)
 
 <input> may be an integer expression (io/calc.py), e.g.
 "fib(791)/13/677/216416017" or "2^127-1"; a special form 2^e - c runs the
@@ -22,10 +24,9 @@ from .. import driver
 
 USAGE = ("usage: python -m tpu_ecm_torch [-device cpu|cuda] [-rns|-digit] "
          "[-edwards] $input $numcurves $B1 [$batch] [$B2] [$sigma]"
+         "\n       python -m tpu_ecm_torch [-device cpu|cuda] [-rns|-digit] "
+         "-resume $savefile $B2"
          "\n       python -m tpu_ecm_torch -calc   (interactive calculator)")
-
-# flags of tpu_ecm's CLI that select parts not ported yet
-NOT_PORTED = {"-resume": "the remaining surface (resume_stage2, -resume)"}
 
 
 def main(argv=None) -> int:
@@ -47,12 +48,27 @@ def main(argv=None) -> int:
     if "-edwards" in argv:
         argv.remove("-edwards")
         curve_mode = "edwards"
-    for flag, item in NOT_PORTED.items():
-        if flag in argv:
-            print(f"{flag} is not ported yet: ROADMAP.md, '{item}'")
-            return 1
     if argv and argv[0] == "-calc":
         return _calc.repl()
+    if argv and argv[0] == "-resume":
+        # GMP-ECM-style stage 2 from a stage-1 savefile (tpu_ecm's
+        # io/cli.py:47-64); the records' PROGRAM tag picks the curve family
+        if len(argv) < 3:
+            print(USAGE)
+            return 1
+        try:
+            res = driver.resume_stage2(argv[1], int(float(argv[2])),
+                                       device=device, engine=engine)
+        except (ValueError, OSError) as e:
+            print(f"resume failed: {e}")
+            return 1
+        for h in res.factors:
+            kind = "PRP" if h.is_prp else "C"
+            print(f"final: {kind}{len(str(h.factor))} factor {h.factor} "
+                  f"(stage {h.stage}, sigma {h.sigma})")
+        print(f"resumed {res.curves_run} curves; timings: "
+              + ", ".join(f"{k}={v:.2f}s" for k, v in res.timings.items()))
+        return 0
     if len(argv) < 3:
         print(USAGE)
         return 1

@@ -56,15 +56,16 @@ class Stage1Chunk:
 
 
 def run_stage1(state: Stage1State, run_tape: Callable, b1: int,
-               stream: PrimeStream
+               stream: PrimeStream, *, full_prac: bool = False
                ) -> Iterator[Tuple[Stage1Chunk, Stage1State]]:
     """Yield (chunk, state) after each prime chunk; the caller checkpoints
     between chunks.  run_tape(pts, tape, s_const) is the engine's tape
-    kernel call; the point file is updated in place."""
+    kernel call; the point file is updated in place.  full_prac plans the
+    tapes with all nine PRAC rules (curve/prac.py)."""
     first = True
     for lo, hi, primes in stream.chunks(0, b1):
         sel = primes[primes < b1]
-        tape = prac.stage1_tape(sel, b1, include_two=first)
+        tape = prac.stage1_tape(sel, b1, include_two=first, full=full_prac)
         first = False
         if tape.shape[0]:
             run_tape(state.pts, tape, state.s_const)

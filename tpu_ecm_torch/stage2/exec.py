@@ -1,6 +1,18 @@
 """Stage-2 execution: streamed baby-step table, global giant-step chain,
 grouped batch inversion and pairmap replay — the twin of
-tpu_ecm/stage2/exec.py in its inverted cross form.
+tpu_ecm/stage2/exec.py in both its cross-product forms (`cross=`):
+
+  inv    points normalized by batch inversion, one product a pair through
+         the replay kernels below (the default)
+  noinv  points kept projective as rows (X, Z, X*Z), no inversion, two
+         products a pair, (Xa - Xb)(Za + Zb) + Xb*Zb - Xa*Za, replayed in
+         512-entry segments multiplied in a pairwise tree
+         (DigitOps.replay_segment_noinv); torch ops on the tensors' device,
+         as tpu_ecm runs it on jnp: it has no Pallas kernel to port.  The
+         digit engine only; an explicit replay= raises, since no replay
+         kernel runs
+
+The rest of this note is the inv form.
 
 * The window-relative pairmap is flattened to GLOBAL giant-step indices
   (j = v - amin0 + U*s) so a prime chunk becomes one gather list; points are
@@ -50,7 +62,7 @@ from ..params import MontyCtx
 
 from ..curve import ops as curve_ops
 from ..curve import prac
-from ..limbs import kernels, layout, rns, rns_kernels
+from ..limbs import kernels, layout, rns, rns_kernels, torch_ops
 from ..limbs.torch_ops import DeviceCtx
 from .plan import Stage2Params
 
@@ -172,6 +184,67 @@ class DigitOps:
             return kernels.resident_slab_rows(self.ctx.p.nw, b, self.device)
         return PLAIN_SLAB_ROWS
 
+    # -- the noinv form: torch ops (tpu_ecm/stage2/exec.py:176-209) ------
+    #
+    # A batched product of K rows holds NW^2 product columns a row
+    # (torch_ops._product_columns): 5.4 GB at NW=36, B=2048, 512 rows.  So
+    # each product runs in slices of rows sized from the free memory;
+    # a product is row-wise, so slicing changes no digit.
+
+    # rows of one sliced product; None: what the card's free memory holds
+    # (all rows on the CPU)
+    row_slice: Optional[int] = None
+
+    def _rows_per_product(self, b: int) -> Optional[int]:
+        if self.row_slice is not None:
+            return self.row_slice
+        if self.device.type != "cuda":
+            return None
+        nw = self.ctx.p.nw
+        # the product columns and their sums, then REDC's copy and terms
+        row_bytes = (nw * nw + 4 * nw) * b * 4
+        return max(1, int(MEM_HEADROOM * device_free_bytes(self.device))
+                   // row_bytes)
+
+    def mul_planes(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        """Row-wise products of stacked planes [K, NW, B] (tpu_ecm's
+        _mul_planes: operands pre-safe), in row slices."""
+        k = int(a.shape[0])
+        step = self._rows_per_product(int(a.shape[-1]))
+        if step is None or step >= k:
+            return torch_ops.mulmod(a, b, self.dctx, pre=True)
+        return torch.cat([torch_ops.mulmod(a[i:i + step], b[i:i + step],
+                                           self.dctx, pre=True)
+                          for i in range(0, k, step)])
+
+    def replay_segment_noinv(self, acc: torch.Tensor, pa_ext: torch.Tensor,
+                             pbx: torch.Tensor, idx: np.ndarray
+                             ) -> torch.Tensor:
+        """acc *= prod (Xa*Zb - Xb*Za) over the [T, 2] (pa, pb) entries, T
+        a power of two: each value (Xa - Xb)(Za + Zb) + Xb*Zb - Xa*Za from
+        rows (X, Z, X*Z) of pa_ext [G+1, 3, NW, B] and pbx [num_pb, 3, NW,
+        B], the values multiplied as a pairwise tree, the root into acc
+        last.  A pad entry (G, 0) reads (one, one, 0) and (0, 0, 0): its
+        value is one.  tpu_ecm's _replay_segment_noinv, digit for digit."""
+        rows = torch.from_numpy(np.ascontiguousarray(idx, np.int64)).to(
+            acc.device)
+        pa = pa_ext.index_select(0, rows[:, 0])
+        pb = pbx.index_select(0, rows[:, 1])
+        d = self.dctx
+        t1 = torch_ops.submod_n(pa[:, 0], pb[:, 0], d)
+        t2 = torch_ops.addmod_n(pa[:, 1], pb[:, 1], d)
+        t3 = self.mul_planes(t1, t2)
+        del t1, t2
+        vals = torch_ops.submod_n(torch_ops.addmod_n(t3, pb[:, 2], d),
+                                  pa[:, 2], d)
+        del pa, pb, t3
+        t = int(vals.shape[0])
+        while t > 1:
+            half = t // 2
+            vals = self.mul_planes(vals[:half], vals[half:t])
+            t = half
+        return torch_ops.mulmod(acc, vals[0], d)
+
 
 class RnsOps:
     """Residue planes [.., 2K+1, B] (the twin of rns_exec.RnsOps); kernels
@@ -252,6 +325,10 @@ REPLAY_BLOCK = {"cpu": 4096, "cuda": 1 << 16}
 # _replay_e(16) default; every replay block is a multiple of it)
 REPLAY_MODES = ("stream", "gather", "parow", "resident")
 REPLAY_E = 16
+# the cross-product forms, and the noinv segment: entries a tree product
+# (tpu_ecm's _replay_noinv), padded with (G, 0) to a power of two
+CROSS_FORMS = ("inv", "noinv")
+NOINV_SEGMENT = 512
 # K8's slab height on the CPU, where no shared memory bounds the plain
 # version: small, so that CPU runs cut their Pb tables into several slabs
 PLAIN_SLAB_ROWS = 16
@@ -276,10 +353,13 @@ def device_free_bytes(device) -> int:
 
 
 def pa_group_for_memory(plane_bytes: int, num_pb: int, free_bytes: int,
-                        g_max: int = PA_GROUP["cuda"]) -> int:
+                        g_max: int = PA_GROUP["cuda"],
+                        planes: int = 1) -> int:
     """The largest power of two G <= g_max for which the Pb table and
-    GROUP_PLANES * G planes fit MEM_HEADROOM of the free bytes; raises when
-    even PA_GROUP_MIN rows do not fit."""
+    GROUP_PLANES * G rows fit MEM_HEADROOM of the free bytes, with
+    `planes` planes a Pb row and a Pa row (1 inv, 3 noinv: X, Z, X*Z);
+    raises when even PA_GROUP_MIN rows do not fit."""
+    plane_bytes *= planes
     budget = MEM_HEADROOM * free_bytes - num_pb * plane_bytes
     g = g_max
     while g > PA_GROUP_MIN and GROUP_PLANES * g * plane_bytes > budget:
@@ -293,9 +373,24 @@ def pa_group_for_memory(plane_bytes: int, num_pb: int, free_bytes: int,
     return g
 
 
-def replay_mode(mode: Optional[str], ops) -> str:
+def replay_mode(mode: Optional[str], ops, cross: str = "inv"
+                ) -> Optional[str]:
     """The replay mode a runner on `ops` takes for `mode` (None: the
-    engine's default); raises unless the engine has a kernel for it."""
+    engine's default) in the cross-product form `cross` (CROSS_FORMS);
+    raises unless the engine has a kernel for it.  Under noinv, which
+    replays through torch ops, None; it raises on an engine without it
+    (RNS, as in tpu_ecm) and for an explicit mode (tpu_ecm ignores the
+    mode there; ROADMAP C.3)."""
+    if cross not in CROSS_FORMS:
+        raise ValueError(f"unknown cross-product form {cross!r}; expected "
+                         f"one of {CROSS_FORMS}")
+    if cross == "noinv":
+        if not hasattr(ops, "replay_segment_noinv"):
+            raise ValueError("cross='noinv' requires the digit engine")
+        if mode is not None:
+            raise ValueError(f"cross='noinv' runs no replay kernel; "
+                             f"replay={mode!r} does not apply")
+        return None
     if mode is None:
         return ops.default_replay
     if mode not in REPLAY_MODES:
@@ -439,10 +534,11 @@ class Stage2Runner:
     def __init__(self, ctx: MontyCtx, dctx: Optional[DeviceCtx],
                  sp: Stage2Params, pt: torch.Tensor, s_const: torch.Tensor,
                  ops=None, replay: Optional[str] = None,
-                 slab_rows: Optional[int] = None):
+                 slab_rows: Optional[int] = None, cross: str = "inv"):
         self.ctx, self.sp = ctx, sp
         self.ops = ops if ops is not None else DigitOps(ctx, dctx)
-        self.replay = replay_mode(replay, self.ops)
+        self.replay = replay_mode(replay, self.ops, cross)
+        self.cross = cross
         self.pt = pt                  # stage-1 point [2, rows, B]
         self.s_const = s_const
         self.b = b = int(pt.shape[-1])
@@ -459,11 +555,18 @@ class Stage2Runner:
         if kind == "cuda":
             self.pa_group = pa_group_for_memory(
                 self.ops.rows * b * 4, sp.num_pb,
-                device_free_bytes(pt.device))
+                device_free_bytes(pt.device),
+                planes=3 if cross == "noinv" else 1)
         # replay entries pack pa << 16 | pb
         if self.pa_group + 1 > 1 << 16 or sp.num_pb > 1 << 16:
             raise ValueError("Pa group or Pb table exceeds 2^16 rows")
         self.one_plane = self.ops.one_plane(b)
+        # the row past a Pa group's rows that pad entries (G, 0) read: the
+        # Montgomery one (inv), (one, one, 0) (noinv)
+        self.pad_row = self.one_plane
+        if cross == "noinv":
+            self.pad_row = torch.stack([self.one_plane, self.one_plane,
+                                        torch.zeros_like(self.one_plane)])
         self.acc = self.one_plane     # mdata->one init
         self.factors: Dict[int, int] = {}
         self.paired = 0
@@ -522,23 +625,36 @@ class Stage2Runner:
         pres = torch.cat([self.one_plane[None], prefix[:-1]], dim=0)
         return self.ops.apply_inverse(xs, zs, pres, total_inv)
 
+    def _table_rows(self, xs: torch.Tensor, zs: torch.Tensor
+                    ) -> torch.Tensor:
+        """Pb table rows of the points (xs, zs) [K, rows, B]: x/z (inv) or
+        (X, Z, X*Z) [K, 3, rows, B] (noinv)."""
+        if self.cross == "noinv":
+            return torch.stack([xs, zs, self.ops.mul_planes(xs, zs)], dim=1)
+        return self._invert_planes(xs, zs)
+
     # -- phase 2: init ----------------------------------------------------
 
     def init(self):
         """Build the affine-x baby-step table pbx [num_pb, rows, B]: the
         chain S_d = S_{d-1} + Q (diff S_{d-2}) in groups of G points; each
         group's stored rows (rprime_map) are batch-inverted and scattered
-        into pbx, so the full [U*D, 2, rows, B] chain never exists."""
+        into pbx, so the full [U*D, 2, rows, B] chain never exists.
+
+        Under noinv the table keeps projective rows (X, Z, X*Z) [num_pb,
+        3, rows, B], row 0 all zeros, and nothing is inverted
+        (tpu_ecm's _init_noinv)."""
         sp = self.sp
         q1 = self.pt
         dup = np.asarray([[curve_ops.OP_DUP, 1, 0, 0, 0]], dtype=np.int32)
         q2 = self._run_tape(q1, dup)[1]
         self.ptdups += 1
-        inv12 = self._invert_planes(torch.stack([q1[0], q2[0]]),
-                                    torch.stack([q1[1], q2[1]]))
-        pbx = torch.zeros((sp.num_pb, self.ops.rows, self.b),
+        noinv = self.cross == "noinv"
+        pbx = torch.zeros((sp.num_pb,) + ((3,) if noinv else ())
+                          + (self.ops.rows, self.b),
                           dtype=torch.int32, device=q1.device)
-        pbx[1:3] = inv12
+        pbx[1:3] = self._table_rows(torch.stack([q1[0], q2[0]]),
+                                    torch.stack([q1[1], q2[1]]))
         G = self.pa_group
         p_last, p_prev = q2, q1
         for base in range(3, sp.umax + 1, G):
@@ -550,8 +666,8 @@ class Stage2Runner:
             if sel.size == 0:
                 continue
             rows = torch.from_numpy(sel).to(q1.device)
-            inv = self._invert_planes(group[rows, 0], group[rows, 1])
-            pbx[torch.from_numpy(slots[sel]).to(q1.device)] = inv
+            pbx[torch.from_numpy(slots[sel]).to(q1.device)] = \
+                self._table_rows(group[rows, 0], group[rows, 1])
         self.pbx = pbx                # row 0 stays the zero row
         self.ptadds += sp.umax - 2
         # Pd = [D]Q (not inverted)
@@ -618,25 +734,41 @@ class Stage2Runner:
                 # rows past max_j are never paired: inverting only the
                 # rows below keeps the harvest set independent of G
                 valid = min(max_j - base + 1, G)
-                pa_inv = self._invert_planes(group[:valid, 0],
-                                             group[:valid, 1])
-                pad = self.one_plane[None].expand(
-                    (G + 1 - valid,) + tuple(self.one_plane.shape))
-                pa_inv_ext = torch.cat([pa_inv, pad], dim=0)
-                self._replay(pa_inv_ext, idx)
+                rows = self._table_rows(group[:valid, 0], group[:valid, 1])
+                pad = self.pad_row[None].expand(
+                    (G + 1 - valid,) + tuple(self.pad_row.shape))
+                self._replay(torch.cat([rows, pad], dim=0), idx)
                 self.paired += int(idx.shape[0])
                 pos = hi
             base += G
 
-    def _replay(self, pa_inv_ext: torch.Tensor, idx: np.ndarray):
+    def _replay(self, pa_ext: torch.Tensor, idx: np.ndarray):
         """acc *= prod (Pa_inv[v] - PbX[u]) over the v-sorted [T, 2] entry
-        list, through the kernel of the runner's replay mode."""
+        list, through the kernel of the runner's replay mode (noinv:
+        _replay_noinv)."""
+        if self.cross == "noinv":
+            return self._replay_noinv(pa_ext, idx)
         launch = getattr(self.ops, "replay_" + self.replay)
         for arr, slots in replay_calls(self.replay, idx, self.replay_block,
                                        self.pa_group, self.slab_rows):
-            self.acc = launch(self.acc, pa_inv_ext, self.pbx, arr,
+            self.acc = launch(self.acc, pa_ext, self.pbx, arr,
                               self.one_plane)
             self.slots += slots
+
+    def _replay_noinv(self, pa_ext: torch.Tensor, idx: np.ndarray):
+        """acc *= prod (Xa*Zb - Xb*Za) over the v-sorted [T, 2] entries,
+        pa_ext [G+1, 3, rows, B] the group's rows (X, Z, X*Z) and pad
+        rows: NOINV_SEGMENT-entry segments, each padded with (G, 0) to a
+        power of two (tpu_ecm's _replay_noinv)."""
+        G = self.pa_group
+        for lo in range(0, idx.shape[0], NOINV_SEGMENT):
+            blk = idx[lo:lo + NOINV_SEGMENT]
+            tpad = 1 << max(0, (blk.shape[0] - 1).bit_length())
+            blk = np.concatenate([blk, np.tile(np.asarray([[G, 0]], np.int32),
+                                               (tpad - blk.shape[0], 1))])
+            self.acc = self.ops.replay_segment_noinv(self.acc, pa_ext,
+                                                     self.pbx, blk)
+            self.slots += tpad
 
     # -- harvest ----------------------------------------------------------
 

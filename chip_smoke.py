@@ -123,6 +123,14 @@ result and its seconds; any failure raises and exits non-zero.
               launched, on RNS no digit kernel); stage 1 of the digit job
               with full_prac=True (its residues the reduced rule set's as
               points, K1 launched)
+ 10 multidevice  phase 8's digit and RNS stream jobs with the curve axis
+              split (parallel.Sharder over ["cuda:0", "cuda:0"] on one
+              card, over every card when there are more): phase 8's
+              finds, paired and numinv counters and save_b1.txt bytes
+              exactly, through the engine's kernels; then
+              parallel.distributed.run_multihost in this one process on
+              the digit job, the same; each run's curves/s beside phase
+              8's
 
 The last three lines are the kernels' JSON record (with each kernel's
 bound: the larger of its multiply-adds over the card's int32 rate and its
@@ -1803,6 +1811,84 @@ def phase_surface(tmp, record, runs):
     return "; ".join(lines)
 
 
+def phase_multidevice(tmp, record, runs):
+    """Phase 8's digit and RNS stream jobs with the curve axis split:
+    Sharder(["cuda:0", "cuda:0"]) on one card, every card when there are
+    more; each run must give phase 8's one-device stream run exactly (its
+    finds, paired and numinv counters and save_b1.txt bytes) through the
+    engine's kernels; then run_multihost in this one process on the digit
+    job, with the same finds and bytes."""
+    import torch
+    from tpu_ecm_torch.limbs import kernels
+    from tpu_ecm_torch.parallel import Sharder, distributed
+    cards = torch.cuda.device_count()
+    sharder = Sharder(None if cards > 1 else ["cuda:0", "cuda:0"])
+    lines = [f"devices {[str(d) for d in sharder.devices]}"]
+
+    def check(label, ref, res, d, wall, names):
+        counts = {k: kernels.launches[k] for k in names}
+        hits = {(h.factor, h.stage, h.sigma) for h in res.factors}
+        with open(os.path.join(d, "save_b1.txt"), "rb") as fh, \
+                open(ref["save"], "rb") as gh:
+            same_save = fh.read() == gh.read()
+        keys = ("paired", "numinv")
+        if (hits != ref["finds"] or not same_save
+                or any(res.counters[k] != ref["counters"][k] for k in keys)
+                or not all(counts.values())):
+            raise AssertionError(
+                f"{label}: finds missing {sorted(ref['finds'] - hits)}, "
+                f"extra {sorted(hits - ref['finds'])}, save_b1.txt "
+                f"{'equal' if same_save else 'DIFFERS'}, counters "
+                f"{[res.counters[k] for k in keys]} against "
+                f"{[ref['counters'][k] for k in keys]}, launches {counts}")
+        j, t = ref["job"], res.timings
+        lines.append(
+            f"{label}: {j['curves'] / wall:.2f} curves/s (phase 8: "
+            f"{j['curves'] / ref['wall']:.2f}), wall {wall:.2f} s (phase 8:"
+            f" {ref['wall']:.2f}), stage1 {t['stage1']:.2f} / stage2_init "
+            f"{t['stage2_init']:.2f} / stage2 {t['stage2']:.2f} s (phase 8:"
+            f" {ref['timings']['stage1']:.2f} / "
+            f"{ref['timings']['stage2_init']:.2f} / "
+            f"{ref['timings']['stage2']:.2f}), {_finds_line(hits)}, "
+            f"paired {res.counters['paired']}, numinv "
+            f"{res.counters['numinv']}, save_b1.txt equal, launches "
+            f"{counts}")
+        print("  " + lines[-1], flush=True)
+
+    for engine in ("digit", "rns"):
+        ref = runs[(engine, "stream")]
+        n, j = ref["n"], ref["job"]
+        d = os.path.join(tmp, engine)
+        kernels.reset_launches()
+        t0 = time.time()
+        res = _run(d, n=n, curves=j["curves"], b1=j["b1"], b2=j["b2"],
+                   sigma=j["sigma"], engine=engine, replay="stream",
+                   stop_on_factor=False, sharder=sharder)
+        wall = time.time() - t0
+        names = _job_kernels(engine)
+        _launches(record, f"multidevice_{engine}", names)
+        check(f"{engine} over {sharder.n} shards", ref, res, d, wall, names)
+
+    ref = runs[("digit", "stream")]
+    n, j = ref["n"], ref["job"]
+    d = os.path.join(tmp, "multihost")
+    os.makedirs(d)
+    kernels.reset_launches()
+    t0 = time.time()
+    res = distributed.run_multihost(
+        n, total_curves=j["curves"], b1=j["b1"], b2=j["b2"],
+        sigma=j["sigma"], engine="digit", stop_on_factor=False, verbose=0,
+        save_b1_path=os.path.join(d, "save_b1.txt"),
+        checkpoint_path=os.path.join(d, "checkpoint.txt"),
+        results_path=os.path.join(d, "ecm_results.txt"))
+    wall = time.time() - t0
+    _launches(record, "multidevice_multihost", _job_kernels("digit"))
+    check(f"run_multihost, one process ({cards} card"
+          f"{'s' if cards > 1 else ''})", ref, res, d, wall,
+          _job_kernels("digit"))
+    return "; ".join(lines)
+
+
 # job -> (N, bounds, driver options, warm-up run of the same path)
 PROFILE_JOBS = {
     "flagship": (N416, FLAGSHIP, {}, dict(n=N71, engine="digit")),
@@ -1925,7 +2011,9 @@ def main() -> int:
                          ("edwards", phase_edwards),
                          ("replay", lambda t, r: phase_replay(t, r, runs)),
                          ("surface",
-                          lambda t, r: phase_surface(t, r, runs))):
+                          lambda t, r: phase_surface(t, r, runs)),
+                         ("multidevice",
+                          lambda t, r: phase_multidevice(t, r, runs))):
             phase(name, lambda: fn(os.path.join(tmp, name), record))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)

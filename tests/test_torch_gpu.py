@@ -1295,7 +1295,8 @@ def test_resident_refused_launch_raises(cuda):
     rc = build.library().tpuecm_replay_resident(
         acc.data_ptr(), out.data_ptr(), pa.data_ptr(), pbx.data_ptr(),
         cap + 2, dev.data_ptr(), dsl.data_ptr(), 1, cap + 1, 4,
-        *kernels._mod(d), b, lanes, digits, kernels._stream())
+        *kernels._mod(d), b, lanes, digits,
+        torch.cuda.current_stream(cuda).cuda_stream)
     assert rc != 0
     kernels.reset_launches()
     got = kernels.replay_resident(acc, pa, pbx, ent, slabs, cap, d, e=4)
@@ -1448,3 +1449,96 @@ def test_t35_sweep(cuda, tmp_path):
            or factor % h.factor == 0}
     missing = [s for s in t35_sigmas if s not in hit]
     assert not missing, missing
+
+
+def _sharded_summary(tmp_path, tag, sharder, **kw):
+    """A driver run on the card (the sharder's devices, or cuda) with its
+    factor list, residues, counters and the bytes of its three files."""
+    from tpu_ecm_torch import driver
+    d = tmp_path / tag
+    d.mkdir()
+    res = driver.ECMDriver(_run_cfg(d, sharder=sharder, **kw)).run()
+    return dict(
+        factors=[(h.factor, h.stage, h.curve, h.sigma) for h in res.factors],
+        residues=res.stage1_residues, counters=res.counters,
+        curves_run=res.curves_run,
+        files=[(d / f).read_bytes() for f in ("save_b1.txt", "checkpoint.txt",
+                                              "ecm_results.txt")])
+
+
+@pytest.mark.parametrize("engine", ["digit", "rns"])
+def test_sharder_repeated_device_equals_one_device(cuda, tmp_path, engine):
+    """Sharder(["cuda:0", "cuda:0"]): two shards on one card, stage 2 in a
+    thread each, give the one-device run of N71 (8 curves from sigma 110,
+    B1=300, B2=10000, stage 1 in three prime chunks): the same factor
+    list, residues, counters and file bytes, with P35 at sigma 112."""
+    import chip_smoke
+    from tpu_ecm_torch.parallel import Sharder
+    kw = dict(n=chip_smoke.N71, curves=8, b1=300, b2=10000, sigma=110,
+              prime_chunk=100, engine=engine, stop_on_factor=False)
+    one = _sharded_summary(tmp_path, "one", None, **kw)
+    two = _sharded_summary(tmp_path, "two", Sharder(["cuda:0", "cuda:0"]),
+                           **kw)
+    assert two == one
+    assert (chip_smoke.P35, 2, 2, 112) in two["factors"]
+
+
+@pytest.fixture
+def two_cards(cuda):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two GPUs (torch.cuda.device_count() < 2)")
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+def test_wrapper_refuses_tensors_on_two_cards(two_cards):
+    """A kernel wrapper given tensors on two cards raises before any
+    launch."""
+    from tpu_ecm_torch import params
+    from tpu_ecm_torch.limbs import kernels, torch_ops
+    ctx = params.make_monty(34359738421 * 68719476767)
+    d0 = torch_ops.device_ctx(ctx, two_cards[0])
+    one = torch.zeros((ctx.p.nw, 32), dtype=torch.int32,
+                      device=two_cards[0])
+    other = one.to(two_cards[1])
+    kernels.reset_launches()
+    with pytest.raises(ValueError, match="context"):
+        kernels.prefix(other[None].contiguous(), one, d0)
+    assert kernels.launches["prefix"] == 0
+
+
+def test_launch_follows_the_tensors_card(two_cards):
+    """With card 0 current, K3 on the last card's tensors runs there, on
+    that card's current stream, and equals its plain version."""
+    import numpy as np
+
+    import chip_smoke
+    from tpu_ecm_torch import params
+    from tpu_ecm_torch.limbs import kernels, torch_ops
+    ctx = params.make_monty(chip_smoke.N416)
+    rng = np.random.default_rng(5)
+    zs = chip_smoke._rand_planes(rng, ctx, (5, ctx.p.nw, 256))
+    one = chip_smoke._rand_planes(rng, ctx, (ctx.p.nw, 256))
+    last = two_cards[-1]
+    torch.cuda.set_device(two_cards[0])
+    got = kernels.prefix(zs.to(last), one.to(last),
+                         torch_ops.device_ctx(ctx, last))
+    assert got.device == last and torch.cuda.current_device() == 0
+    want = kernels.prefix_plain(zs.cpu(), one.cpu(),
+                                torch_ops.device_ctx(ctx, "cpu"))
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("engine", ["digit", "rns"])
+def test_every_card_equals_one_card(two_cards, tmp_path, engine):
+    """Sharder() over every visible card gives the one-card run of the
+    N71 job, bytes and counters and all."""
+    import chip_smoke
+    from tpu_ecm_torch.parallel import Sharder
+    kw = dict(n=chip_smoke.N71, curves=8, b1=300, b2=10000, sigma=110,
+              prime_chunk=100, engine=engine, stop_on_factor=False)
+    sh = Sharder()
+    assert sh.devices == two_cards
+    kw["curves"] = sh.round_batch(8)
+    one = _sharded_summary(tmp_path, "one", None, **kw)
+    every = _sharded_summary(tmp_path, "every", sh, **kw)
+    assert every == one

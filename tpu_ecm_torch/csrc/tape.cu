@@ -94,3 +94,11 @@ extern "C" int tpuecm_tape(const int* tape, long long nsteps, int* pts,
 }
 
 TPUECM_LANES_OCCUPANCY(tpuecm_tape_occupancy, tape_lanes_kernel)
+
+// Make `device` the current device of this library's CUDA runtime in the
+// calling thread: the wrappers launch every kernel on the device that
+// holds its tensors, whichever device was current (limbs/kernels.py,
+// on_device).
+extern "C" int tpuecm_set_device(int device) {
+    return (int)cudaSetDevice(device);
+}

@@ -1,5 +1,6 @@
-"""The ECM driver on one device — the twin of tpu_ecm/driver.py, with its
-two arithmetic engines and two curve families:
+"""The ECM driver — the twin of tpu_ecm/driver.py, with its two arithmetic
+engines and two curve families, on one device or with the curve axis
+split over several (RunConfig.sharder):
 
   digit  int32 digit planes [.., NW, B], kernels K1-K9
          (limbs/kernels.py), reducing by REDC or, for a special form
@@ -39,10 +40,29 @@ Phase structure per batch of B curves (B = the curve axis of every plane):
 
 resume_stage2 runs phases 2-3 (and the leftover stage-1 gcd) from a
 stage-1 savefile instead of phases 0-1.
+
+With a Sharder (parallel/mesh.py) the driver keeps one shard per device:
+its own DeviceCtx and engine ops, and its contiguous slice of the batch.
+The host builds the curves, plans every stage-1 tape, Edwards window
+table and stage-2 pairmap once for the whole batch and hands each shard
+its slice; the stage-1 kernels are launched on every shard in turn from
+this thread.  Stage 2 runs one Stage2Runner a shard, all replaying the
+same pairmap chunk by chunk on one Pa group, in lock-step from this
+thread (run_steps): each group's kernels are launched on every shard
+before the host crosses any of them, and each runner takes its own host
+modular inverse per group.  The host serializes at the gcd harvest, the
+checkpoint and save_b1.txt writes (in curve order, over the whole batch,
+so the files are one device's bytes) and, in stage 2, at every shard's
+host crossing in turn: its unpacking, host modinv, the RNS engine's CRT
+packing and the kernel launches themselves.
+A run stops early on a factor found by any process of a job when
+RunConfig.hit_flag (parallel/coordination.py) says so at a batch
+boundary.
 """
 
 from __future__ import annotations
 
+import collections
 import concurrent.futures as _cf
 import dataclasses
 import math
@@ -51,6 +71,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as _dist
 
 from . import params as _params
 from .io import savefile
@@ -100,6 +121,14 @@ class RunConfig:
     # stage-1 PRAC rule set: False the reduced 3/4/5/9 set, True all nine
     # rules (curve/prac.py; planned in Python)
     full_prac: bool = False
+    # the curve axis split over several devices (parallel.mesh.Sharder):
+    # its devices take the place of `device`, and batch and total are
+    # rounded up to a multiple of their count
+    sharder: Optional[object] = None
+    # stop-on-factor across processes (parallel.coordination.HitFlag):
+    # planned before the batch loop, polled at every batch boundary and
+    # drained after it
+    hit_flag: Optional[object] = None
 
 
 ENGINES = ("auto", "digit", "rns")
@@ -162,6 +191,34 @@ def prepare_context(n: int, force_no_mersenne: bool = False,
     return _params.make_monty(work_n, mersenne=mers)
 
 
+def process_index() -> int:
+    """This process's rank in torch.distributed's default group, 0 without
+    an initialized group."""
+    if _dist.is_available() and _dist.is_initialized():
+        return _dist.get_rank()
+    return 0
+
+
+def merged_finds(results: list, offsets: List[int]) -> List[Tuple[int, int]]:
+    """(curve, factor) of the shards' stage-2 inversion finds, shard i's
+    curves starting at offsets[i], in the order one runner over the whole
+    batch meets them: by the inversion that found them, then by curve."""
+    return [(i, f) for _inv, i, f in sorted(
+        (r.found_at[j], off + j, f) for off, r in zip(offsets, results)
+        for j, f in r.factors.items())]
+
+
+def run_steps(steps: list) -> None:
+    """Run the shards' step generators in lock-step from this thread: one
+    step of each a round, in shard order, until all are done.  A step ends
+    where its shard's next host crossing would wait on its kernels
+    (Stage2Runner.init_steps, chunk_steps), so the other shards' kernels
+    run while one shard's host work does."""
+    while steps:
+        steps = [s for s in steps if next(s, StopIteration)
+                 is not StopIteration]
+
+
 def check_factor(z: int, n: int) -> Optional[int]:
     """gcd harvest: a factor in (1, n)."""
     g = math.gcd(z % n, n)
@@ -182,7 +239,10 @@ class ECMDriver:
             # the Edwards doubling nests two subtractions (E = E0 - A - B),
             # which breaks the RNS engine's 2V input bound
             raise ValueError("engine='rns' supports curve_mode='suyama' only")
-        self.device = torch.device(cfg.device)
+        # the shards' devices: the sharder's, else the one device
+        self.devices = (list(cfg.sharder.devices) if cfg.sharder is not None
+                        else [torch.device(cfg.device)])
+        self.device = self.devices[0]
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device 'cuda' requested but "
                                "torch.cuda.is_available() is False")
@@ -249,16 +309,27 @@ class ECMDriver:
                     f"{self.ctx.p.nbits}-bit moduli require the RNS engine, "
                     "which supports curve_mode='suyama' only")
             self.engine = "rns"
+        # one engine ops a shard, each with the constants on its device
         if self.engine == "rns":
             self.rhost = rns.make_rns(self.ctx,
                                       cw=rns.choose_cw(self.ctx.p.nbits))
-            self.ops = s2exec.RnsOps(
-                self.rhost, rns.device_ctx(self.rhost, self.device))
+            self.shard_ops = [s2exec.RnsOps(self.rhost,
+                                            rns.device_ctx(self.rhost, d))
+                              for d in self.devices]
             if cfg.verbose:
                 print(f"engine: RNS, K={self.rhost.K} channels x 2 bases")
         else:
-            self.ops = s2exec.DigitOps(
-                self.ctx, torch_ops.device_ctx(self.ctx, self.device))
+            self.shard_ops = [s2exec.DigitOps(
+                self.ctx, torch_ops.device_ctx(self.ctx, d))
+                for d in self.devices]
+        # the devices as their tensors name them ("cuda" is "cuda:0"); shards
+        # on one device share its memory (the Pa group, noinv's row slices)
+        self.devices = [ops.device for ops in self.shard_ops]
+        self.device = self.devices[0]
+        per_device = collections.Counter(self.devices)
+        for ops in self.shard_ops:
+            ops.mem_share = 1 / per_device[ops.device]
+        self.ops = self.shard_ops[0]
         self.replay = s2exec.replay_mode(cfg.replay, self.ops, cfg.cross)
         self.stream = PrimeStream(cfg.prime_chunk or PrimeStream().chunk)
         # stage-2 pairmap cache: the (v, u) stream depends only on (chunk
@@ -266,7 +337,12 @@ class ECMDriver:
         # once and replayed for every curve batch
         self._pairmaps: Dict[Tuple[int, int], tuple] = {}
         self._pairmap_entries = 0
-        seed = _rng.hash64(int(time.time() * 1e6) & ((1 << 64) - 1))
+        # the process index is mixed into the random-sigma seed, so that
+        # processes of one job do not rest on their clocks alone to draw
+        # different sigmas (tpu_ecm/driver.py:422-431)
+        seed = _rng.hash64((int(time.time() * 1e6)
+                            ^ (process_index() * 0x9E3779B97F4A7C15))
+                           & ((1 << 64) - 1))
         self.sigma_gen = _rng.SigmaGen(cfg.sigma, seed)
         if self._even_factor:
             self._report_factor(2, 0, 0, 0, cfg.b1)
@@ -335,28 +411,51 @@ class ECMDriver:
                     "input has many small factors — divide them out first")
         return curves
 
+    def _split(self, b: int) -> List[Tuple[int, int]]:
+        """Each shard's columns [lo, hi) of a batch of b curves."""
+        if self.cfg.sharder is None:
+            return [(0, b)]
+        return self.cfg.sharder.split(b)
+
+    def _put(self, x: np.ndarray) -> List[torch.Tensor]:
+        """A host array [.., B] as one tensor a shard: its columns, on its
+        device."""
+        if self.cfg.sharder is None:
+            return [torch.from_numpy(np.ascontiguousarray(x)).to(self.device)]
+        return self.cfg.sharder.device_put(x)
+
     def _init_state(self, curves: List[suyama.CurveInit]
-                    ) -> _stage1.Stage1State:
+                    ) -> List[_stage1.Stage1State]:
+        """The batch's stage-1 state, packed on the host and split into one
+        state a shard."""
         ctx = self.ctx
         if self.engine == "digit":
-            return _stage1.init_state(
+            pts, sc = _stage1.pack_state(
                 ctx, [c.x_mont for c in curves], [c.z_mont for c in curves],
-                [c.s_mont for c in curves], self.device)
-        conv = ctx.from_mont_int
-        pts, sc = rns_exec.init_state(
-            self.rhost, [conv(c.x_mont) for c in curves],
-            [conv(c.z_mont) for c in curves],
-            [conv(c.s_mont) for c in curves])
-        return _stage1.Stage1State(pts=torch.from_numpy(pts).to(self.device),
-                                   s_const=torch.from_numpy(sc).to(
-                                       self.device))
+                [c.s_mont for c in curves])
+        else:
+            conv = ctx.from_mont_int
+            pts, sc = rns_exec.init_state(
+                self.rhost, [conv(c.x_mont) for c in curves],
+                [conv(c.z_mont) for c in curves],
+                [conv(c.s_mont) for c in curves])
+        return [_stage1.Stage1State(pts=p, s_const=c)
+                for p, c in zip(self._put(pts), self._put(sc))]
 
-    def _extract_point(self, state: _stage1.Stage1State
+    def _extract_point(self, states: List[_stage1.Stage1State]
                        ) -> Tuple[List[int], List[int]]:
-        """Canonical (X, Z) of slot 0: the phase-boundary handoff."""
-        if self.engine == "digit":
-            return _stage1.extract_point(state, self.ctx)
-        return rns_exec.extract_point(self.rhost, state.pts)
+        """Canonical (X, Z) of slot 0 of every shard, in curve order: the
+        phase-boundary handoff."""
+        xs: List[int] = []
+        zs: List[int] = []
+        for st in states:
+            if self.engine == "digit":
+                x, z = _stage1.extract_point(st, self.ctx)
+            else:
+                x, z = rns_exec.extract_point(self.rhost, st.pts)
+            xs += x
+            zs += z
+        return xs, zs
 
     def run_batch(self, sigmas: List[int], base_idx: int
                   ) -> List[Tuple[int, int, int]]:
@@ -368,24 +467,25 @@ class ECMDriver:
         # each curve keeps the sigma it was built from, on both engines
         # (tpu_ecm's digit engine keeps the requested one, ROADMAP C.2)
         sigmas = [c.sigma for c in curves]
-        state = self._init_state(curves)
+        states = self._init_state(curves)
         self._add_time("build", t0)
 
-        # ---- stage 1 ----
+        # ---- stage 1: each chunk's tape planned once, run on every shard
         t0 = time.time()
-        for chunk, state in _stage1.run_stage1(state, self.ops.tape, cfg.b1,
-                                               self.stream,
-                                               full_prac=cfg.full_prac):
+        for chunk in _stage1.run_stage1(states,
+                                        [o.tape for o in self.shard_ops],
+                                        cfg.b1, self.stream,
+                                        full_prac=cfg.full_prac):
             for k in ("ptadds", "ptdups", "numprimes"):
                 self.counters[k] = (self.counters.get(k, 0)
                                     + getattr(chunk, k))
             if not chunk.is_final:
                 # mid-stage-1 checkpoint
-                xs, zs = self._extract_point(state)
+                xs, zs = self._extract_point(states)
                 self._check_batch(zs, sigmas, 1, chunk.last_prime, base_idx)
                 self._write_save(cfg.checkpoint_path, sigmas, xs, zs,
                                  chunk.last_prime)
-        xs, zs = self._extract_point(state)
+        xs, zs = self._extract_point(states)
         self._add_time("stage1", t0)
         if cfg.verbose >= 2:
             print(f"Stage 1 completed, {self.counters.get('ptadds', 0)} "
@@ -397,22 +497,24 @@ class ECMDriver:
         residues = [(s, x, z) for s, x, z in zip(sigmas, xs, zs)]
 
         # ---- stage 2 ----
-        self._run_stage2(state.pts[0], state.s_const, sigmas, base_idx)
+        self._run_stage2([st.pts[0] for st in states],
+                         [st.s_const for st in states], sigmas, base_idx)
         return residues
 
     # -- Edwards stage 1 -------------------------------------------------
 
-    def _ed_normalize(self, acc: torch.Tensor, sigmas: List[int],
+    def _ed_normalize(self, accs: List[torch.Tensor], sigmas: List[int],
                       base_idx: int, bound: int):
-        """Normalize the Edwards accumulator on the host at a chunk boundary
-        (ONE batch modinv): returns (base_pts [(x, y)], u, w) with u/w the
-        canonical Montgomery-x projective pair (Z+Y, Z-Y) of the checkpoint
-        record.  A lane whose Z shares a factor with n is a find (harvested
-        like an inversion failure); it continues from the identity (0, 1)
-        so the batch keeps its shape."""
+        """Normalize the shards' Edwards accumulators on the host at a chunk
+        boundary, as one batch in curve order (ONE batch modinv): returns
+        (base_pts [(x, y)], u, w) with u/w the canonical Montgomery-x
+        projective pair (Z+Y, Z-Y) of the checkpoint record.  A lane whose
+        Z shares a factor with n is a find (harvested like an inversion
+        failure); it continues from the identity (0, 1) so the batch keeps
+        its shape."""
         ctx = self.ctx
         n = ctx.n_int
-        arr = acc.cpu().numpy()
+        arr = np.concatenate([a.cpu().numpy() for a in accs], axis=-1)
         xc, yc, zc = ([ctx.from_mont_int(v % n)
                        for v in layout.unpack_batch(arr[k], ctx.p.w)]
                       for k in range(3))
@@ -439,7 +541,6 @@ class ECMDriver:
         point, and checkpoint.txt is appended per chunk, as on the Suyama
         path."""
         cfg, ctx = self.cfg, self.ctx
-        dctx = self.ops.dctx
         t0 = time.time()
         curves = self._build_curves(sigmas, base_idx,
                                     build=edwards.build_one_curve)
@@ -448,7 +549,7 @@ class ECMDriver:
 
         t0 = time.time()
         chunk_list = list(self.stream.chunks(0, cfg.b1))
-        acc = None
+        accs = None
         base_pts = None          # None: the curves' own base points
         nprimes = 0
         for ci, (_lo, _hi, primes) in enumerate(chunk_list):
@@ -470,10 +571,11 @@ class ECMDriver:
                 raise RuntimeError(
                     "window table hit a factor of n; rerun with fresh "
                     "sigmas or divide the reported factor out") from e
-            acc = torch.from_numpy(edwards.init_accumulator(
-                ctx, pts, lead)).to(self.device)
-            kernels.ed_tape(acc, tape, torch.from_numpy(table).to(
-                self.device), dctx)
+            # the tables are built once for the batch and split; K9 runs on
+            # every shard
+            accs = self._put(edwards.init_accumulator(ctx, pts, lead))
+            for acc, tab, ops in zip(accs, self._put(table), self.shard_ops):
+                kernels.ed_tape(acc, tape, tab, ops.dctx)
             ops_col = tape[:, 0]
             nadd = int(np.count_nonzero((ops_col == edwards.ED_ADD)
                                         | (ops_col == edwards.ED_SUB)))
@@ -488,7 +590,7 @@ class ECMDriver:
                 # mid-stage-1 checkpoint and the next chunk's table base
                 bound = min(int(primes[-1]), cfg.b1)
                 t1 = time.time()
-                base_pts, u_c, w_c = self._ed_normalize(acc, sigmas,
+                base_pts, u_c, w_c = self._ed_normalize(accs, sigmas,
                                                         base_idx, bound)
                 self._add_time("ed_normalize", t1)
                 self._check_batch(w_c, sigmas, 1, bound, base_idx)
@@ -496,25 +598,27 @@ class ECMDriver:
                                  bound, program=ED_PROGRAM)
         self.counters["numprimes"] = (self.counters.get("numprimes", 0)
                                       + nprimes)
-        # Montgomery handoff
-        u, w = edops.to_montgomery_pair(acc, dctx)
-        pts0 = torch.stack([u, w])
-        ux, wz, ax = (self.ops.unpack(t) for t in (u, w, acc[0]))
-        xs = [self.ops.from_mont_int(v) for v in ux]
-        zs = [self.ops.from_mont_int(v) for v in wz]
+        # Montgomery handoff, shard by shard
+        pts0, xs, zs, ax = [], [], [], []
+        for acc, ops in zip(accs, self.shard_ops):
+            u, w = edops.to_montgomery_pair(acc, ops.dctx)
+            pts0.append(torch.stack([u, w]))
+            xs += [ops.from_mont_int(v) for v in ops.unpack(u)]
+            zs += [ops.from_mont_int(v) for v in ops.unpack(w)]
+            ax += [ops.from_mont_int(v) for v in ops.unpack(acc[0])]
         self._add_time("stage1", t0)
         if cfg.verbose >= 2:
             print(f"Stage 1 (edwards) completed, "
                   f"{self.counters.get('ptadds', 0)} window-adds, "
                   f"{self.counters.get('ptdups', 0)} doublings")
         # the identity mod p shows as X=0 (and (0,-1) too); y=1 as W=0
-        self._check_batch([self.ops.from_mont_int(v) for v in ax], sigmas,
-                          1, cfg.b1, base_idx)
+        self._check_batch(ax, sigmas, 1, cfg.b1, base_idx)
         self._check_batch(zs, sigmas, 1, cfg.b1, base_idx)
         self._write_save(cfg.save_b1_path, sigmas, xs, zs, cfg.b1,
                          program=ED_PROGRAM)
         residues = [(s, x, z) for s, x, z in zip(sigmas, xs, zs)]
-        s_const = self.ops.pack([c.s_mont for c in curves])
+        s_const = self._put(layout.pack_batch([c.s_mont for c in curves],
+                                              ctx.p.w, ctx.p.nw))
         self._run_stage2(pts0, s_const, sigmas, base_idx)
         return residues
 
@@ -581,17 +685,35 @@ class ECMDriver:
                 f.cancel()
             pool.shutdown(wait=False)
 
-    def _run_stage2(self, pts0, s_const, sigmas: List[int], base_idx: int):
+    def _pa_group(self, sp, widths: List[int]) -> Optional[int]:
+        """One Pa group for every shard of a batch: on CUDA the smallest
+        that any shard's memory rule allows; None on the CPU, where the
+        runner takes PA_GROUP["cpu"]."""
+        if self.device.type != "cuda":
+            return None
+        return min(s2exec.pa_group_for_ops(ops, sp, b, self.cfg.cross)
+                   for ops, b in zip(self.shard_ops, widths))
+
+    def _run_stage2(self, pts0: List[torch.Tensor],
+                    s_const: List[torch.Tensor], sigmas: List[int],
+                    base_idx: int):
+        """Stage 2 of a batch from each shard's stage-1 point and curve
+        constant: one runner a shard on the batch's parameters, Pa group
+        and pairmaps, the finds harvested in curve order and the counters
+        taken once a batch, as tpu_ecm's one runner counts them."""
         cfg = self.cfg
         if not self.do_stage2:
             return
         t0 = time.time()
+        # the global width: one device and n devices pair the same entries
         sp = s2plan.make_stage2_params(cfg.b1, self.b2, nw=self.ctx.p.nw,
-                                       batch=int(pts0.shape[-1]))
-        runner = s2exec.Stage2Runner(self.ctx, None, sp, pts0, s_const,
-                                     ops=self.ops, replay=self.replay,
-                                     cross=cfg.cross)
-        runner.init()
+                                       batch=len(sigmas))
+        g = self._pa_group(sp, [int(p.shape[-1]) for p in pts0])
+        runners = [s2exec.Stage2Runner(self.ctx, None, sp, pt, sc, ops=ops,
+                                       replay=self.replay, cross=cfg.cross,
+                                       pa_group=g)
+                   for pt, sc, ops in zip(pts0, s_const, self.shard_ops)]
+        run_steps([r.init_steps() for r in runners])
         self._sync()
         self._add_time("stage2_init", t0)
         t0 = time.time()
@@ -599,24 +721,30 @@ class ECMDriver:
         for map_v, map_u, amin0, stats in self._iter_pairmaps(sp):
             s2_pairs += stats["pairs"]
             s2_primes += stats["primes"]
-            runner.run_chunk(map_v, map_u, amin0)
-        res = runner.result()
+            run_steps([r.chunk_steps(map_v, map_u, amin0)
+                       for r in runners])
+        results = [r.result() for r in runners]
         self._add_time("stage2", t0)
         if cfg.verbose >= 1 and s2_primes:
             print(f"stage 2: {s2_pairs} pairs from {s2_primes} primes "
                   f"(ratio = {s2_pairs / s2_primes:.2f})")
+        # every runner replays the same entries and inverts the same
+        # groups: the batch's counts are any one runner's
         for k in ("paired", "ptadds", "ptdups", "numinv"):
-            self.counters[k] = self.counters.get(k, 0) + getattr(res, k)
-        self.replay_slots += res.slots
-        for i, f in res.factors.items():
+            self.counters[k] = self.counters.get(k, 0) + getattr(results[0], k)
+        self.replay_slots += results[0].slots
+        offsets = [lo for lo, _hi in self._split(len(sigmas))]
+        for i, f in merged_finds(results, offsets):
             if f:
                 self._report_factor(f, 2, base_idx + i, sigmas[i], self.b2)
-        self._check_batch(res.acc, sigmas, 2, self.b2, base_idx)
+        self._check_batch([a for r in results for a in r.acc], sigmas, 2,
+                          self.b2, base_idx)
 
     def _sync(self):
-        """Wait for the device so a phase timing covers its kernels."""
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        """Wait for the devices so a phase timing covers its kernels."""
+        for dev in dict.fromkeys(self.devices):
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
 
     # ------------------------------------------------------------------
 
@@ -630,18 +758,41 @@ class ECMDriver:
         batch = cfg.batch or total
         if (not cfg.batch and self.engine == "rns"
                 and self.device.type == "cuda"):
-            batch = min(total, rns_exec.default_batch(self.device))
+            # the card's batch on every device (tpu_ecm/driver.py:972-983)
+            batch = min(total, len(self.devices) * min(
+                rns_exec.default_batch(d) for d in self.devices))
+        if cfg.sharder is not None:
+            # whole shards: rounded to the device count, not to 128 lanes
+            # (the kernels take any batch; tpu_ecm/driver.py:989-991)
+            batch = cfg.sharder.round_batch(batch)
+            total = cfg.sharder.round_batch(total)
+        flag = cfg.hit_flag
         residues: List[Tuple[int, int, int]] = []
         done = 0
-        while done < total:
-            b = min(batch, total - done)
-            sigmas = [self.sigma_gen.next() for _ in range(b)]
-            if cfg.verbose:
-                print(f"Commencing curves {done}-{done + b - 1} of {total}")
-            residues += self.run_batch(sigmas, done)
-            done += b
-            if len(self.factors) > self._initial_hits and cfg.stop_on_factor:
-                break
+        if flag is not None:
+            # collective flags agree on a poll budget first: the batch
+            # count follows the local devices and engine, so processes can
+            # differ (parallel/coordination.py)
+            flag.plan((total + batch - 1) // batch)
+        try:
+            while done < total:
+                b = min(batch, total - done)
+                sigmas = [self.sigma_gen.next() for _ in range(b)]
+                if cfg.verbose:
+                    print(f"Commencing curves {done}-{done + b - 1} of "
+                          f"{total}")
+                residues += self.run_batch(sigmas, done)
+                done += b
+                hit = len(self.factors) > self._initial_hits
+                if flag is not None:
+                    # publish this process's bit and learn every process's
+                    # at the batch boundary
+                    hit = flag.poll(hit)
+                if hit and cfg.stop_on_factor:
+                    break
+        finally:
+            if flag is not None:
+                flag.drain()
         return RunResult(n=cfg.n, work_modulus=self.ctx.n_int,
                          factors=self.factors, curves_run=done,
                          stage1_residues=residues, timings=dict(self.timings),
@@ -659,14 +810,18 @@ def resume_stage2(path: str, b2: int, *,
                   prime_chunk: Optional[int] = None,
                   batch: Optional[int] = None, device: str = "cuda",
                   engine: str = "auto", cross: str = "inv",
-                  replay: Optional[str] = None) -> RunResult:
+                  replay: Optional[str] = None,
+                  sharder: Optional[object] = None) -> RunResult:
     """Stage 2 (only) from a stage-1 savefile (tpu_ecm/driver.py:1032-1149,
     GMP-ECM's `ecm -resume`): every record's curve constant is rebuilt
     from its SIGMA, its X and Z are lifted into the engine's Montgomery
     form, the saved Z takes the leftover stage-1 gcd, and stage 2 runs to
     B2.  Records run in groups of `batch` curves (default: the RNS
-    engine's card batch, rns_exec.default_batch; the whole file on the
-    digit engine); the kernels take any batch, so no group is padded.
+    engine's card batch, rns_exec.default_batch, times the sharder's
+    device count; the whole file on the digit engine), rounded down to a
+    multiple of the device count; a sharded group is padded to whole
+    shards by repeating its last record, as tpu_ecm pads (a repeated
+    curve's find is reported once), and split over the sharder's devices.
 
     Records tagged PROGRAM=AVX-ECM-ED carry an Edwards seed: their curve
     is rebuilt by curve/edwards.py and stage 2 takes the Montgomery
@@ -703,14 +858,16 @@ def resume_stage2(path: str, b2: int, *,
         verbose=verbose, force_no_mersenne=force_no_mersenne,
         prime_chunk=prime_chunk, save_b1_path=None, checkpoint_path=None,
         stop_on_factor=False, curve_mode=curve_mode, device=device,
-        engine=engine, cross=cross, replay=replay))
+        engine=engine, cross=cross, replay=replay, sharder=sharder))
     if d._prp_input:
         return d.run()
     ctx = d.ctx
+    ndev = len(d.devices)
     if batch is None:
-        batch = (rns_exec.default_batch(d.device)
+        batch = (ndev * min(rns_exec.default_batch(dev) for dev in d.devices)
                  if d.engine == "rns" and d.device.type == "cuda"
                  else len(recs))
+    batch = max(ndev, batch // ndev * ndev)
     build = (edwards.build_one_curve if curve_mode == "edwards"
              else suyama.build_one_curve)
     if verbose:
@@ -719,16 +876,18 @@ def resume_stage2(path: str, b2: int, *,
               + (f" in groups of {batch}" if len(recs) > batch else ""))
     for base in range(0, len(recs), batch):
         group = recs[base:base + batch]
+        group += [group[-1]] * (-len(group) % ndev)
         sigmas = [r.sigma for r in group]
         t0 = time.time()
-        state = d._init_state([suyama.CurveInit(
+        states = d._init_state([suyama.CurveInit(
             sigma=r.sigma, x_mont=ctx.to_mont_int(r.x % ctx.n_int),
             z_mont=ctx.to_mont_int(r.z % ctx.n_int),
             s_mont=build(ctx, r.sigma).s_mont) for r in group])
         d._add_time("build", t0)
         # leftover stage-1 factors first (gcd of the saved Z)
         d._check_batch([r.z for r in group], sigmas, 1, b1, base)
-        d._run_stage2(state.pts[0], state.s_const, sigmas, base)
+        d._run_stage2([st.pts[0] for st in states],
+                      [st.s_const for st in states], sigmas, base)
     return RunResult(n=n, work_modulus=ctx.n_int, factors=d.factors,
                      curves_run=len(recs), stage1_residues=[],
                      timings=dict(d.timings), counters=dict(d.counters))

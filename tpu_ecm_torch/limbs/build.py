@@ -50,6 +50,7 @@ _MOD = [_P, _P, _I, _I, _I, _I, _I, _I, _I]
 # argument lists of the extern "C" entry points (pointers and stream as
 # void*, so ctypes never truncates them to 32 bits)
 SIGNATURES = {
+    "tpuecm_set_device": [_I],
     "tpuecm_tape": [_P, _L, _P, _P, *_MOD, _I, _I, _I, _P],
     "tpuecm_tape_occupancy": [_I, _I, _IP],
     "tpuecm_chain": [_P, _P, _P, _P, _I, *_MOD, _I, _I, _I, _P],

@@ -8,7 +8,8 @@ generic n, the fold for a special form 2^e - c (ctx.is_mersenne).
 Each wrapper checks device, dtype, shape and contiguity, then routes on
 where its tensors lie: on the CPU it runs the kernel's plain PyTorch
 version, on a CUDA device it launches the kernel (built by limbs/build.py)
-on the current stream, and anything else raises.  There is no fallback from
+on that device, whichever is current, and on its current stream (_launch);
+tensors on two devices, or anything else, raise.  There is no fallback from
 a CUDA tensor to the plain version.  `launches` counts the kernel launches
 of each wrapper, so a run can show that it went through the kernels.
 
@@ -21,6 +22,7 @@ and curve/edops.run_tape for K9.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 from typing import Dict, NamedTuple
 
@@ -185,8 +187,17 @@ def _mod(ctx: DeviceCtx):
             int(p.norm_inputs))
 
 
-def _stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
+@contextlib.contextmanager
+def on_device(device):
+    """`device` current in this thread for torch and for the kernel
+    library's own CUDA runtime (limbs/build.py links it into the library),
+    whichever device was current before."""
+    with torch.cuda.device(device):
+        rc = build.library().tpuecm_set_device(torch.cuda.current_device())
+        if rc != 0:
+            raise RuntimeError(f"cudaSetDevice({device}) failed, CUDA "
+                               f"error {rc}")
+        yield
 
 
 def _done(name: str, rc: int) -> None:
@@ -194,6 +205,16 @@ def _done(name: str, rc: int) -> None:
         raise RuntimeError(f"{name}: CUDA launch failed, "
                            f"cudaGetLastError() = {rc}")
     launches[name] += 1
+
+
+def _launch(name: str, ctx, entry: str, *args) -> None:
+    """Launch the library's `entry` on ctx's device, which every tensor
+    argument was checked to lie on (_check), and on that device's current
+    stream; count it in launches."""
+    with on_device(ctx.device):
+        rc = getattr(build.library(), entry)(
+            *args, torch.cuda.current_stream(ctx.device).cuda_stream)
+    _done(name, rc)
 
 
 def tape_geometry(nw: int, b: int):
@@ -234,13 +255,12 @@ def tape(pts: torch.Tensor, tape_np: np.ndarray, s_const: torch.Tensor,
     lanes, digits, _per_block, _blocks = tape_geometry(nw, b)
     if t.shape[0] == 0:
         return pts
-    lib = build.library()
     dev = torch.from_numpy(t).to(pts.device)
     for lo in range(0, t.shape[0], TAPE_SLICE):
         steps = min(TAPE_SLICE, t.shape[0] - lo)
-        _done("tape", lib.tpuecm_tape(
-            dev[lo].data_ptr(), steps, pts.data_ptr(), s_const.data_ptr(),
-            *_mod(ctx), b, lanes, digits, _stream()))
+        _launch("tape", ctx, "tpuecm_tape", dev[lo].data_ptr(), steps,
+                pts.data_ptr(), s_const.data_ptr(), *_mod(ctx), b, lanes,
+                digits)
     return pts
 
 
@@ -264,13 +284,11 @@ def ed_tape(acc: torch.Tensor, tape_np: np.ndarray, table: torch.Tensor,
     lanes, digits, _per_block, _blocks = tape_geometry(nw, b)
     if t.shape[0] == 0:
         return acc
-    lib = build.library()
     dev = torch.from_numpy(t).to(acc.device)
     for lo in range(0, t.shape[0], TAPE_SLICE):
         steps = min(TAPE_SLICE, t.shape[0] - lo)
-        _done("ed_tape", lib.tpuecm_ed_tape(
-            dev[lo].data_ptr(), steps, acc.data_ptr(), table.data_ptr(),
-            *_mod(ctx), b, lanes, digits, _stream()))
+        _launch("ed_tape", ctx, "tpuecm_ed_tape", dev[lo].data_ptr(), steps,
+                acc.data_ptr(), table.data_ptr(), *_mod(ctx), b, lanes, digits)
     return acc
 
 
@@ -288,9 +306,8 @@ def chain(p1: torch.Tensor, p2: torch.Tensor, pd: torch.Tensor, count: int,
         return chain_plain(p1, p2, pd, count, ctx)
     lanes, digits, _per_block, _blocks = tape_geometry(nw, b)
     out = torch.empty((count, 2, nw, b), dtype=torch.int32, device=p1.device)
-    _done("chain", build.library().tpuecm_chain(
-        p1.data_ptr(), p2.data_ptr(), pd.data_ptr(), out.data_ptr(), count,
-        *_mod(ctx), b, lanes, digits, _stream()))
+    _launch("chain", ctx, "tpuecm_chain", p1.data_ptr(), p2.data_ptr(),
+            pd.data_ptr(), out.data_ptr(), count, *_mod(ctx), b, lanes, digits)
     return out
 
 
@@ -308,9 +325,8 @@ def prefix(zs: torch.Tensor, one: torch.Tensor, ctx: DeviceCtx
         return prefix_plain(zs, one, ctx)
     lanes, digits, _per_block, _blocks = tape_geometry(nw, b)
     out = torch.empty_like(zs)
-    _done("prefix", build.library().tpuecm_prefix(
-        zs.data_ptr(), one.data_ptr(), out.data_ptr(), count, *_mod(ctx), b,
-        lanes, digits, _stream()))
+    _launch("prefix", ctx, "tpuecm_prefix", zs.data_ptr(), one.data_ptr(),
+            out.data_ptr(), count, *_mod(ctx), b, lanes, digits)
     return out
 
 
@@ -330,9 +346,9 @@ def apply_inverse(xs: torch.Tensor, zs: torch.Tensor, pres: torch.Tensor,
         return apply_inverse_plain(xs, zs, pres, total_inv, ctx)
     lanes, digits, _per_block, _blocks = tape_geometry(nw, b)
     out = torch.empty_like(xs)
-    _done("apply_inverse", build.library().tpuecm_apply_inverse(
-        xs.data_ptr(), zs.data_ptr(), pres.data_ptr(), total_inv.data_ptr(),
-        out.data_ptr(), count, *_mod(ctx), b, lanes, digits, _stream()))
+    _launch("apply_inverse", ctx, "tpuecm_apply_inverse", xs.data_ptr(),
+            zs.data_ptr(), pres.data_ptr(), total_inv.data_ptr(),
+            out.data_ptr(), count, *_mod(ctx), b, lanes, digits)
     return out
 
 
@@ -359,9 +375,9 @@ def replay(acc: torch.Tensor, pa_ext: torch.Tensor, pbx: torch.Tensor,
     lanes, digits, _per_block, _blocks = tape_geometry(nw, b)
     out = torch.empty_like(acc)
     dev = torch.from_numpy(idx).to(acc.device)
-    _done("replay", build.library().tpuecm_replay(
-        acc.data_ptr(), out.data_ptr(), pa_ext.data_ptr(), pbx.data_ptr(),
-        dev.data_ptr(), *_mod(ctx), b, lanes, digits, _stream()))
+    _launch("replay", ctx, "tpuecm_replay", acc.data_ptr(), out.data_ptr(),
+            pa_ext.data_ptr(), pbx.data_ptr(), dev.data_ptr(), *_mod(ctx), b,
+            lanes, digits)
     return out
 
 
@@ -383,10 +399,9 @@ def replay_gather(acc: torch.Tensor, pa_ext: torch.Tensor, pbx: torch.Tensor,
     lanes, digits, _per_block, _blocks = tape_geometry(nw, b)
     out = torch.empty_like(acc)
     dev = torch.from_numpy(idx).to(acc.device)
-    _done("replay_gather", build.library().tpuecm_replay_gather(
-        acc.data_ptr(), out.data_ptr(), pa_ext.data_ptr(), pbx.data_ptr(),
-        dev.data_ptr(), idx.shape[0] // e, e, *_mod(ctx), b, lanes, digits,
-        _stream()))
+    _launch("replay_gather", ctx, "tpuecm_replay_gather", acc.data_ptr(),
+            out.data_ptr(), pa_ext.data_ptr(), pbx.data_ptr(), dev.data_ptr(),
+            idx.shape[0] // e, e, *_mod(ctx), b, lanes, digits)
     return out
 
 
@@ -419,10 +434,9 @@ def replay_parow(acc: torch.Tensor, pa_ext: torch.Tensor, pbx: torch.Tensor,
     lanes, digits, _per_block, _blocks = tape_geometry(nw, b)
     out = torch.empty_like(acc)
     dev = torch.from_numpy(steps).to(acc.device)
-    _done("replay_parow", build.library().tpuecm_replay_parow(
-        acc.data_ptr(), out.data_ptr(), pa_ext.data_ptr(), pbx.data_ptr(),
-        dev.data_ptr(), one.data_ptr(), steps.shape[0], e, *_mod(ctx), b,
-        lanes, digits, _stream()))
+    _launch("replay_parow", ctx, "tpuecm_replay_parow", acc.data_ptr(),
+            out.data_ptr(), pa_ext.data_ptr(), pbx.data_ptr(), dev.data_ptr(),
+            one.data_ptr(), steps.shape[0], e, *_mod(ctx), b, lanes, digits)
     return out
 
 
@@ -453,7 +467,7 @@ def resident_smem(nw: int, device) -> ResidentSmem:
     depend on nw alone)."""
     lanes, digits, _per_block, _blocks = tape_geometry(nw, 1)
     out = [ctypes.c_int() for _ in range(4)]
-    with torch.cuda.device(device):
+    with on_device(device):
         rc = build.library().tpuecm_replay_resident_smem(
             lanes, digits, *map(ctypes.byref, out))
     if rc != 0:
@@ -467,7 +481,7 @@ def resident_blocks_per_sm(nw: int, cap: int, device) -> int:
     card's occupancy calculator)."""
     lanes, digits, _per_block, _blocks = tape_geometry(nw, 1)
     per_sm = ctypes.c_int()
-    with torch.cuda.device(device):
+    with on_device(device):
         rc = build.library().tpuecm_replay_resident_occupancy(
             lanes, digits, cap, ctypes.byref(per_sm))
     if rc != 0:
@@ -555,10 +569,10 @@ def replay_resident(acc: torch.Tensor, pa_ext: torch.Tensor,
     out = torch.empty_like(acc)
     dev_e = torch.from_numpy(entries).to(acc.device)
     dev_s = torch.from_numpy(slabs).to(acc.device)
-    _done("replay_resident", build.library().tpuecm_replay_resident(
-        acc.data_ptr(), out.data_ptr(), pa_ext.data_ptr(), pbx.data_ptr(),
-        pb_rows, dev_e.data_ptr(), dev_s.data_ptr(), slabs.shape[0], cap, e,
-        *_mod(ctx), b, lanes, digits, _stream()))
+    _launch("replay_resident", ctx, "tpuecm_replay_resident", acc.data_ptr(),
+            out.data_ptr(), pa_ext.data_ptr(), pbx.data_ptr(), pb_rows,
+            dev_e.data_ptr(), dev_s.data_ptr(), slabs.shape[0], cap, e,
+            *_mod(ctx), b, lanes, digits)
     return out
 
 

@@ -3,7 +3,8 @@ the plain PyTorch versions beside them.
 
 The same contract as limbs/kernels.py: each wrapper checks device, dtype,
 shape and contiguity, runs the plain version for CPU tensors, launches the
-kernel on the current stream for CUDA tensors (never the plain version),
+kernel on the tensors' device and its current stream for CUDA tensors
+(never the plain version),
 raises for anything else, and counts its launches in kernels.launches.
 Planes are int32 [..., 2K+1, B] residue planes, curve axis last; the plain
 version of K10 is rns_exec.run_tape.  All six run on the tensor-core core
@@ -26,7 +27,7 @@ import torch
 
 from ..curve.ops import NUM_SLOTS
 from . import build, rns, rns_exec
-from .kernels import (PLAIN_REPLAY_BLOCK, _check, _done, _stream,
+from .kernels import (PLAIN_REPLAY_BLOCK, _check, _launch,
                       check_pairs, step_roots)
 from .rns import RnsCtx
 
@@ -176,15 +177,13 @@ def tape(pts: torch.Tensor, tape_np: np.ndarray, s_const: torch.Tensor,
         return rns_exec.run_tape(pts, t, s_const, rc)
     if t.shape[0] == 0:
         return pts
-    lib = build.library()
     dev = torch.from_numpy(t).to(pts.device)
     tile = tape_geometry(rc.K, b).tile
     for lo in range(0, t.shape[0], TAPE_SLICE):
         steps = min(TAPE_SLICE, t.shape[0] - lo)
-        _done("rns_tape", lib.tpuecm_rns_tape(
-            dev[lo].data_ptr(), steps, pts.data_ptr(), s_const.data_ptr(),
-            rc.tab.data_ptr(), rc.wmma.data_ptr(), rc.K, b, tile,
-            _stream()))
+        _launch("rns_tape", rc, "tpuecm_rns_tape", dev[lo].data_ptr(), steps,
+                pts.data_ptr(), s_const.data_ptr(), rc.tab.data_ptr(),
+                rc.wmma.data_ptr(), rc.K, b, tile)
     return pts
 
 
@@ -201,10 +200,9 @@ def chain(p1: torch.Tensor, p2: torch.Tensor, pd: torch.Tensor, count: int,
         return chain_plain(p1, p2, pd, count, rc)
     out = torch.empty((count, 2, rows, b), dtype=torch.int32,
                       device=p1.device)
-    _done("rns_chain", build.library().tpuecm_rns_chain(
-        p1.data_ptr(), p2.data_ptr(), pd.data_ptr(), out.data_ptr(), count,
-        rc.tab.data_ptr(), rc.wmma.data_ptr(), rc.K, b,
-        chain_geometry(rc.K, b).tile, _stream()))
+    _launch("rns_chain", rc, "tpuecm_rns_chain", p1.data_ptr(), p2.data_ptr(),
+            pd.data_ptr(), out.data_ptr(), count, rc.tab.data_ptr(),
+            rc.wmma.data_ptr(), rc.K, b, chain_geometry(rc.K, b).tile)
     return out
 
 
@@ -219,10 +217,9 @@ def prefix(zs: torch.Tensor, one: torch.Tensor, rc: RnsCtx) -> torch.Tensor:
     if _on_cpu("rns_prefix", rc):
         return prefix_plain(zs, one, rc)
     out = torch.empty_like(zs)
-    _done("rns_prefix", build.library().tpuecm_rns_prefix(
-        zs.data_ptr(), one.data_ptr(), out.data_ptr(), count,
-        rc.tab.data_ptr(), rc.wmma.data_ptr(), rc.K, b,
-        prefix_geometry(rc.K, b).tile, _stream()))
+    _launch("rns_prefix", rc, "tpuecm_rns_prefix", zs.data_ptr(),
+            one.data_ptr(), out.data_ptr(), count, rc.tab.data_ptr(),
+            rc.wmma.data_ptr(), rc.K, b, prefix_geometry(rc.K, b).tile)
     return out
 
 
@@ -240,10 +237,10 @@ def apply_inverse(xs: torch.Tensor, zs: torch.Tensor, pres: torch.Tensor,
     if _on_cpu("rns_apply_inverse", rc):
         return apply_inverse_plain(xs, zs, pres, total_inv, rc)
     out = torch.empty_like(xs)
-    _done("rns_apply_inverse", build.library().tpuecm_rns_apply_inverse(
-        xs.data_ptr(), zs.data_ptr(), pres.data_ptr(), total_inv.data_ptr(),
-        out.data_ptr(), count, rc.tab.data_ptr(), rc.wmma.data_ptr(), rc.K,
-        b, apply_inverse_geometry(rc.K, b).tile, _stream()))
+    _launch("rns_apply_inverse", rc, "tpuecm_rns_apply_inverse", xs.data_ptr(),
+            zs.data_ptr(), pres.data_ptr(), total_inv.data_ptr(),
+            out.data_ptr(), count, rc.tab.data_ptr(), rc.wmma.data_ptr(), rc.K,
+            b, apply_inverse_geometry(rc.K, b).tile)
     return out
 
 
@@ -269,10 +266,10 @@ def replay(acc: torch.Tensor, pa_ext: torch.Tensor, pbx: torch.Tensor,
         return replay_plain(acc, pa_ext, pbx, idx, rc)
     out = torch.empty_like(acc)
     dev = torch.from_numpy(idx[1:1 + live.size]).to(acc.device)
-    _done("rns_replay", build.library().tpuecm_rns_replay(
-        acc.data_ptr(), out.data_ptr(), pa_ext.data_ptr(), pbx.data_ptr(),
-        dev.data_ptr(), live.size, rc.tab.data_ptr(), rc.wmma.data_ptr(),
-        rc.K, b, replay_geometry(rc.K, b).tile, _stream()))
+    _launch("rns_replay", rc, "tpuecm_rns_replay", acc.data_ptr(),
+            out.data_ptr(), pa_ext.data_ptr(), pbx.data_ptr(), dev.data_ptr(),
+            live.size, rc.tab.data_ptr(), rc.wmma.data_ptr(), rc.K, b,
+            replay_geometry(rc.K, b).tile)
     return out
 
 
@@ -295,10 +292,11 @@ def replay_gather(acc: torch.Tensor, pa_ext: torch.Tensor, pbx: torch.Tensor,
     scratch = torch.empty((g.scratch, rows, b), dtype=torch.int32,
                           device=acc.device)
     dev = torch.from_numpy(idx).to(acc.device)
-    _done("rns_replay_gather", build.library().tpuecm_rns_replay_gather(
-        acc.data_ptr(), out.data_ptr(), scratch.data_ptr(), pa_ext.data_ptr(),
-        pbx.data_ptr(), dev.data_ptr(), idx.shape[0] // e, e,
-        rc.tab.data_ptr(), rc.wmma.data_ptr(), rc.K, b, g.tile, _stream()))
+    _launch("rns_replay_gather", rc, "tpuecm_rns_replay_gather",
+            acc.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+            pa_ext.data_ptr(), pbx.data_ptr(), dev.data_ptr(),
+            idx.shape[0] // e, e, rc.tab.data_ptr(), rc.wmma.data_ptr(), rc.K,
+            b, g.tile)
     return out
 
 

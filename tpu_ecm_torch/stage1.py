@@ -13,7 +13,7 @@ boundaries.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Iterator, List, Tuple
+from typing import Callable, Iterator, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -32,16 +32,16 @@ class Stage1State:
     s_const: torch.Tensor   # [rows, B]  (A+2)/4 in Montgomery form
 
 
-def init_state(ctx: MontyCtx, xs: List[int], zs: List[int], ss: List[int],
-               device) -> Stage1State:
+def pack_state(ctx: MontyCtx, xs: List[int], zs: List[int], ss: List[int]
+               ) -> Tuple[np.ndarray, np.ndarray]:
+    """The host arrays of a batch's state: the point file [S, 2, NW, B] with
+    (X, Z) in slot 0, and the curve constant [NW, B]."""
     p = ctx.p
     b = len(xs)
     pts = np.zeros((ops.NUM_SLOTS, 2, p.nw, b), dtype=np.int32)
     pts[0, 0] = layout.pack_batch(xs, p.w, p.nw)
     pts[0, 1] = layout.pack_batch(zs, p.w, p.nw)
-    s_const = layout.pack_batch(ss, p.w, p.nw)
-    return Stage1State(pts=torch.from_numpy(pts).to(device),
-                       s_const=torch.from_numpy(s_const).to(device))
+    return pts, layout.pack_batch(ss, p.w, p.nw)
 
 
 @dataclasses.dataclass
@@ -55,27 +55,30 @@ class Stage1Chunk:
     numprimes: int = 0
 
 
-def run_stage1(state: Stage1State, run_tape: Callable, b1: int,
-               stream: PrimeStream, *, full_prac: bool = False
-               ) -> Iterator[Tuple[Stage1Chunk, Stage1State]]:
-    """Yield (chunk, state) after each prime chunk; the caller checkpoints
-    between chunks.  run_tape(pts, tape, s_const) is the engine's tape
-    kernel call; the point file is updated in place.  full_prac plans the
-    tapes with all nine PRAC rules (curve/prac.py)."""
+def run_stage1(states: Sequence[Stage1State], run_tapes: Sequence[Callable],
+               b1: int, stream: PrimeStream, *, full_prac: bool = False
+               ) -> Iterator[Stage1Chunk]:
+    """Yield each prime chunk after its tape has run; the caller
+    checkpoints between chunks.  Each chunk's tape is planned once and
+    replayed on every shard: run_tapes[i](pts, tape, s_const) is the
+    engine's tape kernel call of shard i, which updates states[i]'s point
+    file in place.  full_prac plans the tapes with all nine PRAC rules
+    (curve/prac.py)."""
     first = True
     for lo, hi, primes in stream.chunks(0, b1):
         sel = primes[primes < b1]
         tape = prac.stage1_tape(sel, b1, include_two=first, full=full_prac)
         first = False
         if tape.shape[0]:
-            run_tape(state.pts, tape, state.s_const)
+            for state, run_tape in zip(states, run_tapes):
+                run_tape(state.pts, tape, state.s_const)
         last_prime = int(sel[-1]) if sel.size else 2
         ops_col = tape[:, 0] if tape.shape[0] else np.zeros(0, np.int32)
         yield Stage1Chunk(lo=lo, hi=hi, last_prime=last_prime,
                           is_final=hi >= b1,
                           ptadds=int(np.count_nonzero(ops_col == ops.OP_ADD)),
                           ptdups=int(np.count_nonzero(ops_col == ops.OP_DUP)),
-                          numprimes=int(sel.size)), state
+                          numprimes=int(sel.size))
 
 
 def extract_point(state: Stage1State, ctx: MontyCtx

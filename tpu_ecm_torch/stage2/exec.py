@@ -194,6 +194,9 @@ class DigitOps:
     # rows of one sliced product; None: what the card's free memory holds
     # (all rows on the CPU)
     row_slice: Optional[int] = None
+    # the share of the card's free memory this ops may fill: 1/k when k
+    # shards of a run share the device (driver.py; pa_group_for_ops)
+    mem_share: float = 1.0
 
     def _rows_per_product(self, b: int) -> Optional[int]:
         if self.row_slice is not None:
@@ -203,8 +206,8 @@ class DigitOps:
         nw = self.ctx.p.nw
         # the product columns and their sums, then REDC's copy and terms
         row_bytes = (nw * nw + 4 * nw) * b * 4
-        return max(1, int(MEM_HEADROOM * device_free_bytes(self.device))
-                   // row_bytes)
+        return max(1, int(MEM_HEADROOM * self.mem_share
+                          * device_free_bytes(self.device)) // row_bytes)
 
     def mul_planes(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         """Row-wise products of stacked planes [K, NW, B] (tpu_ecm's
@@ -254,6 +257,8 @@ class RnsOps:
     # K15 takes 80% of K14's time a live entry on the rns job's first call
     # (K=200, B=1024; PERF.md), as tpu_ecm streams (rns_exec.py:772)
     default_replay = "stream"
+    # the share of the card's free memory (DigitOps.mem_share)
+    mem_share: float = 1.0
 
     def __init__(self, host: rns.RnsHost, rc: rns.RnsCtx):
         self.host, self.rc = host, rc
@@ -309,6 +314,9 @@ class Stage2Result:
     ptadds: int
     ptdups: int
     numinv: int
+    # curve -> the count of host inversions when its factor was found (the
+    # order a runner met the finds, for merging shards in curve order)
+    found_at: Dict[int, int] = dataclasses.field(default_factory=dict)
 
 
 # Pa group rows and replay entries per kernel call, by device kind.  The
@@ -528,13 +536,25 @@ def entries_global(sp: Stage2Params, map_v: np.ndarray, map_u: np.ndarray,
     return entries[np.argsort(entries[:, 0], kind="stable")]
 
 
+def pa_group_for_ops(ops, sp: Stage2Params, b: int,
+                     cross: str = "inv") -> int:
+    """The memory rule's Pa group for a runner of ops at b curves on the
+    card: pa_group_for_memory over ops' share of its device's free bytes
+    (shards of a run on one device share them, ops.mem_share)."""
+    return pa_group_for_memory(
+        ops.rows * b * 4, sp.num_pb,
+        int(ops.mem_share * device_free_bytes(ops.device)),
+        planes=3 if cross == "noinv" else 1)
+
+
 class Stage2Runner:
     """Per-batch stage-2 state machine (phases 2+3 of vececm)."""
 
     def __init__(self, ctx: MontyCtx, dctx: Optional[DeviceCtx],
                  sp: Stage2Params, pt: torch.Tensor, s_const: torch.Tensor,
                  ops=None, replay: Optional[str] = None,
-                 slab_rows: Optional[int] = None, cross: str = "inv"):
+                 slab_rows: Optional[int] = None, cross: str = "inv",
+                 pa_group: Optional[int] = None):
         self.ctx, self.sp = ctx, sp
         self.ops = ops if ops is not None else DigitOps(ctx, dctx)
         self.replay = replay_mode(replay, self.ops, cross)
@@ -552,11 +572,11 @@ class Stage2Runner:
             raise ValueError(f"stage 2 runs on cpu or cuda, not {pt.device}")
         self.pa_group = PA_GROUP[kind]
         self.replay_block = REPLAY_BLOCK[kind]
-        if kind == "cuda":
-            self.pa_group = pa_group_for_memory(
-                self.ops.rows * b * 4, sp.num_pb,
-                device_free_bytes(pt.device),
-                planes=3 if cross == "noinv" else 1)
+        if pa_group is not None:
+            # the driver's group for every shard of a batch
+            self.pa_group = pa_group
+        elif kind == "cuda":
+            self.pa_group = pa_group_for_ops(self.ops, sp, b, cross)
         # replay entries pack pa << 16 | pb
         if self.pa_group + 1 > 1 << 16 or sp.num_pb > 1 << 16:
             raise ValueError("Pa group or Pb table exceeds 2^16 rows")
@@ -569,6 +589,7 @@ class Stage2Runner:
                                         torch.zeros_like(self.one_plane)])
         self.acc = self.one_plane     # mdata->one init
         self.factors: Dict[int, int] = {}
+        self.found_at: Dict[int, int] = {}
         self.paired = 0
         self.slots = 0
         self.ptadds = 0
@@ -613,29 +634,44 @@ class Stage2Runner:
         for i, f in fnd.items():
             if f and i not in self.factors:
                 self.factors[i] = f
+                self.found_at[i] = self.numinv
         return self.ops.pack(inv_ints)
 
-    def _invert_planes(self, xs: torch.Tensor, zs: torch.Tensor
-                       ) -> torch.Tensor:
+    def _invert_steps(self, xs: torch.Tensor, zs: torch.Tensor):
         """x_i/z_i in Montgomery form for stacked planes [K, rows, B]; one
-        host modinv for the whole (K x B) block."""
+        host modinv for the whole (K x B) block.  A generator of steps
+        (its value the rows): like every step generator of the runner, it
+        yields after each launch that its next host crossing would wait
+        on (here the prefix before the modinv, the apply before the next
+        copy of host data to the device, which waits on the stream), so
+        that a driver can launch the other shards' kernels there
+        (driver.run_steps)."""
         xs, zs = xs.contiguous(), zs.contiguous()
         prefix = self.ops.prefix(zs, self.one_plane)
+        yield
         total_inv = self._harvest_inverse(prefix[-1])
         pres = torch.cat([self.one_plane[None], prefix[:-1]], dim=0)
-        return self.ops.apply_inverse(xs, zs, pres, total_inv)
+        rows = self.ops.apply_inverse(xs, zs, pres, total_inv)
+        yield
+        return rows
 
-    def _table_rows(self, xs: torch.Tensor, zs: torch.Tensor
-                    ) -> torch.Tensor:
+    def _table_rows(self, xs: torch.Tensor, zs: torch.Tensor):
         """Pb table rows of the points (xs, zs) [K, rows, B]: x/z (inv) or
-        (X, Z, X*Z) [K, 3, rows, B] (noinv)."""
+        (X, Z, X*Z) [K, 3, rows, B] (noinv, no host crossing), as
+        _invert_steps' generator."""
         if self.cross == "noinv":
             return torch.stack([xs, zs, self.ops.mul_planes(xs, zs)], dim=1)
-        return self._invert_planes(xs, zs)
+        return (yield from self._invert_steps(xs, zs))
 
     # -- phase 2: init ----------------------------------------------------
 
     def init(self):
+        """Phase 2 in one go (init_steps)."""
+        for _ in self.init_steps():
+            pass
+        return self
+
+    def init_steps(self):
         """Build the affine-x baby-step table pbx [num_pb, rows, B]: the
         chain S_d = S_{d-1} + Q (diff S_{d-2}) in groups of G points; each
         group's stored rows (rprime_map) are batch-inverted and scattered
@@ -643,7 +679,7 @@ class Stage2Runner:
 
         Under noinv the table keeps projective rows (X, Z, X*Z) [num_pb,
         3, rows, B], row 0 all zeros, and nothing is inverted
-        (tpu_ecm's _init_noinv)."""
+        (tpu_ecm's _init_noinv).  A generator of steps (_invert_steps)."""
         sp = self.sp
         q1 = self.pt
         dup = np.asarray([[curve_ops.OP_DUP, 1, 0, 0, 0]], dtype=np.int32)
@@ -653,26 +689,27 @@ class Stage2Runner:
         pbx = torch.zeros((sp.num_pb,) + ((3,) if noinv else ())
                           + (self.ops.rows, self.b),
                           dtype=torch.int32, device=q1.device)
-        pbx[1:3] = self._table_rows(torch.stack([q1[0], q2[0]]),
-                                    torch.stack([q1[1], q2[1]]))
+        pbx[1:3] = yield from self._table_rows(torch.stack([q1[0], q2[0]]),
+                                               torch.stack([q1[1], q2[1]]))
         G = self.pa_group
         p_last, p_prev = q2, q1
         for base in range(3, sp.umax + 1, G):
             cnt = min(G, sp.umax + 1 - base)
             group = self.ops.chain(p_last, p_prev, q1, G)
+            yield
             p_last, p_prev = group[-1], group[-2]
             slots = sp.rprime_map[base:base + cnt].astype(np.int64)
             sel = np.nonzero(slots)[0]
             if sel.size == 0:
                 continue
             rows = torch.from_numpy(sel).to(q1.device)
-            pbx[torch.from_numpy(slots[sel]).to(q1.device)] = \
-                self._table_rows(group[rows, 0], group[rows, 1])
+            table = yield from self._table_rows(group[rows, 0],
+                                                group[rows, 1])
+            pbx[torch.from_numpy(slots[sel]).to(q1.device)] = table
         self.pbx = pbx                # row 0 stays the zero row
         self.ptadds += sp.umax - 2
         # Pd = [D]Q (not inverted)
         self.pd = self._ladder(self.pt, sp.D)
-        return self
 
     # -- phase 3: per-chunk pairmap replay ---------------------------------
     #
@@ -687,7 +724,13 @@ class Stage2Runner:
     # group batch-inverted with ONE host modinv for the whole block.
 
     def run_chunk(self, map_v: np.ndarray, map_u: np.ndarray, amin0: int):
-        """Replay one chunk's pairmap (built by plan.pair for this chunk)."""
+        """Replay one chunk's pairmap (built by plan.pair for this chunk)
+        in one go (chunk_steps)."""
+        for _ in self.chunk_steps(map_v, map_u, amin0):
+            pass
+
+    def chunk_steps(self, map_v: np.ndarray, map_u: np.ndarray, amin0: int):
+        """run_chunk as a generator of steps (_invert_steps)."""
         sp = self.sp
         entries = entries_global(sp, map_v, map_u, amin0)
         if entries.shape[0] == 0:
@@ -734,10 +777,11 @@ class Stage2Runner:
                 # rows past max_j are never paired: inverting only the
                 # rows below keeps the harvest set independent of G
                 valid = min(max_j - base + 1, G)
-                rows = self._table_rows(group[:valid, 0], group[:valid, 1])
+                rows = yield from self._table_rows(group[:valid, 0],
+                                                   group[:valid, 1])
                 pad = self.pad_row[None].expand(
                     (G + 1 - valid,) + tuple(self.pad_row.shape))
-                self._replay(torch.cat([rows, pad], dim=0), idx)
+                yield from self._replay(torch.cat([rows, pad], dim=0), idx)
                 self.paired += int(idx.shape[0])
                 pos = hi
             base += G
@@ -745,15 +789,17 @@ class Stage2Runner:
     def _replay(self, pa_ext: torch.Tensor, idx: np.ndarray):
         """acc *= prod (Pa_inv[v] - PbX[u]) over the v-sorted [T, 2] entry
         list, through the kernel of the runner's replay mode (noinv:
-        _replay_noinv)."""
+        _replay_noinv); steps of a launch each (_invert_steps)."""
         if self.cross == "noinv":
-            return self._replay_noinv(pa_ext, idx)
+            yield from self._replay_noinv(pa_ext, idx)
+            return
         launch = getattr(self.ops, "replay_" + self.replay)
         for arr, slots in replay_calls(self.replay, idx, self.replay_block,
                                        self.pa_group, self.slab_rows):
             self.acc = launch(self.acc, pa_ext, self.pbx, arr,
                               self.one_plane)
             self.slots += slots
+            yield
 
     def _replay_noinv(self, pa_ext: torch.Tensor, idx: np.ndarray):
         """acc *= prod (Xa*Zb - Xb*Za) over the v-sorted [T, 2] entries,
@@ -769,6 +815,7 @@ class Stage2Runner:
             self.acc = self.ops.replay_segment_noinv(self.acc, pa_ext,
                                                      self.pbx, blk)
             self.slots += tpad
+            yield
 
     # -- harvest ----------------------------------------------------------
 
@@ -778,4 +825,5 @@ class Stage2Runner:
         return Stage2Result(acc=accs, factors=dict(self.factors),
                             paired=self.paired, slots=self.slots,
                             ptadds=self.ptadds,
-                            ptdups=self.ptdups, numinv=self.numinv)
+                            ptdups=self.ptdups, numinv=self.numinv,
+                            found_at=dict(self.found_at))

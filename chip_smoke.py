@@ -83,7 +83,8 @@ result and its seconds; any failure raises and exits non-zero.
               (cut 10x from 1e6/1e8 to fit the time limit); save_b1.txt
               must hold a record per curve, and every digit kernel but K9
               must have launched during the run
-  5 rns       row 21 of tests/test_acceptance.py at full width: its
+  5 rns       row 21 of test.csh (tpu_ecm_torch/acceptance.py) at full
+              width: its
               2397-bit N, 1024 Suyama curves from its sigma 377260338 in
               one batch, B1=25,000, B2=2,500,000 (cut 10x from B1=250,000,
               with B2 = 100*B1); save_b1.txt must hold a record per curve,
@@ -131,6 +132,16 @@ result and its seconds; any failure raises and exits non-zero.
               parallel.distributed.run_multihost in this one process on
               the digit job, the same; each run's curves/s beside phase
               8's
+ 11 acceptance  row 13 of the reference's test.csh at its full bounds
+              through the acceptance sweep's row runner
+              (tpu_ecm_torch/acceptance.py, tools/refsweep_card.py): the
+              761-bit N, 8 curves from sigma 1568738653, B1=239,049,
+              B2=128,973,400 (stage 2 over two 1e8 prime chunks), on the
+              engine "auto" picks (digit, nw=71); the reference's C69 (or
+              a divisor or multiple of it) must come at that sigma in
+              stage 2 (acceptance.match_row), and K1-K5 must have
+              launched; the line gives the wall, the stage split, the
+              chunks, D, U, the Pa group and the hits
 
 The last three lines are the kernels' JSON record (with each kernel's
 bound: the larger of its multiply-adds over the card's int32 rate and its
@@ -177,7 +188,7 @@ M101_P13 = 7432339208719
 M127 = (1 << 127) - 1
 M1277 = (1 << 1277) - 1
 FLAGSHIP = dict(curves=2048, sigma=7000, b1=100_000, b2=10_000_000)
-# row 21 of tests/test_acceptance.py runs B1=250,000, B2=183,032,866
+# row 21 of test.csh runs B1=250,000, B2=183,032,866
 RNS_JOB = dict(curves=1024, sigma=377_260_338, b1=25_000, b2=2_500_000)
 MERSENNE_JOB = dict(curves=2048, sigma=7000, b1=10_000, b2=1_000_000)
 # short kernel-test stacks (main_path_depth gives the main path's own)
@@ -1308,11 +1319,16 @@ def _test_constant(filename: str, name: str):
     raise LookupError(f"{name} not found in tests/{filename}")
 
 
+def acceptance_row(num: int) -> tuple:
+    """Row `num` of test.csh (tpu_ecm_torch/acceptance.py)."""
+    from tpu_ecm_torch import acceptance
+    return next(r for r in acceptance.REFSWEEP_ROWS if r[0] == num)
+
+
 def row21_n() -> int:
-    """N of row 21 of tests/test_acceptance.py (2397 bits)."""
+    """N of row 21 of test.csh (2397 bits)."""
     from tpu_ecm_torch.io import calc
-    rows = _test_constant("test_acceptance.py", "REFSWEEP_ROWS")
-    return calc.calc(next(r for r in rows if r[0] == 21)[1])
+    return calc.calc(acceptance_row(21)[1])
 
 
 def n2355() -> int:
@@ -1889,6 +1905,34 @@ def phase_multidevice(tmp, record, runs):
     return "; ".join(lines)
 
 
+def phase_acceptance(record):
+    """Row 13 of test.csh at full bounds through the sweep's row runner:
+    it must match the reference's (factor, stage, sigma), its stage 2
+    must walk more than one prime chunk, and K1-K5 must launch."""
+    from tpu_ecm_torch import acceptance
+    from tpu_ecm_torch.limbs import kernels
+    row = acceptance_row(13)
+    kernels.reset_launches()
+    rec = acceptance.run_row(row, "cuda")
+    counts = _launches(record, "acceptance", _job_kernels("digit"))
+    t, s2 = rec["timings"], rec["stage2"]
+    line = (f"row 13: {rec['bits']} bits, engine {rec['engine']} (nw="
+            f"{rec['nw']}), {rec['curves_run']} curves, B1={row[2]}, "
+            f"B2={row[3]}: wall {rec['wall']:.2f} s, stage1 "
+            f"{t['stage1']:.2f} / stage2_init {t['stage2_init']:.2f} / "
+            f"stage2 {t['stage2']:.2f} / plan_wait "
+            f"{t.get('stage2_plan_wait', 0):.2f} s, chunks {s2['chunks']}, "
+            f"D={s2['D']}, U={s2['U']}, pa_group {s2['pa_group']}, "
+            f"launches {counts}; hits {rec['hits']}")
+    missing = [k for k, c in counts.items() if c == 0]
+    if not rec["ok"] or missing or s2["chunks"] < 2:
+        raise AssertionError(f"row 13 does not match the reference's "
+                             f"(factor {row[5]}, stage {row[6]}, sigma "
+                             f"{row[4]}), or kernels {missing} never "
+                             f"launched, or one chunk: {line}")
+    return line
+
+
 # job -> (N, bounds, driver options, warm-up run of the same path)
 PROFILE_JOBS = {
     "flagship": (N416, FLAGSHIP, {}, dict(n=N71, engine="digit")),
@@ -2015,6 +2059,7 @@ def main() -> int:
                          ("multidevice",
                           lambda t, r: phase_multidevice(t, r, runs))):
             phase(name, lambda: fn(os.path.join(tmp, name), record))
+        phase("acceptance", lambda: phase_acceptance(record))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

@@ -8,8 +8,11 @@ processes stop at the same batch boundary, and the random-sigma seed with
 the process index mixed in as tpu_ecm mixes it."""
 
 import os
+import signal
 import subprocess
 import sys
+import threading
+import time
 import types
 
 import pytest
@@ -167,7 +170,8 @@ def test_multihost_union_equals_single_run(tmp_path):
 
 
 _TWO_PROC_SCRIPT = r"""
-import os, sys
+import faulthandler, os, signal, sys
+faulthandler.register(signal.SIGUSR1, all_threads=True)
 import torch
 torch.set_num_threads(1)
 pid = int(sys.argv[1]); tmp = sys.argv[2]
@@ -177,36 +181,104 @@ res = distributed.run_multihost(
     device="cpu", init_method="file://" + os.path.join(tmp, "rendezvous"),
     world_size=2, rank=pid, verbose=0, save_b1_path=None,
     checkpoint_path=None, results_path=os.path.join(tmp, "r%d.txt" % pid))
+import torch.distributed as dist
+assert not dist.is_initialized()
 print("RESULT", pid, res.curves_run,
       sorted((h.factor, h.stage, h.sigma) for h in res.factors))
 """
 
 
+def _communicate(procs, timeout):
+    """Every child's (stdout, stderr), read side by side so that no child
+    blocks on a full pipe while another is waited on; past `timeout`
+    seconds each child still running dumps its threads' stacks to stderr
+    (faulthandler on SIGUSR1) and is killed.  Returns (outs, timed_out)."""
+    outs = [("", "")] * len(procs)
+
+    def read(i):
+        outs[i] = procs[i].communicate()
+
+    readers = [threading.Thread(target=read, args=(i,))
+               for i in range(len(procs))]
+    for r in readers:
+        r.start()
+    deadline = time.time() + timeout
+    for r in readers:
+        r.join(max(deadline - time.time(), 0))
+    timed_out = any(r.is_alive() for r in readers)
+    if timed_out:
+        for p in procs:
+            if p.poll() is None:
+                p.send_signal(signal.SIGUSR1)
+        time.sleep(2)
+        for p in procs:
+            p.kill()
+        for r in readers:
+            r.join()
+    return outs, timed_out
+
+
+def _children_report(procs, outs) -> str:
+    return "\n".join(
+        f"--- process {i}: rc {p.returncode}\nstdout:\n{o[-3000:]}\n"
+        f"stderr:\n{e[-6000:]}" for i, (p, (o, e)) in enumerate(
+            zip(procs, outs)))
+
+
 def test_run_multihost_two_processes(tmp_path):
-    """A real two-process gloo run on the CPU (file:// rendezvous): process
-    0 owns sigmas 110..115 (sigma 111 finds P36 in its first batch of 2),
-    process 1 owns 116..121 and finds nothing.  The CollectiveFlag stops
-    both at the first batch boundary: each runs 2 of its 6 curves."""
+    """A real two-process gloo run on the CPU (file:// rendezvous, gloo on
+    the loopback interface): process 0 owns sigmas 110..115 (sigma 111
+    finds P36 in its first batch of 2), process 1 owns 116..121 and finds
+    nothing.  The CollectiveFlag stops both at the first batch boundary:
+    each runs 2 of its 6 curves, and each leaves no process group behind.
+    Any failure, a timeout included, shows both children's output."""
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    # gloo binds to the address the host name resolves to unless told an
+    # interface: the loopback one is always there
+    env["GLOO_SOCKET_IFNAME"] = "lo"
     script = _TWO_PROC_SCRIPT.format(n=N71)
     procs = [subprocess.Popen(
         [sys.executable, "-c", script, str(i), str(tmp_path)],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
         env=env, cwd=str(tmp_path)) for i in range(2)]
     try:
-        outs = [p.communicate(timeout=180) for p in procs]
+        outs, timed_out = _communicate(procs, timeout=180)
     finally:
         for p in procs:
             p.kill()
-    for p, (_o, e) in zip(procs, outs):
-        assert p.returncode == 0, e[-3000:]
+    report = _children_report(procs, outs)
+    assert not timed_out, "timed out after 180 s\n" + report
+    assert all(p.returncode == 0 for p in procs), report
     lines = {o.strip().splitlines()[-1].split()[1]: o.strip().splitlines()[-1]
              for o, _ in outs}
-    assert str(P36) in lines["0"]
-    assert lines["1"].endswith("[]")
+    assert str(P36) in lines["0"], report
+    assert lines["1"].endswith("[]"), report
     ran0, ran1 = int(lines["0"].split()[2]), int(lines["1"].split()[2])
-    assert ran0 == ran1 == 2, (ran0, ran1)
+    assert ran0 == ran1 == 2, (ran0, ran1, report)
+
+
+def test_run_multihost_ends_the_group_it_starts(tmp_path):
+    """run_multihost with init_method destroys the group it started, so a
+    second run in the same process can start its own (before, the group
+    was left behind and the second init_process_group raised); a group
+    the caller started is left to the caller."""
+    import torch.distributed as dist
+    kw = dict(total_curves=4, b1=300, b2=300, sigma=110, device="cpu",
+              world_size=1, rank=0, verbose=0, save_b1_path=None,
+              checkpoint_path=None, results_path=None)
+    for tag in ("a", "b"):
+        res = distributed.run_multihost(
+            N71, init_method=f"file://{tmp_path / tag}", **kw)
+        assert res.curves_run == 4 and not dist.is_initialized()
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'c'}",
+                            world_size=1, rank=0)
+    try:
+        kw.pop("world_size"), kw.pop("rank")
+        assert distributed.run_multihost(N71, **kw).curves_run == 4
+        assert dist.is_initialized()
+    finally:
+        dist.destroy_process_group()
 
 
 def test_seed_mixes_the_process_index(monkeypatch, tmp_path):

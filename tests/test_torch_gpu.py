@@ -135,6 +135,51 @@ def _k1_against_plain(ctx, b: int, ops: int, seed: int):
     assert torch.equal(got, want)
 
 
+def test_tape_from_two_threads_at_two_widths(cuda):
+    """Two threads, each on a stream of its own, launch K1's one
+    instantiation tape_lanes_kernel<5> at two shared-memory sizes (nw=36 at
+    8 lanes a curve, nw=71 at 16) 40 times each: every launch is taken
+    (the kernel library's lock keeps a launch's shared-memory allowance
+    and the launch together) and every result equals the plain version's,
+    digit for digit."""
+    import threading
+
+    import numpy as np
+
+    import chip_smoke
+    from tpu_ecm_torch.curve import ops as curve_ops
+    from tpu_ecm_torch.curve import prac
+    from tpu_ecm_torch.limbs import kernels, torch_ops
+    from tpu_ecm_torch.primes import primes_range
+    tape = prac.stage1_tape(primes_range(0, 1000), 1000)[:64]
+    errors = []
+
+    def run(nw):
+        try:
+            ctx = _ctx_at_nw(nw, False)
+            assert kernels.tape_geometry(nw, 8)[1] == 5
+            d = torch_ops.device_ctx(ctx, "cuda")
+            rng = np.random.default_rng(nw)
+            pts = chip_smoke._rand_planes(rng, ctx, (6, 2, nw, 8))
+            sc = chip_smoke._rand_planes(rng, ctx, (nw, 8))
+            want = curve_ops.run_tape(pts.clone(), tape, sc, d)
+            stream = torch.cuda.Stream()
+            with torch.cuda.stream(stream):
+                for _ in range(40):
+                    got = kernels.tape(pts.clone(), tape, sc, d)
+                    stream.synchronize()
+                    assert torch.equal(got, want)
+        except Exception as e:  # noqa: BLE001 -- reported below
+            errors.append(f"nw={nw}: {e!r}")
+
+    threads = [threading.Thread(target=run, args=(nw,)) for nw in (36, 71)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors, errors
+
+
 @pytest.mark.parametrize("fold", [False, True], ids=["redc", "fold"])
 @pytest.mark.parametrize("b", [1, 33, 100])
 def test_tape_ragged_batches(cuda, fold, b):

@@ -279,3 +279,48 @@ def test_mersenne_context_raises():
         torch_ops.mulmod(x, x, td)
     with pytest.raises(ValueError, match="pseudo-Mersenne"):
         torch_ops.sqrmod(x, td)
+
+
+def test_kernel_library_calls_hold_one_lock(monkeypatch):
+    """A launch holds the kernel library's lock from the device switch to
+    the launch (a launch allows its instantiation's shared memory and then
+    launches; another thread between the two could change the allowance):
+    from a second thread the lock cannot be taken during the call, and it
+    is free again after it."""
+    import contextlib
+    import threading
+    import types
+
+    from tpu_ecm_torch.limbs import build, kernels
+
+    taken_elsewhere = []
+
+    def try_lock():
+        got = kernels._LIBRARY_LOCK.acquire(blocking=False)
+        if got:
+            kernels._LIBRARY_LOCK.release()
+        taken_elsewhere.append(got)
+
+    class Lib:
+        def tpuecm_set_device(self, device):
+            return 0
+
+        def tpuecm_tape(self, *args):
+            t = threading.Thread(target=try_lock)
+            t.start()
+            t.join()
+            return 0
+
+    monkeypatch.setattr(build, "library", lambda: Lib())
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d=None: types.SimpleNamespace(cuda_stream=0))
+    before = kernels.launches["tape"]
+    kernels._launch("tape", types.SimpleNamespace(device="cuda:0"),
+                    "tpuecm_tape", 1, 2)
+    kernels.launches["tape"] = before
+    assert taken_elsewhere == [False]
+    try_lock()
+    assert taken_elsewhere == [False, True]

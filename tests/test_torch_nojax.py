@@ -1,5 +1,6 @@
 """The machine with the GPU has no JAX, and the port imports nothing of the
-JAX package: every module of tpu_ecm_torch (and chip_smoke.py) must import,
+JAX package: every module of tpu_ecm_torch (and chip_smoke.py and
+tools/refsweep_card.py) must import,
 and the CLI must run to the N71 stage-2 find and resume its save_b1.txt to
 the same find (-resume), with `import jax` and `import tpu_ecm` failing;
 and no source line of the port imports either."""
@@ -24,6 +25,10 @@ sys.modules["tpu_ecm"] = None      # and any `import tpu_ecm...`
 import torch
 torch.set_num_threads(1)
 import chip_smoke
+import importlib.util
+spec = importlib.util.spec_from_file_location(
+    "refsweep_card", {os.path.join(REPO, "tools", "refsweep_card.py")!r})
+spec.loader.exec_module(importlib.util.module_from_spec(spec))
 import tpu_ecm_torch
 for m in pkgutil.walk_packages(tpu_ecm_torch.__path__, "tpu_ecm_torch."):
     if m.name != "tpu_ecm_torch.__main__":
@@ -56,10 +61,13 @@ IMPORT_RE = re.compile(r"^\s*(from\s+(tpu_ecm|jax|jaxlib)(\.|\s)"
 
 
 def test_no_source_line_imports_jax_or_tpu_ecm():
-    """A scan of tpu_ecm_torch/**/*.py and chip_smoke.py: no line imports
-    jax or the JAX package (tpu_ecm_torch itself is fine)."""
+    """A scan of tpu_ecm_torch/**/*.py, chip_smoke.py and
+    tools/refsweep_card.py: no line imports jax or the JAX package
+    (tpu_ecm_torch itself is fine)."""
     files = glob.glob(os.path.join(REPO, "tpu_ecm_torch", "**", "*.py"),
-                      recursive=True) + [os.path.join(REPO, "chip_smoke.py")]
+                      recursive=True) + [
+        os.path.join(REPO, "chip_smoke.py"),
+        os.path.join(REPO, "tools", "refsweep_card.py")]
     assert len(files) > 20
     bad = []
     for path in files:

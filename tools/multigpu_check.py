@@ -210,7 +210,6 @@ def child(rank: int, init_method: str, d: str) -> int:
         results_path=os.path.join(d, "ecm_results.txt"))
     torch.cuda.synchronize()
     wall = time.time() - t0
-    torch.distributed.destroy_process_group()
     print(json.dumps(dict(
         rank=rank, devices=torch.cuda.device_count(), wall=wall,
         curves=res.curves_run,

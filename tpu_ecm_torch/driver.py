@@ -283,6 +283,8 @@ class ECMDriver:
         # stage-2 replay entry slots, pads included (Stage2Result.slots);
         # kept apart from the counters, which match tpu_ecm's
         self.replay_slots = 0
+        # the last batch's stage-2 Pa group, for tools that report it
+        self.pa_group: Optional[int] = None
         if self._prp_input:
             if cfg.verbose:
                 print(f"input {n} is a probable prime; nothing to run")
@@ -713,6 +715,7 @@ class ECMDriver:
                                        replay=self.replay, cross=cfg.cross,
                                        pa_group=g)
                    for pt, sc, ops in zip(pts0, s_const, self.shard_ops)]
+        self.pa_group = runners[0].pa_group
         run_steps([r.init_steps() for r in runners])
         self._sync()
         self._add_time("stage2_init", t0)

@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import threading
 from typing import Dict, NamedTuple
 
 import numpy as np
@@ -187,12 +188,19 @@ def _mod(ctx: DeviceCtx):
             int(p.norm_inputs))
 
 
+# one thread at a time in the kernel library: a launch allows its
+# instantiation's dynamic shared memory (a per-function attribute) and then
+# launches, so another thread's launch of the same instantiation at another
+# size between the two would be refused
+_LIBRARY_LOCK = threading.RLock()
+
+
 @contextlib.contextmanager
 def on_device(device):
     """`device` current in this thread for torch and for the kernel
     library's own CUDA runtime (limbs/build.py links it into the library),
-    whichever device was current before."""
-    with torch.cuda.device(device):
+    whichever device was current before; the library's lock held."""
+    with _LIBRARY_LOCK, torch.cuda.device(device):
         rc = build.library().tpuecm_set_device(torch.cuda.current_device())
         if rc != 0:
             raise RuntimeError(f"cudaSetDevice({device}) failed, CUDA "
@@ -210,11 +218,12 @@ def _done(name: str, rc: int) -> None:
 def _launch(name: str, ctx, entry: str, *args) -> None:
     """Launch the library's `entry` on ctx's device, which every tensor
     argument was checked to lie on (_check), and on that device's current
-    stream; count it in launches."""
+    stream; count it in launches (under the library's lock, so threads
+    lose no count)."""
     with on_device(ctx.device):
         rc = getattr(build.library(), entry)(
             *args, torch.cuda.current_stream(ctx.device).cuda_stream)
-    _done(name, rc)
+        _done(name, rc)
 
 
 def tape_geometry(nw: int, b: int):

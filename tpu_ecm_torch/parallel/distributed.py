@@ -22,7 +22,10 @@ Usage, the same command in every process (rank r of w):
         init_method="tcp://10.0.0.1:29500", world_size=w, rank=r)
 
 A process that is already in a process group passes no init_method; with
-no group it is a plain run.
+no group it is a plain run.  A group that run_multihost starts it also
+ends: after a barrier (no process tears the group down while another is
+still in one of its collectives) it destroys it, so the process exits
+with no group and can start another run.
 """
 
 from __future__ import annotations
@@ -64,9 +67,23 @@ def run_multihost(n: int, total_curves: int, b1: int, *,
     poll budget through plan()/drain() (parallel/coordination.py)."""
     import torch.distributed as dist
 
-    if init_method is not None:
-        dist.init_process_group("gloo", init_method=init_method,
-                                world_size=world_size, rank=rank)
+    if init_method is None:
+        return _run_share(n, total_curves, b1, b2, sigma, kw)
+    dist.init_process_group("gloo", init_method=init_method,
+                            world_size=world_size, rank=rank)
+    try:
+        res = _run_share(n, total_curves, b1, b2, sigma, kw)
+        dist.barrier()
+        return res
+    finally:
+        dist.destroy_process_group()
+
+
+def _run_share(n: int, total_curves: int, b1: int, b2: Optional[int],
+               sigma: int, kw: dict) -> _driver.RunResult:
+    """This process's share of the job in the default group, if any."""
+    import torch.distributed as dist
+
     grouped = dist.is_available() and dist.is_initialized()
     nproc = dist.get_world_size() if grouped else 1
     pid = dist.get_rank() if grouped else 0

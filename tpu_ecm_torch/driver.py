@@ -46,6 +46,12 @@ Phase structure per batch of B curves (B = the curve axis of every plane):
 resume_stage2 runs phases 2-3 (and the leftover stage-1 gcd) from a
 stage-1 savefile instead of phases 0-1.
 
+Each phase is a span of the driver's recorder (utils/spans.py; README.md
+lists the keys): its seconds sum into `timings` and, with
+RunConfig.span_log, each span goes into `span_log`.  Every read-back to
+the host first waits for the cards in a span of its own (stage1_wait,
+stage2_wait), so the spans after it time the host's work alone.
+
 With a Sharder (parallel/mesh.py) the driver keeps one shard per device:
 its own DeviceCtx and engine ops, and its contiguous slice of the batch.
 The host builds the curves, plans every stage-1 tape, Edwards window
@@ -87,6 +93,7 @@ from . import params as _params
 from .io import savefile
 from .primes import PrimeStream
 from .utils import rng as _rng
+from .utils.spans import SpanRecorder
 
 from . import stage1 as _stage1
 from .curve import edops, edwards, suyama
@@ -144,6 +151,9 @@ class RunConfig:
     # planned before the batch loop, polled at every batch boundary and
     # drained after it
     hit_flag: Optional[object] = None
+    # keep every host span (utils/spans.py) in ECMDriver.span_log as
+    # (key, parent key, start ns, end ns); timings are summed either way
+    span_log: bool = False
 
 
 ENGINES = ("auto", "digit", "rns")
@@ -500,7 +510,10 @@ class ECMDriver:
             self.b2 = cfg.b2
             self.do_stage2 = cfg.do_stage2 and cfg.b2 > cfg.b1
         self.factors: List[FactorHit] = []
+        # seconds a span key (README.md lists them), written by the recorder
         self.timings: Dict[str, float] = {}
+        self.recorder = SpanRecorder(self.timings, log=cfg.span_log)
+        self.span_log = self.recorder.log
         self.counters: Dict[str, int] = {}
         # stage-2 replay entry slots, pads included (Stage2Result.slots);
         # kept apart from the counters, which match tpu_ecm's
@@ -589,10 +602,11 @@ class ECMDriver:
 
     def _check_batch(self, vals: List[int], sigmas: List[int], stage: int,
                      bound: int, base_idx: int):
-        for i, (z, s) in enumerate(zip(vals, sigmas)):
-            f = check_factor(z, self.ctx.input_n)
-            if f:
-                self._report_factor(f, stage, base_idx + i, s, bound)
+        with self.recorder.span("harvest"):
+            for i, (z, s) in enumerate(zip(vals, sigmas)):
+                f = check_factor(z, self.ctx.input_n)
+                if f:
+                    self._report_factor(f, stage, base_idx + i, s, bound)
 
     def _write_save(self, path: Optional[str], sigmas: List[int],
                     xs: List[int], zs: List[int], b1_label: int,
@@ -602,39 +616,39 @@ class ECMDriver:
         # way); N is the input, also when the arithmetic is mod 2^e - c
         if not path:
             return
-        n_out = self.ctx.input_n
-        recs = [savefile.SaveRecord(sigma=s, b1=b1_label, n=n_out, x=x, z=z,
-                                    program=program)
-                for s, x, z in zip(sigmas, xs, zs)]
-        savefile.append_records(path, recs)
-
-    def _add_time(self, key: str, t0: float):
-        self.timings[key] = self.timings.get(key, 0) + time.time() - t0
+        with self.recorder.span("savefile"):
+            n_out = self.ctx.input_n
+            recs = [savefile.SaveRecord(sigma=s, b1=b1_label, n=n_out, x=x,
+                                        z=z, program=program)
+                    for s, x, z in zip(sigmas, xs, zs)]
+            savefile.append_records(path, recs)
 
     # ------------------------------------------------------------------
 
     def _build_curves(self, sigmas: List[int], base_idx: int,
                       build=suyama.build_one_curve) -> list:
-        curves = []
-        for i, s in enumerate(sigmas):
-            # keep batch shape: on a gcd hit during construction, report the
-            # factor at the curve's own index (tpu_ecm reports base_idx,
-            # ROADMAP C.1) and retry with fresh sigmas (an input with several
-            # small factors can trip consecutive substitutes too)
-            for _attempt in range(64):
-                try:
-                    curves.append(build(self.ctx, s))
-                    break
-                except suyama.FactorFoundDuringBuild as e:
-                    if e.factor:
-                        self._report_factor(e.factor, 0, base_idx + i,
-                                            e.sigma, self.cfg.b1)
-                    s = s + 1_000_003
-            else:
-                raise RuntimeError(
-                    "curve construction kept hitting gcd factors; "
-                    "input has many small factors — divide them out first")
-        return curves
+        with self.recorder.span("build_curves"):
+            curves = []
+            for i, s in enumerate(sigmas):
+                # keep batch shape: on a gcd hit during construction, report
+                # the factor at the curve's own index (tpu_ecm reports
+                # base_idx, ROADMAP C.1) and retry with fresh sigmas (an
+                # input with several small factors can trip consecutive
+                # substitutes too)
+                for _attempt in range(64):
+                    try:
+                        curves.append(build(self.ctx, s))
+                        break
+                    except suyama.FactorFoundDuringBuild as e:
+                        if e.factor:
+                            self._report_factor(e.factor, 0, base_idx + i,
+                                                e.sigma, self.cfg.b1)
+                        s = s + 1_000_003
+                else:
+                    raise RuntimeError(
+                        "curve construction kept hitting gcd factors; input "
+                        "has many small factors — divide them out first")
+            return curves
 
     def _split(self, b: int) -> List[Tuple[int, int]]:
         """Each shard's columns [lo, hi) of a batch of b curves."""
@@ -654,64 +668,74 @@ class ECMDriver:
         """The batch's stage-1 state, packed on the host and split into one
         state a shard."""
         ctx = self.ctx
-        if self.engine == "digit":
-            pts, sc = _stage1.pack_state(
-                ctx, [c.x_mont for c in curves], [c.z_mont for c in curves],
-                [c.s_mont for c in curves])
-        else:
-            conv = ctx.from_mont_int
-            pts, sc = rns_exec.init_state(
-                self.rhost, [conv(c.x_mont) for c in curves],
-                [conv(c.z_mont) for c in curves],
-                [conv(c.s_mont) for c in curves])
-        return [_stage1.Stage1State(pts=p, s_const=c)
-                for p, c in zip(self._put(pts), self._put(sc))]
+        with self.recorder.span("pack"):
+            if self.engine == "digit":
+                pts, sc = _stage1.pack_state(
+                    ctx, [c.x_mont for c in curves],
+                    [c.z_mont for c in curves], [c.s_mont for c in curves])
+            else:
+                conv = ctx.from_mont_int
+                pts, sc = rns_exec.init_state(
+                    self.rhost, [conv(c.x_mont) for c in curves],
+                    [conv(c.z_mont) for c in curves],
+                    [conv(c.s_mont) for c in curves])
+            return [_stage1.Stage1State(pts=p, s_const=c)
+                    for p, c in zip(self._put(pts), self._put(sc))]
 
     def _extract_point(self, states: List[_stage1.Stage1State]
                        ) -> Tuple[List[int], List[int]]:
         """Canonical (X, Z) of slot 0 of every shard, in curve order: the
-        phase-boundary handoff."""
+        phase-boundary handoff: the wait for the shards' stage-1 kernels
+        (which the copy to the host would make anyway), then the
+        read-back."""
+        with self.recorder.span("stage1_wait"):
+            self._sync()
         xs: List[int] = []
         zs: List[int] = []
-        for st in states:
-            if self.engine == "digit":
-                x, z = _stage1.extract_point(st, self.ctx)
-            else:
-                x, z = rns_exec.extract_point(self.rhost, st.pts)
-            xs += x
-            zs += z
+        with self.recorder.span("stage1_readback"):
+            for st in states:
+                if self.engine == "digit":
+                    x, z = _stage1.extract_point(st, self.ctx)
+                else:
+                    x, z = rns_exec.extract_point(self.rhost, st.pts)
+                xs += x
+                zs += z
         return xs, zs
 
     def run_batch(self, sigmas: List[int], base_idx: int
                   ) -> List[Tuple[int, int, int]]:
-        cfg = self.cfg
-        if cfg.curve_mode == "edwards":
-            return self._run_batch_edwards(sigmas, base_idx)
-        t0 = time.time()
-        curves = self._build_curves(sigmas, base_idx)
-        # each curve keeps the sigma it was built from, on both engines
-        # (tpu_ecm's digit engine keeps the requested one, ROADMAP C.2)
-        sigmas = [c.sigma for c in curves]
-        states = self._init_state(curves)
-        self._add_time("build", t0)
+        with self.recorder.span("batch"):
+            if self.cfg.curve_mode == "edwards":
+                return self._run_batch_edwards(sigmas, base_idx)
+            return self._run_batch_suyama(sigmas, base_idx)
+
+    def _run_batch_suyama(self, sigmas: List[int], base_idx: int
+                          ) -> List[Tuple[int, int, int]]:
+        cfg, rec = self.cfg, self.recorder
+        with rec.span("build"):
+            curves = self._build_curves(sigmas, base_idx)
+            # each curve keeps the sigma it was built from, on both engines
+            # (tpu_ecm's digit engine keeps the requested one, ROADMAP C.2)
+            sigmas = [c.sigma for c in curves]
+            states = self._init_state(curves)
 
         # ---- stage 1: each chunk's tape planned once, run on every shard
-        t0 = time.time()
-        for chunk in _stage1.run_stage1(states,
-                                        [o.tape for o in self.shard_ops],
-                                        cfg.b1, self.stream,
-                                        full_prac=cfg.full_prac):
-            for k in ("ptadds", "ptdups", "numprimes"):
-                self.counters[k] = (self.counters.get(k, 0)
-                                    + getattr(chunk, k))
-            if not chunk.is_final:
-                # mid-stage-1 checkpoint
-                xs, zs = self._extract_point(states)
-                self._check_batch(zs, sigmas, 1, chunk.last_prime, base_idx)
-                self._write_save(cfg.checkpoint_path, sigmas, xs, zs,
-                                 chunk.last_prime)
-        xs, zs = self._extract_point(states)
-        self._add_time("stage1", t0)
+        with rec.span("stage1"):
+            for chunk in _stage1.run_stage1(states,
+                                            [o.tape for o in self.shard_ops],
+                                            cfg.b1, self.stream,
+                                            full_prac=cfg.full_prac):
+                for k in ("ptadds", "ptdups", "numprimes"):
+                    self.counters[k] = (self.counters.get(k, 0)
+                                        + getattr(chunk, k))
+                if not chunk.is_final:
+                    # mid-stage-1 checkpoint
+                    xs, zs = self._extract_point(states)
+                    self._check_batch(zs, sigmas, 1, chunk.last_prime,
+                                      base_idx)
+                    self._write_save(cfg.checkpoint_path, sigmas, xs, zs,
+                                     chunk.last_prime)
+            xs, zs = self._extract_point(states)
         if cfg.verbose >= 2:
             print(f"Stage 1 completed, {self.counters.get('ptadds', 0)} "
                   f"point-adds, {self.counters.get('ptdups', 0)} "
@@ -765,73 +789,75 @@ class ECMDriver:
         with the window table rebuilt from the normalized chunk-boundary
         point, and checkpoint.txt is appended per chunk, as on the Suyama
         path."""
-        cfg, ctx = self.cfg, self.ctx
-        t0 = time.time()
-        curves = self._build_curves(sigmas, base_idx,
-                                    build=edwards.build_one_curve)
-        sigmas = [c.sigma for c in curves]
-        self._add_time("build", t0)
+        cfg, ctx, rec = self.cfg, self.ctx, self.recorder
+        with rec.span("build"):
+            curves = self._build_curves(sigmas, base_idx,
+                                        build=edwards.build_one_curve)
+            sigmas = [c.sigma for c in curves]
 
-        t0 = time.time()
-        chunk_list = list(self.stream.chunks(0, cfg.b1))
-        accs = None
-        base_pts = None          # None: the curves' own base points
-        nprimes = 0
-        for ci, (_lo, _hi, primes) in enumerate(chunk_list):
-            tape, lead = edwards.stage1_tape(primes, cfg.b1,
-                                             include_two=(ci == 0))
-            # (re)build the window tables from the chunk's start point (may
-            # harvest a factor from a non-invertible Z)
-            try:
-                pts, table = edwards.build_batch_tables(ctx, curves,
-                                                        base_pts=base_pts)
-            except suyama.FactorFoundDuringBuild as e:
-                if e.factor:
-                    # the index of the curve whose sigma hit (tpu_ecm
-                    # reports base_idx, ROADMAP C.1)
-                    hit = next((i for i, c in enumerate(curves)
-                                if c.sigma == e.sigma), 0)
-                    self._report_factor(e.factor, 1 if ci else 0,
-                                        base_idx + hit, e.sigma, cfg.b1)
-                raise RuntimeError(
-                    "window table hit a factor of n; rerun with fresh "
-                    "sigmas or divide the reported factor out") from e
-            # the tables are built once for the batch and split; K9 runs on
-            # every shard
-            accs = self._put(edwards.init_accumulator(ctx, pts, lead))
-            for acc, tab, ops in zip(accs, self._put(table), self.shard_ops):
-                kernels.ed_tape(acc, tape, tab, ops.dctx)
-            ops_col = tape[:, 0]
-            nadd = int(np.count_nonzero((ops_col == edwards.ED_ADD)
-                                        | (ops_col == edwards.ED_SUB)))
-            self.counters["ptdups"] = (
-                self.counters.get("ptdups", 0)
-                + int(np.count_nonzero(ops_col <= edwards.ED_DBLT)) + 1)
-            self.counters["ptadds"] = (self.counters.get("ptadds", 0) + nadd
-                                       + table.shape[0] - 1)
-            nprimes += int(np.count_nonzero((primes < cfg.b1)
-                                            & (primes > 2))) + (ci == 0)
-            if ci < len(chunk_list) - 1:
-                # mid-stage-1 checkpoint and the next chunk's table base
-                bound = min(int(primes[-1]), cfg.b1)
-                t1 = time.time()
-                base_pts, u_c, w_c = self._ed_normalize(accs, sigmas,
-                                                        base_idx, bound)
-                self._add_time("ed_normalize", t1)
-                self._check_batch(w_c, sigmas, 1, bound, base_idx)
-                self._write_save(cfg.checkpoint_path, sigmas, u_c, w_c,
-                                 bound, program=ED_PROGRAM)
-        self.counters["numprimes"] = (self.counters.get("numprimes", 0)
-                                      + nprimes)
-        # Montgomery handoff, shard by shard
-        pts0, xs, zs, ax = [], [], [], []
-        for acc, ops in zip(accs, self.shard_ops):
-            u, w = edops.to_montgomery_pair(acc, ops.dctx)
-            pts0.append(torch.stack([u, w]))
-            xs += [ops.from_mont_int(v) for v in ops.unpack(u)]
-            zs += [ops.from_mont_int(v) for v in ops.unpack(w)]
-            ax += [ops.from_mont_int(v) for v in ops.unpack(acc[0])]
-        self._add_time("stage1", t0)
+        with rec.span("stage1"):
+            chunk_list = list(self.stream.chunks(0, cfg.b1))
+            accs = None
+            base_pts = None          # None: the curves' own base points
+            nprimes = 0
+            for ci, (_lo, _hi, primes) in enumerate(chunk_list):
+                tape, lead = edwards.stage1_tape(primes, cfg.b1,
+                                                 include_two=(ci == 0))
+                # (re)build the window tables from the chunk's start point
+                # (may harvest a factor from a non-invertible Z)
+                try:
+                    pts, table = edwards.build_batch_tables(
+                        ctx, curves, base_pts=base_pts)
+                except suyama.FactorFoundDuringBuild as e:
+                    if e.factor:
+                        # the index of the curve whose sigma hit (tpu_ecm
+                        # reports base_idx, ROADMAP C.1)
+                        hit = next((i for i, c in enumerate(curves)
+                                    if c.sigma == e.sigma), 0)
+                        self._report_factor(e.factor, 1 if ci else 0,
+                                            base_idx + hit, e.sigma, cfg.b1)
+                    raise RuntimeError(
+                        "window table hit a factor of n; rerun with fresh "
+                        "sigmas or divide the reported factor out") from e
+                # the tables are built once for the batch and split; K9 runs
+                # on every shard
+                accs = self._put(edwards.init_accumulator(ctx, pts, lead))
+                for acc, tab, ops in zip(accs, self._put(table),
+                                         self.shard_ops):
+                    kernels.ed_tape(acc, tape, tab, ops.dctx)
+                ops_col = tape[:, 0]
+                nadd = int(np.count_nonzero((ops_col == edwards.ED_ADD)
+                                            | (ops_col == edwards.ED_SUB)))
+                self.counters["ptdups"] = (
+                    self.counters.get("ptdups", 0)
+                    + int(np.count_nonzero(ops_col <= edwards.ED_DBLT)) + 1)
+                self.counters["ptadds"] = (self.counters.get("ptadds", 0)
+                                           + nadd + table.shape[0] - 1)
+                nprimes += int(np.count_nonzero((primes < cfg.b1)
+                                                & (primes > 2))) + (ci == 0)
+                if ci < len(chunk_list) - 1:
+                    # mid-stage-1 checkpoint and the next chunk's table base
+                    bound = min(int(primes[-1]), cfg.b1)
+                    with rec.span("ed_normalize"):
+                        base_pts, u_c, w_c = self._ed_normalize(
+                            accs, sigmas, base_idx, bound)
+                    self._check_batch(w_c, sigmas, 1, bound, base_idx)
+                    self._write_save(cfg.checkpoint_path, sigmas, u_c, w_c,
+                                     bound, program=ED_PROGRAM)
+            self.counters["numprimes"] = (self.counters.get("numprimes", 0)
+                                          + nprimes)
+            # Montgomery handoff, shard by shard
+            with rec.span("stage1_wait"):
+                self._sync()
+            pts0, xs, zs, ax = [], [], [], []
+            with rec.span("stage1_readback"):
+                for acc, ops in zip(accs, self.shard_ops):
+                    u, w = edops.to_montgomery_pair(acc, ops.dctx)
+                    pts0.append(torch.stack([u, w]))
+                    xs += [ops.from_mont_int(v) for v in ops.unpack(u)]
+                    zs += [ops.from_mont_int(v) for v in ops.unpack(w)]
+                    ax += [ops.from_mont_int(v)
+                           for v in ops.unpack(acc[0])]
         if cfg.verbose >= 2:
             print(f"Stage 1 (edwards) completed, "
                   f"{self.counters.get('ptadds', 0)} window-adds, "
@@ -863,24 +889,20 @@ class ECMDriver:
         chunk AHEAD on a background thread so the host planner overlaps the
         device replay of the previous chunk.  The exposed wait lands in
         timings['stage2_plan_wait'], the cumulative sieve/pair wall in
-        timings['stage2_sieve'/'stage2_pair']."""
+        timings['stage2_sieve'/'stage2_pair'] (spans of the planner
+        thread, under no span of this one)."""
         bounds = self._stage2_chunk_bounds()
         # a dedicated stream: the planner thread must not race the driver's
         # chunk cache (PrimeStream.load mutates self.primes)
         stream = PrimeStream(self.stream.chunk)
-        timings = self.timings
+        rec = self.recorder
 
         def make(lo: int, hi: int):
-            t0 = time.time()
-            primes = stream.load(lo, hi + 1000 if hi == self.b2 else hi)
-            t1 = time.time()
-            cached = s2plan.pair(sp, primes, lo, hi,
-                                 verbose=self.cfg.verbose >= 2)
-            t2 = time.time()
-            timings["stage2_sieve"] = (timings.get("stage2_sieve", 0)
-                                       + t1 - t0)
-            timings["stage2_pair"] = timings.get("stage2_pair", 0) + t2 - t1
-            return cached
+            with rec.span("stage2_sieve"):
+                primes = stream.load(lo, hi + 1000 if hi == self.b2 else hi)
+            with rec.span("stage2_pair"):
+                return s2plan.pair(sp, primes, lo, hi,
+                                   verbose=self.cfg.verbose >= 2)
 
         pool = _cf.ThreadPoolExecutor(max_workers=1,
                                       thread_name_prefix="s2plan")
@@ -897,9 +919,8 @@ class ECMDriver:
                 ensure(i + 1)
                 cached = self._pairmaps.get((lo, hi))
                 if cached is None:
-                    t0 = time.time()
-                    cached = futs.pop(i).result()
-                    self._add_time("stage2_plan_wait", t0)
+                    with rec.span("stage2_plan_wait"):
+                        cached = futs.pop(i).result()
                     if (self._pairmap_entries + cached[0].size
                             <= PAIRMAP_CACHE_ENTRIES):
                         self._pairmaps[(lo, hi)] = cached
@@ -926,31 +947,32 @@ class ECMDriver:
         constant: one runner a shard on the batch's parameters, Pa group
         and pairmaps, the finds harvested in curve order and the counters
         taken once a batch, as tpu_ecm's one runner counts them."""
-        cfg = self.cfg
+        cfg, rec = self.cfg, self.recorder
         if not self.do_stage2:
             return
-        t0 = time.time()
-        # the global width: one device and n devices pair the same entries
-        sp = s2plan.make_stage2_params(cfg.b1, self.b2, nw=self.ctx.p.nw,
-                                       batch=len(sigmas))
-        g = self._pa_group(sp, [int(p.shape[-1]) for p in pts0])
-        runners = [s2exec.Stage2Runner(self.ctx, None, sp, pt, sc, ops=ops,
-                                       replay=self.replay, cross=cfg.cross,
-                                       pa_group=g)
-                   for pt, sc, ops in zip(pts0, s_const, self.shard_ops)]
-        self.pa_group = runners[0].pa_group
-        run_steps([r.init_steps() for r in runners])
-        self._sync()
-        self._add_time("stage2_init", t0)
-        t0 = time.time()
-        s2_pairs = s2_primes = 0
-        for map_v, map_u, amin0, stats in self._iter_pairmaps(sp):
-            s2_pairs += stats["pairs"]
-            s2_primes += stats["primes"]
-            run_steps([r.chunk_steps(map_v, map_u, amin0)
-                       for r in runners])
-        results = [r.result() for r in runners]
-        self._add_time("stage2", t0)
+        with rec.span("stage2_init"):
+            # the global width: one device and n devices pair the same
+            # entries
+            sp = s2plan.make_stage2_params(cfg.b1, self.b2,
+                                           nw=self.ctx.p.nw,
+                                           batch=len(sigmas))
+            g = self._pa_group(sp, [int(p.shape[-1]) for p in pts0])
+            runners = [s2exec.Stage2Runner(self.ctx, None, sp, pt, sc,
+                                           ops=ops, replay=self.replay,
+                                           cross=cfg.cross, pa_group=g,
+                                           recorder=rec)
+                       for pt, sc, ops in zip(pts0, s_const, self.shard_ops)]
+            self.pa_group = runners[0].pa_group
+            run_steps([r.init_steps() for r in runners])
+            self._sync()
+        with rec.span("stage2"):
+            s2_pairs = s2_primes = 0
+            for map_v, map_u, amin0, stats in self._iter_pairmaps(sp):
+                s2_pairs += stats["pairs"]
+                s2_primes += stats["primes"]
+                run_steps([r.chunk_steps(map_v, map_u, amin0)
+                           for r in runners])
+            results = [r.result() for r in runners]
         if cfg.verbose >= 1 and s2_primes:
             print(f"stage 2: {s2_pairs} pairs from {s2_primes} primes "
                   f"(ratio = {s2_pairs / s2_primes:.2f})")
@@ -1114,16 +1136,19 @@ def resume_stage2(path: str, b2: int, *,
         group = recs[base:base + batch]
         group += [group[-1]] * (-len(group) % ndev)
         sigmas = [r.sigma for r in group]
-        t0 = time.time()
-        states = d._init_state([suyama.CurveInit(
-            sigma=r.sigma, x_mont=ctx.to_mont_int(r.x % ctx.n_int),
-            z_mont=ctx.to_mont_int(r.z % ctx.n_int),
-            s_mont=build(ctx, r.sigma).s_mont) for r in group])
-        d._add_time("build", t0)
-        # leftover stage-1 factors first (gcd of the saved Z)
-        d._check_batch([r.z for r in group], sigmas, 1, b1, base)
-        d._run_stage2([st.pts[0] for st in states],
-                      [st.s_const for st in states], sigmas, base)
+        with d.recorder.span("batch"):
+            with d.recorder.span("build"):
+                with d.recorder.span("build_curves"):
+                    curves = [suyama.CurveInit(
+                        sigma=r.sigma,
+                        x_mont=ctx.to_mont_int(r.x % ctx.n_int),
+                        z_mont=ctx.to_mont_int(r.z % ctx.n_int),
+                        s_mont=build(ctx, r.sigma).s_mont) for r in group]
+                states = d._init_state(curves)
+            # leftover stage-1 factors first (gcd of the saved Z)
+            d._check_batch([r.z for r in group], sigmas, 1, b1, base)
+            d._run_stage2([st.pts[0] for st in states],
+                          [st.s_const for st in states], sigmas, base)
     return RunResult(n=n, work_modulus=ctx.n_int, factors=d.factors,
                      curves_run=len(recs), stage1_residues=[],
                      timings=dict(d.timings), counters=dict(d.counters))

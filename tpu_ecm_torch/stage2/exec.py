@@ -64,6 +64,7 @@ from ..curve import ops as curve_ops
 from ..curve import prac
 from ..limbs import kernels, layout, rns, rns_kernels, torch_ops
 from ..limbs.torch_ops import DeviceCtx
+from ..utils.spans import SpanRecorder
 from .plan import Stage2Params
 
 
@@ -548,14 +549,20 @@ def pa_group_for_ops(ops, sp: Stage2Params, b: int,
 
 
 class Stage2Runner:
-    """Per-batch stage-2 state machine (phases 2+3 of vececm)."""
+    """Per-batch stage-2 state machine (phases 2+3 of vececm).  Its host
+    crossings are spans of `recorder` (the driver's; one of its own when
+    none is given): stage2_wait, the wait for the card before a crossing;
+    stage2_convert, planes to ints and back; stage2_modinv, the host's
+    batch inverse."""
 
     def __init__(self, ctx: MontyCtx, dctx: Optional[DeviceCtx],
                  sp: Stage2Params, pt: torch.Tensor, s_const: torch.Tensor,
                  ops=None, replay: Optional[str] = None,
                  slab_rows: Optional[int] = None, cross: str = "inv",
-                 pa_group: Optional[int] = None):
+                 pa_group: Optional[int] = None,
+                 recorder: Optional[SpanRecorder] = None):
         self.ctx, self.sp = ctx, sp
+        self.recorder = recorder if recorder is not None else SpanRecorder()
         self.ops = ops if ops is not None else DigitOps(ctx, dctx)
         self.replay = replay_mode(replay, self.ops, cross)
         self.cross = cross
@@ -623,19 +630,31 @@ class Stage2Runner:
 
     # -- inversion helpers ------------------------------------------------
 
+    def _wait(self):
+        """Block until the runner's card has run what was launched: the
+        wait that the next copy to the host would make, timed apart."""
+        with self.recorder.span("stage2_wait"):
+            if self.pt.device.type == "cuda":
+                torch.cuda.synchronize(self.pt.device)
+
     def _harvest_inverse(self, total_plane: torch.Tensor) -> torch.Tensor:
         """ONE host modinv for a prefix-product total; harvests
         inversion-failure gcds into self.factors.  Returns the packed
         total-inverse plane."""
+        rec = self.recorder
         self.numinv += 1
-        inv_ints, fnd = host_batch_inverse(self.ctx,
-                                           self.ops.unpack(total_plane),
-                                           premul=self.ops.inv_premul)
+        self._wait()
+        with rec.span("stage2_convert"):
+            totals = self.ops.unpack(total_plane)
+        with rec.span("stage2_modinv"):
+            inv_ints, fnd = host_batch_inverse(self.ctx, totals,
+                                               premul=self.ops.inv_premul)
         for i, f in fnd.items():
             if f and i not in self.factors:
                 self.factors[i] = f
                 self.found_at[i] = self.numinv
-        return self.ops.pack(inv_ints)
+        with rec.span("stage2_convert"):
+            return self.ops.pack(inv_ints)
 
     def _invert_steps(self, xs: torch.Tensor, zs: torch.Tensor):
         """x_i/z_i in Montgomery form for stacked planes [K, rows, B]; one
@@ -820,8 +839,10 @@ class Stage2Runner:
     # -- harvest ----------------------------------------------------------
 
     def result(self) -> Stage2Result:
-        accs = [self.ops.from_mont_int(a)
-                for a in self.ops.unpack(self.acc)]
+        self._wait()
+        with self.recorder.span("stage2_convert"):
+            accs = [self.ops.from_mont_int(a)
+                    for a in self.ops.unpack(self.acc)]
         return Stage2Result(acc=accs, factors=dict(self.factors),
                             paired=self.paired, slots=self.slots,
                             ptadds=self.ptadds,
